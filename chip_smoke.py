@@ -1,27 +1,41 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's continuum main path once on one NVIDIA GPU.
+"""Run the PyTorch/CUDA port's continuum and RRL main paths once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
 
-1. kernels: build the epoch kernels of ``rajepy_tpu_torch/csrc/`` and hold
-   each against its plain PyTorch version on the card, on small random
-   inputs with fully empty tiles and negative travel times (1e-5 of the
-   plain map's maximum);
-2. flagship: the bundled example jet at 512^3 cells, float32
-   (``dtype='auto'``), 16 channels: ``continuum_rt_products`` at three
-   epochs, ``flux_ff`` with a FITS product and ``emission_measure``; then a
-   512^3 grid that holds no jet cell, which takes the full-grid branch of
-   the same entry points.  The launch counters are reset just before and
-   read just after, and each kernel must have been launched.  Outputs
-   must be finite, non-zero where the jet is, equal to the plain versions
-   on the same card tensors (2e-4), and a small model at float32 must
-   agree with the float64 plain path (2e-4);
-3. numbers: the GPU's name and power limit, n_act and the bytes the
-   dual-base kernel reads per epoch, the fill time and peak memory, the
-   warm per-epoch time of ``continuum_rt_products`` (CUDA events, median
-   of 30), and each kernel's time beside its plain version's.
+1. kernels: build every kernel of ``rajepy_tpu_torch/csrc/`` and hold each
+   against its plain PyTorch version on the card, on small random inputs:
+   the epoch kernels with fully empty tiles and negative travel times, the
+   RRL kernels with empty tiles, a ragged grid with an amp = 0 slab, and
+   channel sets that are all-far, all-near and mixed (1e-5 of the plain
+   map's maximum);
+2. main paths, each counted: the launch counters are reset just before a
+   path and read just after, and each of its kernels must have been
+   launched.
+   a. continuum: the bundled example jet at 512^3 cells, float32
+      (``dtype='auto'``), 16 channels: ``continuum_rt_products`` at three
+      epochs, ``flux_ff`` with a FITS product and ``emission_measure``;
+      then a 512^3 grid that holds no jet cell (the full-grid branch);
+   b. RRL: the same jet at 2.0 yr, H58a over the pipeline's band (nu0 +-
+      5e7 Hz, 1000 channels): ``rrl_rt_products`` LTE and non-LTE (table
+      departure coefficients), ``optical_depth_rrl`` on 16 channels over
+      nu0 (1 +- 1e-4) with a FITS product, ``flux_rrl`` on those 16
+      channels with the continuum, and the jet-free 512^3 grid through
+      ``rrl_rt_products`` (the full-grid RRL branch).
+   Outputs must be finite, non-zero where the jet is (all-zero on the
+   jet-free grid), equal to the plain versions on the same card tensors
+   (2e-4), and a small model at float32 must agree with the float64 plain
+   path (2e-4 continuum, 1e-3 RRL).  Each kernel is also held against its
+   plain version at the main path's shapes (1e-5).
+3. numbers: the GPU's name and power limit, n_act, fill time and peak
+   memory, the warm per-epoch time of ``continuum_rt_products`` and per-run
+   time of ``rrl_rt_products`` (CUDA events), device busy time under
+   ``torch.profiler``, and each kernel's time beside its plain version's
+   and its bound (the larger of bytes over 3.35 TB/s and float32
+   operations over 67 TFLOP/s, the H100 SXM data sheet's peaks).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Needs the repository
@@ -45,14 +59,35 @@ YEAR = 31536000.0
 N_GRID = 512
 FREQS = np.geomspace(3e8, 3e11, 16)
 EPOCHS_YR = (2.0, 2.1, 2.2)
+RRL_LINE = 'H58a'
+RRL_NCHAN = 1000          # the bundled pipeline's H58a run: 1e8 Hz / 1e5 Hz
+RRL_EPOCH_YR = 2.0
 KERNEL_RTOL = 1e-5
 MAP_RTOL = 2e-4
-SOURCE = 'rajepy_tpu_torch/csrc/epoch_maps.cu'
-REPLACES = {
-    'epoch_base_map_tiles': 'rajepy_tpu/ops/pallas_kernels.py:348',
-    'epoch_base_maps2_tiles': 'rajepy_tpu/ops/pallas_kernels.py:414',
-    'epoch_base_map_full': 'rajepy_tpu/ops/pallas_kernels.py:203',
+RRL_F32_RTOL = 1e-3
+# H100 SXM data sheet: HBM bandwidth and float32 (non-tensor) peak
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+# float32 operations per cell and channel of the RRL kernels, counted
+# from csrc/rrl_maps.cu (a division or an expm1f counts as one):
+# offset, stimulated factor, branch test and accumulation; then the
+# Weideman-16 core (16 Goertzel steps of 4) or the asymptotic wings
+RRL_OPS_COMMON, RRL_OPS_CORE, RRL_OPS_FAR = 10, 98, 33
+EPOCH_SRC = 'rajepy_tpu_torch/csrc/epoch_maps.cu'
+RRL_SRC = 'rajepy_tpu_torch/csrc/rrl_maps.cu'
+KERNELS = {   # name -> (source, TPU kernel replaced)
+    'epoch_base_map_tiles': (EPOCH_SRC,
+                             'rajepy_tpu/ops/pallas_kernels.py:348'),
+    'epoch_base_maps2_tiles': (EPOCH_SRC,
+                               'rajepy_tpu/ops/pallas_kernels.py:414'),
+    'epoch_base_map_full': (EPOCH_SRC,
+                            'rajepy_tpu/ops/pallas_kernels.py:203'),
+    'rrl_tiles_pallas': (RRL_SRC, 'rajepy_tpu/ops/pallas_kernels.py:942'),
+    'rrl_cube_pallas': (RRL_SRC, 'rajepy_tpu/ops/pallas_kernels.py:993'),
 }
+CONTINUUM_KERNELS = ('epoch_base_map_tiles', 'epoch_base_maps2_tiles',
+                     'epoch_base_map_full')
+RRL_KERNELS = ('rrl_tiles_pallas', 'rrl_cube_pallas')
 
 
 def rel_err(got, want):
@@ -95,6 +130,19 @@ def cuda_ms(fn, n_rep=30, batch=1, n_warm=3):
     return statistics.median(times)
 
 
+def timed_once(fn):
+    """(result, milliseconds) of one call of ``fn`` by CUDA events."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def device_busy(fn, n=10, n_top=8):
     """Per-call device busy time and wall time (ms) of ``n`` warm calls of
     ``fn`` under ``torch.profiler``, and the busiest kernels as
@@ -123,8 +171,56 @@ def device_busy(fn, n=10, n_top=8):
                               for k, (c, us) in top]
 
 
+def print_busy(label, fn, n):
+    busy_ms, wall_ms, top = device_busy(fn, n=n)
+    print(f"  torch.profiler, {n} warm {label}: device busy {busy_ms:.4f} ms "
+          f"of {wall_ms:.4f} ms per call (idle share "
+          f"{1.0 - busy_ms / wall_ms:.3f}); busiest kernels per call:")
+    for kname, n_calls, ms in top:
+        print(f"    {ms:.4f} ms  {n_calls:3d}x  {kname[:90]}")
+
+
+def bound(n_bytes, n_ops):
+    """(ms, 'bytes' or 'operations'): the least time for the work."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def rrl_bytes(args, out_shape):
+    """Bytes the RRL kernels must move for these inputs: the channel
+    offsets and amp once, the other four factors only where amp != 0
+    (elsewhere the contribution is 0 whatever they hold), the maps once."""
+    import torch
+    freqs_off, amp = args[0], args[1]
+    n_live = int(torch.count_nonzero(amp))
+    return (nbytes(freqs_off, amp) + 4 * 4 * n_live +
+            4 * int(np.prod(out_shape)))
+
+
+def rrl_ops(freqs_off, amp, rest, scale, yv, chunk=32):
+    """Float32 operations the RRL kernels need for these inputs: every
+    jet cell (amp != 0) and channel pays the common part plus the core or
+    the wings, as |x| + y falls (other cells contribute exactly 0)."""
+    import torch
+    live = amp != 0
+    r, s, y = rest[live], scale[live], yv[live]
+    n_far = 0
+    for c0 in range(0, freqs_off.numel(), chunk):
+        x = (freqs_off[c0:c0 + chunk, None] - r[None]) * s[None]
+        n_far += int(torch.count_nonzero(x.abs() + y[None] > 8.0))
+    n_pairs = int(r.numel()) * int(freqs_off.numel())
+    n_core = n_pairs - n_far
+    return (n_pairs * RRL_OPS_COMMON + n_core * RRL_OPS_CORE +
+            n_far * RRL_OPS_FAR), n_core, n_far
+
+
 def example_params(n=None, csize=None):
-    p = runpy.run_path(os.path.join(HERE, 'rajepy_tpu', 'data',
+    p = runpy.run_path(os.path.join(HERE, 'rajepy_tpu_torch', 'data',
                                     'example-model-params.py'))['params']
     p = copy.deepcopy(p)
     if n is not None:
@@ -150,13 +246,35 @@ def random_tiles(rng, n_act, device):
     return as_t(base), as_t(rng.random(shape)), as_t(tss), off
 
 
+def rrl_factors(rng, shape, device):
+    """Random RRL kernel factors (amp, rest, scale, y_voigt, hkT), with
+    |rest| <= 1e5 Hz, 1/scale in [2e5, 8e5] Hz and y_voigt in [0, 3]."""
+    import torch
+    amp = rng.random(shape) * 1e-3
+    amp[rng.random(shape) < 0.3] = 0.0
+    out = [amp, rng.uniform(-1e5, 1e5, shape),
+           1.0 / rng.uniform(2e5, 8e5, shape), rng.uniform(0.0, 3.0, shape),
+           4.8e-11 / rng.uniform(5e3, 2e4, shape)]
+    return [torch.as_tensor(a, dtype=torch.float32, device=device)
+            for a in out]
+
+
+# channel offsets from nu0 [Hz] that put every cell of rrl_factors in the
+# wings, every cell in the core, and a mix
+RRL_CHANNEL_SETS = {'all-far': (1e7, 5e7, 9), 'all-near': (-2e5, 2e5, 7),
+                    'mixed': (-4e6, 4e6, 21)}
+
+
 def phase_kernels(bursts):
     """Each kernel against its plain version on small card tensors."""
     import torch
     from rajepy_tpu_torch.ops import kernels as kn
     dev = torch.device('cuda')
     print("phase 1: kernels against their plain versions (small shapes)")
+    t0 = time.perf_counter()
     kn.build()
+    print(f"  build {time.perf_counter() - t0:.1f} s ({len(kn.sources())} "
+          f"sources, one nvcc each, in parallel)")
     if kn.BUILD_LOG:
         print("  nvcc: " + kn.BUILD_LOG.strip().replace('\n', '\n  nvcc: '))
     rng = np.random.default_rng(1)
@@ -189,6 +307,33 @@ def phase_kernels(bursts):
     got = kn.epoch_base_map_full(a, tss, t, bursts, off)
     want = kn.epoch_base_map_full_plain(a, tss, t, bursts, off)
     check('epoch_base_map_full', got, want, KERNEL_RTOL)
+
+    # RRL kernels: empty tiles, a ragged grid with an amp = 0 slab, and
+    # all-far / all-near / mixed channel sets (the three evaluators of the
+    # TPU kernels)
+    nu0 = 3.2e10
+    tiles = rrl_factors(rng, (5,) + kn.TILE, dev)
+    tiles[0][2] = 0.0
+    cube = rrl_factors(rng, shape, dev)
+    cube[0][:8] = 0.0
+    for label, (lo, hi, n) in RRL_CHANNEL_SETS.items():
+        fo = torch.linspace(lo, hi, n, dtype=torch.float32, device=dev)
+        _, n_core, n_far = rrl_ops(fo, *tiles[:4])
+        if (label == 'all-far') != (n_core == 0) or \
+                (label == 'all-near') != (n_far == 0):
+            raise AssertionError(f"channel set {label}: {n_core} core and "
+                                 f"{n_far} wing cell-channels")
+        got = kn.rrl_tile_partials(fo, *tiles, nu0)
+        want = kn.rrl_tile_partials_plain(fo, *tiles, nu0)
+        check(f'rrl_tiles_pallas, {label} ({n_core} core, {n_far} wing)',
+              got, want, KERNEL_RTOL)
+        if got[2].abs().max() != 0:
+            raise AssertionError("an empty tile gave a non-zero partial")
+        got = kn.rrl_cube(fo, *cube, nu0)
+        want = kn.rrl_cube_plain(fo, *cube, nu0)
+        check(f'rrl_cube_pallas, {label}', got, want, KERNEL_RTOL)
+        if got[:, :8].abs().max() != 0:
+            raise AssertionError("the amp = 0 slab gave non-zero maps")
     torch.cuda.synchronize()
 
 
@@ -203,6 +348,192 @@ def products_from_maps(jm, st, a_map, em):
     return em, taus, fluxes
 
 
+def read_launches(path):
+    from rajepy_tpu_torch.ops import kernels as kn
+    launches = dict(kn.LAUNCHES)
+    print(f"  launches in the {path} run: {launches}")
+    return launches
+
+
+def require_launched(launches, names, path):
+    for name in names:
+        if launches[name] < 1:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"{path} path")
+
+
+def finite_nonzero(arrs, what):
+    for arr in arrs:
+        if not (np.all(np.isfinite(arr)) and np.abs(arr).max() > 0):
+            raise AssertionError(f"non-finite or zero map: {what}")
+
+
+def all_zero(arrs, what):
+    for arr in arrs:
+        if not (np.all(np.isfinite(arr)) and np.all(arr == 0)):
+            raise AssertionError(f"the jet-free grid gave non-zero maps: "
+                                 f"{what}")
+
+
+def run_continuum(jm, empty, tmp):
+    """The continuum main path, counted (phase 2a)."""
+    import torch
+    from rajepy_tpu_torch.io import fits as fitsio
+    from rajepy_tpu_torch.ops import kernels as kn
+    from rajepy_tpu_torch.utils import profiling
+    print(f"phase 2a: continuum, {N_GRID}^3 x {len(FREQS)} channels, "
+          f"{len(jm._burst_tuple())} bursts, float32")
+    fill_key = 'grid fill (fields + fill factors)'
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kn.reset_launches()
+    t_wall = time.perf_counter()
+    profiling.collect_stage_times(True)
+    runs = []
+    for t_yr in EPOCHS_YR:
+        jm.time = t_yr * YEAR
+        runs.append(jm.continuum_rt_products(FREQS))
+    fits_path = os.path.join(tmp, 'flux.fits')
+    flux = jm.flux_ff(FREQS, savefits=fits_path)
+    em = jm.emission_measure()
+    fill_cold_s = profiling.stage_times()[fill_key]
+    profiling.collect_stage_times(True)
+    empty.time = EPOCHS_YR[0] * YEAR
+    e_em, e_taus, e_fl = empty.continuum_rt_products(FREQS)
+    e_em1 = empty.emission_measure()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t_wall
+    launches = read_launches('continuum')
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fill_warm_s = profiling.stage_times()[fill_key]
+    profiling.collect_stage_times(False)
+    require_launched(launches, CONTINUUM_KERNELS, 'continuum')
+
+    for (e, ta, fl), t_yr in zip(runs, EPOCHS_YR):
+        if e.shape != (N_GRID, N_GRID) or \
+                ta.shape != (len(FREQS), N_GRID, N_GRID) or \
+                fl.shape != ta.shape:
+            raise AssertionError(f"bad product shapes at {t_yr} yr")
+        finite_nonzero((e, ta, fl), f"continuum at {t_yr} yr")
+    if not np.allclose(flux, runs[-1][2], rtol=1e-6, atol=0) or \
+            not np.allclose(em, runs[-1][0], rtol=1e-6, atol=0):
+        raise AssertionError("flux_ff/emission_measure disagree with "
+                             "continuum_rt_products")
+    data, hdr = fitsio.read_fits(fits_path)
+    if data.shape != (len(FREQS), N_GRID, N_GRID) or \
+            not np.allclose(data, flux.transpose(0, 2, 1), rtol=1e-6,
+                            atol=0):
+        raise AssertionError("FITS product does not hold the flux maps")
+    all_zero((e_em, e_taus, e_fl, e_em1), 'continuum')
+    print(f"  products finite and non-zero; FITS {hdr['NAXIS1']}x"
+          f"{hdr['NAXIS2']}x{hdr['NAXIS3']} {hdr['BUNIT']}")
+    return launches, dict(fill_cold_s=fill_cold_s, fill_warm_s=fill_warm_s,
+                          wall_s=wall_s, peak_gb=peak_gb)
+
+
+def rrl_band(nu0):
+    return (np.linspace(nu0 - 5e7, nu0 + 5e7, RRL_NCHAN),
+            np.linspace(nu0 * (1 - 1e-4), nu0 * (1 + 1e-4), 16))
+
+
+def run_rrl(jm, empty, tmp):
+    """The RRL main path, counted (phase 2b)."""
+    import torch
+    from rajepy_tpu_torch.io import fits as fitsio
+    from rajepy_tpu_torch.ops import kernels as kn
+    from rajepy_tpu_torch.ops import radtrans as rt
+    nu0 = rt.RRLCoeffs(RRL_LINE).nu0
+    band, core16 = rrl_band(nu0)
+    print(f"phase 2b: RRL {RRL_LINE} (nu0 {nu0:.6e} Hz), {N_GRID}^3 x "
+          f"{RRL_NCHAN} channels over nu0 +- 5e7 Hz, float32, "
+          f"{RRL_EPOCH_YR} yr")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kn.reset_launches()
+    t_wall = time.perf_counter()
+    jm.time = RRL_EPOCH_YR * YEAR
+    em, tau_l, flux = jm.rrl_rt_products(RRL_LINE, band, contsub=False)
+    n_em, n_tau, n_flux = jm.rrl_rt_products(RRL_LINE, band, contsub=False,
+                                             lte=False)
+    fits_path = os.path.join(tmp, 'tau_rrl.fits')
+    tau16 = jm.optical_depth_rrl(RRL_LINE, core16, savefits=fits_path)
+    flux16 = jm.flux_rrl(RRL_LINE, core16, contsub=False)
+    empty.time = RRL_EPOCH_YR * YEAR
+    e_em, e_tau, e_flux = empty.rrl_rt_products(RRL_LINE, band)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t_wall
+    launches = read_launches('RRL')
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require_launched(launches, RRL_KERNELS, 'RRL')
+
+    shape = (RRL_NCHAN, N_GRID, N_GRID)
+    for name, arr in (('tau_l', tau_l), ('flux', flux), ('nonlte tau', n_tau),
+                      ('nonlte flux', n_flux)):
+        if arr.shape != shape:
+            raise AssertionError(f"RRL {name}: shape {arr.shape}")
+    finite_nonzero((em, tau_l, flux, n_em, n_tau, n_flux, tau16, flux16),
+                   'RRL')
+    if tau_l.min() < 0:
+        raise AssertionError("negative LTE line opacity")
+    b1, b2 = jm.departure_coefficients(RRL_LINE)
+    if np.array_equal(n_tau, tau_l):
+        raise AssertionError("the non-LTE opacity equals the LTE one")
+    data, hdr = fitsio.read_fits(fits_path)
+    if data.shape != (16, N_GRID, N_GRID) or \
+            not np.allclose(data, tau16.transpose(0, 2, 1), rtol=1e-6,
+                            atol=0):
+        raise AssertionError("FITS product does not hold the RRL tau maps")
+    all_zero((e_em, e_tau, e_flux), 'RRL')
+    line_peak = np.unravel_index(np.argmax(tau_l), tau_l.shape)
+    print(f"  products finite and non-zero; max tau_L {tau_l.max():.4e} at "
+          f"channel {line_peak[0]}; non-LTE b_n1 = {b1:.6f}, b_n2 = "
+          f"{b2:.6f}; FITS {hdr['NAXIS1']}x{hdr['NAXIS2']}x{hdr['NAXIS3']} "
+          f"{hdr['BUNIT']}; jet-free grid all zero")
+    return launches, dict(wall_s=wall_s, peak_gb=peak_gb, band=band,
+                          core16=core16, nu0=nu0)
+
+
+def rrl_tile_inputs(jm, freqs):
+    """The tile kernel's inputs as the model's RRL path makes them."""
+    from rajepy_tpu_torch.ops import radtrans as rt
+    temp_t, vy_t, ndxi_t, ds_t, inside_t, tss_t, seg = jm._rrl_tiles()
+    n_es_t = ndxi_t * jm._chi_from_packed(tss_t, jm.time)
+    return rt.rrl_kernel_inputs(rt.RRLCoeffs(RRL_LINE), jm._freqs(freqs),
+                                temp_t, n_es_t, vy_t, ds_t, inside_t), seg
+
+
+def rrl_full_inputs(jm, freqs):
+    """The cube kernel's inputs from the model's full grid."""
+    from rajepy_tpu_torch.ops import radtrans as rt
+    f = jm._ensure_fields()
+    n_es = jm._nd_chi(f, jm.time) * f.xi
+    ds = rt.path_length_cm(f.ff, f.area, jm.csize)
+    return rt.rrl_kernel_inputs(rt.RRLCoeffs(RRL_LINE), jm._freqs(freqs),
+                                f.temp, n_es, f.vy, ds, f.inside)
+
+
+def rrl_products_plain(jm, band):
+    """rrl_rt_products(contsub=False) through the plain versions of the
+    tile kernels, on the model's own card tensors."""
+    from rajepy_tpu_torch.ops import kernels as kn
+    from rajepy_tpu_torch.ops import radtrans as rt
+    inputs, seg = rrl_tile_inputs(jm, band)
+    tau_l = kn.segment_tile_maps(kn.rrl_tile_partials_plain(*inputs), seg,
+                                 jm.nx, jm.nz)
+    st = jm._rt_static()
+    a_map, _ = kn.epoch_base_maps2_tiles_plain(
+        st.a_t, st.em_t, st.tss_t, st.seg, jm.time, jm._burst_tuple(),
+        jm.nx, jm.nz, jm._ts_pack_offset)
+    t_0, reyn, csize, dist = jm._rt_constants()
+    freqs = jm._freqs(band)
+    tau_c = rt.tau_ff_channel_scale(freqs, t_0, reyn)[:, None, None] * \
+        a_map[None]
+    ints = rt.intensity_rrl_maps(freqs, st.tbar, tau_c, tau_l, st.any_in)
+    fluxes = ints * rt.flux_scale_jy(csize, dist) + rt.flux_ff_maps(
+        freqs, tau_c, st.tbar, st.any_in, csize, dist)
+    return tau_l, fluxes, inputs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -210,14 +541,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     from rajepy_tpu_torch import JetModel, Log
-    from rajepy_tpu_torch.io import fits as fitsio
     from rajepy_tpu_torch.ops import kernels as kn
-    from rajepy_tpu_torch.utils import profiling
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     smi = smi.splitlines()[0]
+    t_script = time.perf_counter()
 
     with tempfile.TemporaryDirectory() as tmp:
         log = Log(os.path.join(tmp, 'smoke.log'), verbose=False)
@@ -228,67 +558,16 @@ def main() -> int:
         bursts = jm._burst_tuple()
         phase_kernels(bursts)
 
-        # ---------------- phase 2: the main path, counted ---------------- #
-        print(f"phase 2: flagship {N_GRID}^3 x {len(FREQS)} channels, "
-              f"{len(bursts)} bursts, float32")
+        # ---------------- phase 2: the main paths, counted -------------- #
         empty = JetModel(example_params((N_GRID,) * 3, csize=1e-3),
                          log=log, dtype='auto', device='cuda')
-        fill_key = 'grid fill (fields + fill factors)'
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kn.reset_launches()
-        t_wall = time.perf_counter()
-        profiling.collect_stage_times(True)
-        runs = []
-        for t_yr in EPOCHS_YR:
-            jm.time = t_yr * YEAR
-            runs.append(jm.continuum_rt_products(FREQS))
-        fits_path = os.path.join(tmp, 'flux.fits')
-        flux = jm.flux_ff(FREQS, savefits=fits_path)
-        em = jm.emission_measure()
-        fill_cold_s = profiling.stage_times()[fill_key]
-        profiling.collect_stage_times(True)
-        empty.time = EPOCHS_YR[0] * YEAR
-        e_em, e_taus, e_fl = empty.continuum_rt_products(FREQS)
-        e_em1 = empty.emission_measure()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t_wall
-        launches = dict(kn.LAUNCHES)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        fill_warm_s = profiling.stage_times()[fill_key]
-        profiling.collect_stage_times(False)
-        print(f"  launches in the main-path run: {launches}")
-        for name, n in launches.items():
-            if n < 1:
-                raise AssertionError(f"kernel {name} was not launched by "
-                                     f"the main path")
+        launches, cont = run_continuum(jm, empty, tmp)
+        rrl_launches, rrl = run_rrl(jm, empty, tmp)
+        launches.update({k: rrl_launches[k] for k in RRL_KERNELS})
+        band, core16 = rrl['band'], rrl['core16']
 
-        # outputs: shapes, finite, non-zero where the jet is
-        for (e, ta, fl), t_yr in zip(runs, EPOCHS_YR):
-            if e.shape != (N_GRID, N_GRID) or \
-                    ta.shape != (len(FREQS), N_GRID, N_GRID) or \
-                    fl.shape != ta.shape:
-                raise AssertionError(f"bad product shapes at {t_yr} yr")
-            for arr in (e, ta, fl):
-                if not (np.all(np.isfinite(arr)) and arr.max() > 0):
-                    raise AssertionError(f"non-finite or zero map at "
-                                         f"{t_yr} yr")
-        if not np.allclose(flux, runs[-1][2], rtol=1e-6, atol=0) or \
-                not np.allclose(em, runs[-1][0], rtol=1e-6, atol=0):
-            raise AssertionError("flux_ff/emission_measure disagree with "
-                                 "continuum_rt_products")
-        data, hdr = fitsio.read_fits(fits_path)
-        if data.shape != (len(FREQS), N_GRID, N_GRID) or \
-                not np.allclose(data, flux.transpose(0, 2, 1), rtol=1e-6,
-                                atol=0):
-            raise AssertionError("FITS product does not hold the flux maps")
-        for arr in (e_em, e_taus, e_fl, e_em1):
-            if not (np.all(np.isfinite(arr)) and np.all(arr == 0)):
-                raise AssertionError("the jet-free grid gave non-zero maps")
-        print(f"  products finite and non-zero; FITS {hdr['NAXIS1']}x"
-              f"{hdr['NAXIS2']}x{hdr['NAXIS3']} {hdr['BUNIT']}")
-
-        # the same card tensors through the plain versions (last epoch)
+        # continuum: the same card tensors through the plain versions
+        jm.time = EPOCHS_YR[-1] * YEAR
         st = jm._rt_static()
         off = jm._ts_pack_offset
         t = jm.time
@@ -300,7 +579,8 @@ def main() -> int:
         for name, g, w in zip(('em', 'tau', 'flux'), got, want):
             check(f"flagship {name} vs plain", g, w, MAP_RTOL)
 
-        # each kernel against its plain version at the main path's shapes
+        # each continuum kernel against its plain version at the main
+        # path's shapes
         errs = {}
         g1 = kn.epoch_tile_partials(st.a_t, st.tss_t, t, bursts, off)
         w1 = kn.epoch_tile_partials_plain(st.a_t, st.tss_t, t, bursts, off)
@@ -319,15 +599,59 @@ def main() -> int:
         errs['epoch_base_map_full'] = check(
             'epoch_base_map_full at main-path shape', g3, w3, KERNEL_RTOL)
 
-        # a small model: float32 kernels against the float64 plain path
+        # RRL: the flagship's tau_L and flux through the plain versions
+        jm.time = RRL_EPOCH_YR * YEAR
+        _, tau_k, flux_k = jm.rrl_rt_products(RRL_LINE, band, contsub=False,
+                                              as_numpy=False)
+        (tau_p, flux_p, k4_in), plain4_ms = timed_once(
+            lambda: rrl_products_plain(jm, band))
+        check(f"flagship RRL tau_L ({RRL_NCHAN} ch) vs plain", tau_k, tau_p,
+              MAP_RTOL)
+        check(f"flagship RRL flux ({RRL_NCHAN} ch) vs plain", flux_k,
+              flux_p, MAP_RTOL)
+        del tau_k, flux_k, tau_p, flux_p
+        parts_p, plain4_ms = timed_once(
+            lambda: kn.rrl_tile_partials_plain(*k4_in))
+        parts_k = kn.rrl_tile_partials(*k4_in)
+        errs['rrl_tiles_pallas'] = check(
+            f'rrl_tiles_pallas at main-path shape ({RRL_NCHAN} ch)',
+            parts_k, parts_p, KERNEL_RTOL)
+        del parts_k, parts_p
+        # the cube kernel on the flagship's full-grid factors (real jet
+        # cells), at 16 and at RRL_NCHAN channels
+        k5_in16 = rrl_full_inputs(jm, core16)
+        g5 = kn.rrl_cube(*k5_in16)
+        w5 = kn.rrl_cube_plain(*k5_in16)
+        check(f'rrl_cube_pallas, {N_GRID}^3 flagship factors, 16 ch', g5,
+              w5, KERNEL_RTOL)
+        del g5, w5
+        k5_in = ((jm._freqs(band) - rrl['nu0']).to(torch.float32),
+                 *k5_in16[1:])
+        g5 = kn.rrl_cube(*k5_in)
+        w5, plain5_ms = timed_once(lambda: kn.rrl_cube_plain(*k5_in))
+        errs['rrl_cube_pallas'] = check(
+            f'rrl_cube_pallas, {N_GRID}^3 flagship factors, {RRL_NCHAN} ch',
+            g5, w5, KERNEL_RTOL)
+        del g5, w5
+
+        # small models: float32 kernels against the float64 plain path
         small = []
+        rrl_small = []
         for dt in (torch.float32, torch.float64):
             m = JetModel(example_params((64, 160, 64)), log=log, dtype=dt,
                          device='cuda')
             m.time = EPOCHS_YR[0] * YEAR
             small.append(m.continuum_rt_products(FREQS, as_numpy=False))
+            small_band = np.concatenate([band[::50], core16])
+            rrl_small.append(m.rrl_rt_products(RRL_LINE, small_band,
+                                               contsub=False,
+                                               as_numpy=False))
         for name, g, w in zip(('em', 'tau', 'flux'), *small):
             check(f"64x160x64 float32 {name} vs float64", g, w, MAP_RTOL)
+        for name, g, w in zip(('em', 'tau_L', 'flux'), *rrl_small):
+            check(f"64x160x64 float32 RRL {name} vs float64", g, w,
+                  RRL_F32_RTOL)
+        del small, rrl_small
 
         # ---------------- phase 3: numbers ---------------- #
         print("phase 3: numbers")
@@ -337,10 +661,15 @@ def main() -> int:
               f"{(N_GRID // 8) * (N_GRID // 64) * (N_GRID // 128)} tiles; "
               f"dual-base kernel reads {3 * n_act * tile_bytes} bytes "
               f"per epoch")
-        print(f"  grid fill {fill_cold_s:.4f} s (first in the process, "
-              f"kernel modules loading), {fill_warm_s:.4f} s (second "
-              f"{N_GRID}^3 fill); main-path run {wall_s:.4f} s (two fills, "
-              f"statics, all products); peak memory {peak_gb:.3f} GB")
+        print(f"  grid fill {cont['fill_cold_s']:.4f} s (first in the "
+              f"process, kernel modules loading), {cont['fill_warm_s']:.4f} "
+              f"s (second {N_GRID}^3 fill); continuum run "
+              f"{cont['wall_s']:.4f} s (two fills, statics, all products); "
+              f"peak memory {cont['peak_gb']:.3f} GB")
+        print(f"  RRL run {rrl['wall_s']:.4f} s (tiles, LTE and non-LTE "
+              f"{RRL_NCHAN}-channel products, 16-channel tau and flux, the "
+              f"jet-free grid); peak memory {rrl['peak_gb']:.3f} GB")
+        jm.time = EPOCHS_YR[-1] * YEAR
         epoch_ms = cuda_ms(lambda: jm.continuum_rt_products(
             FREQS, as_numpy=False))
         t0 = time.perf_counter()
@@ -351,45 +680,108 @@ def main() -> int:
               f"(CUDA events, median of 30, device tensors out); "
               f"{host_ms:.4f} ms per epoch with the numpy copy-out (host "
               f"clock, mean of 10)")
-        busy_ms, wall_ms, top = device_busy(
-            lambda: jm.continuum_rt_products(FREQS, as_numpy=False), n=10)
-        print(f"  torch.profiler, 10 warm epochs: device busy "
-              f"{busy_ms:.4f} ms of {wall_ms:.4f} ms per epoch (idle share "
-              f"{1.0 - busy_ms / wall_ms:.3f}); busiest kernels per epoch:")
-        for kname, n_calls, ms in top:
-            print(f"    {ms:.4f} ms  {n_calls:3d}x  {kname[:90]}")
-        timed = {
+        print_busy('continuum epochs', lambda: jm.continuum_rt_products(
+            FREQS, as_numpy=False), 10)
+        jm.time = RRL_EPOCH_YR * YEAR
+        rrl_ms = cuda_ms(lambda: jm.rrl_rt_products(
+            RRL_LINE, band, contsub=False, as_numpy=False), n_rep=10,
+            n_warm=1)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            jm.rrl_rt_products(RRL_LINE, band, contsub=False)
+        rrl_host_ms = (time.perf_counter() - t0) / 3 * 1e3
+        print(f"  rrl_rt_products warm ({RRL_NCHAN} ch, LTE): {rrl_ms:.4f} "
+              f"ms per run (CUDA events, median of 10, device tensors out); "
+              f"{rrl_host_ms:.4f} ms per run with the numpy copy-out (host "
+              f"clock, mean of 3)")
+        print_busy(f'rrl_rt_products runs ({RRL_NCHAN} ch)',
+                   lambda: jm.rrl_rt_products(RRL_LINE, band, contsub=False,
+                                              as_numpy=False), 3)
+
+        rows = []
+        # continuum kernels: plain, kernel, kernel, plain; batches of 20
+        cont_work = {
             'epoch_base_map_tiles': (
                 lambda: kn.epoch_tile_partials(st.a_t, st.tss_t, t, bursts,
                                                off),
                 lambda: kn.epoch_tile_partials_plain(st.a_t, st.tss_t, t,
-                                                     bursts, off)),
+                                                     bursts, off),
+                nbytes(st.a_t, st.tss_t, g1),
+                st.a_t.numel() * (5 + 6 * len(bursts))),
             'epoch_base_maps2_tiles': (
                 lambda: kn.epoch_tile_partials2(st.a_t, st.em_t, st.tss_t,
                                                 t, bursts, off),
                 lambda: kn.epoch_tile_partials2_plain(
-                    st.a_t, st.em_t, st.tss_t, t, bursts, off)),
+                    st.a_t, st.em_t, st.tss_t, t, bursts, off),
+                nbytes(st.a_t, st.em_t, st.tss_t, g1, g1),
+                st.a_t.numel() * (7 + 6 * len(bursts))),
             'epoch_base_map_full': (
                 lambda: kn.epoch_base_map_full(st.a, st.ts_signed, t,
                                                bursts, off),
                 lambda: kn.epoch_base_map_full_plain(st.a, st.ts_signed, t,
-                                                     bursts, off)),
+                                                     bursts, off),
+                nbytes(st.a, st.ts_signed, g3),
+                st.a.numel() * (5 + 6 * len(bursts))),
         }
-        rows = []
-        for name, (kfn, pfn) in timed.items():
-            # plain, kernel, kernel, plain; batches of 20 calls
+        for name, (kfn, pfn, n_b, n_ops) in cont_work.items():
             p1, k1 = cuda_ms(pfn, batch=20), cuda_ms(kfn, batch=20)
             k2, p2 = cuda_ms(kfn, batch=20), cuda_ms(pfn, batch=20)
+            b_ms, b_by = bound(n_b, n_ops)
             print(f"  {name}: kernel {k1:.4f} / {k2:.4f} ms, plain "
-                  f"{p1:.4f} / {p2:.4f} ms (median of 30 batches of 20)")
+                  f"{p1:.4f} / {p2:.4f} ms (median of 30 batches of 20); "
+                  f"bound {b_ms:.4f} ms by {b_by} ({n_b} B, {n_ops} ops), "
+                  f"{b_ms / k1:.3f} of it")
+            rows.append((name, k1, p1, b_ms, b_by))
+
+        # RRL kernels at 16 and RRL_NCHAN channels: kernel, plain, kernel
+        k4_in16, _ = rrl_tile_inputs(jm, core16)
+        rrl_work = {
+            'rrl_tiles_pallas': (kn.rrl_tile_partials,
+                                 kn.rrl_tile_partials_plain,
+                                 {16: k4_in16, RRL_NCHAN: k4_in},
+                                 {RRL_NCHAN: plain4_ms},
+                                 lambda s, c: (s[0], c, 1024)),
+            'rrl_cube_pallas': (kn.rrl_cube, kn.rrl_cube_plain,
+                                {16: k5_in16, RRL_NCHAN: k5_in},
+                                {RRL_NCHAN: plain5_ms},
+                                lambda s, c: (c, N_GRID, N_GRID)),
+        }
+        for name, (kfn, pfn, inputs, plain_once, out_shape) in \
+                rrl_work.items():
+            for n_chan, args in inputs.items():
+                n_rep = 10 if n_chan == RRL_NCHAN else 30
+                k1 = cuda_ms(lambda: kfn(*args), n_rep=n_rep, n_warm=1)
+                if n_chan in plain_once:
+                    p1, how = plain_once[n_chan], 'one call'
+                else:
+                    p1, how = cuda_ms(lambda: pfn(*args), n_rep=3,
+                                      n_warm=1), 'median of 3'
+                k2 = cuda_ms(lambda: kfn(*args), n_rep=n_rep, n_warm=0)
+                shape = out_shape(args[1].shape, n_chan)
+                n_b = rrl_bytes(args, shape)
+                n_ops, n_core, n_far = rrl_ops(*args[:5])
+                b_ms, b_by = bound(n_b, n_ops)
+                print(f"  {name}, {n_chan} ch: kernel {k1:.4f} / {k2:.4f} "
+                      f"ms (median of {n_rep}), plain {p1:.4f} ms ({how}); "
+                      f"bound {b_ms:.4f} ms by {b_by} ({n_b} B, {n_ops} ops: "
+                      f"{n_core} core and {n_far} wing cell-channels), "
+                      f"{b_ms / k1:.3f} of it")
+                if n_chan == RRL_NCHAN:
+                    rows.append((name, k1, p1, b_ms, b_by))
+
+        print(f"  script time before the summary "
+              f"{time.perf_counter() - t_script:.1f} s")
+        print(smi)
+        out = []
+        for name, k_ms, p_ms, b_ms, b_by in rows:
             rel, abs_err = errs[name]
-            rows.append({'name': name, 'route': 'cuda', 'source': SOURCE,
-                         'replaces': REPLACES[name],
-                         'launches': launches[name],
-                         'max_abs_err': abs_err, 'max_rel_err': rel,
-                         'ms': k1, 'plain_ms': p1})
-        print(f"  gpu: {smi}")
-        print(json.dumps({'kernels': rows}))
+            source, replaces = KERNELS[name]
+            out.append({'name': name, 'route': 'cuda', 'source': source,
+                        'replaces': replaces, 'launches': launches[name],
+                        'max_abs_err': abs_err, 'max_rel_err': rel,
+                        'ms': k_ms, 'plain_ms': p_ms, 'bound_ms': b_ms,
+                        'bound_by': b_by, 'library_ms': None})
+        print(json.dumps({'kernels': out}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

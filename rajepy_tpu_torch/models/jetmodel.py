@@ -1,8 +1,8 @@
-"""JetModel — the physical jet model and its continuum radiative-transfer
-products (PyTorch port of the continuum surface of
-rajepy_tpu.models.jetmodel).
+"""JetModel — the physical jet model and its continuum and radio-
+recombination-line radiative-transfer products (PyTorch port of the
+continuum and RRL surface of rajepy_tpu.models.jetmodel).
 
-* the params dict (same schema as rajepy_tpu/data/example-model-params.py,
+* the params dict (same schema as data/example-model-params.py,
   ``n_0`` derived) defines a static model; its grids are filled once by
   :func:`.fields.compute_static_fields` on the model's ``device``;
 * ejection bursts are data (:mod:`.ejection`), so the burst factor is one
@@ -20,8 +20,15 @@ of :mod:`..ops.kernels` (on CUDA tensors the hand-written kernels, on CPU
 tensors their plain versions); a float64 model, or one without bursts,
 takes the plain sum over y.
 
-The RRL, emergent-scan, diagnostic and velocity members of the JAX model
-are not ported yet.
+The RRL line opacity: a float32 model evaluates the channel-independent
+opacity factors on the jet-occupied tiles and streams them through the RRL
+tile kernel (or, when no tile is active, the full grid through the RRL
+cube kernel), with or without bursts; a float64 model takes the plain
+per-channel loop.  Non-LTE products take departure coefficients from the
+bundled case-B table (:mod:`..ops.departure`) or from the caller.
+
+The emergent-scan, diagnostic and velocity members of the JAX model are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -36,10 +43,12 @@ import torch
 from .. import constants as cnsts
 from ..io import fits as fitsio
 from ..ops import astronomy as astro
+from ..ops import departure as dep
 from ..ops import geometry as mgeom
 from ..ops import kernels as kn
 from ..ops import physics as mphys
 from ..ops import radtrans as rt
+from ..ops import rrls as mrrl
 from ..utils import misc as miscf
 from ..utils.logger import Log
 from ..utils.profiling import KernelTimer
@@ -217,6 +226,9 @@ class JetModel:
         self._fields: Optional[StaticFields] = None
         self._rt_static_cache: Optional[RTStatic] = None
         self._tile_ids_cache = None
+        self._rrl_tiles_cache = None
+        self._char_cond_cache: Dict[float, tuple] = {}
+        self._departure_cache: Dict[tuple, tuple] = {}
         self._ts_pack_offset = 1.0  # finalised by _rt_static (ts can go
         #                             negative off-axis)
         self._has_bursts = (len(spec_r.t_0) + len(spec_b.t_0)) > 0
@@ -277,6 +289,9 @@ class JetModel:
                                        inside=inside)
         self._rt_static_cache = None  # derived from ff/area: recompute
         self._tile_ids_cache = None
+        self._rrl_tiles_cache = None
+        self._char_cond_cache = {}
+        self._departure_cache = {}
 
     # ------------------------------------------------------------------ #
     # Simple properties (classes.py:363-381, 1654-1702)
@@ -563,6 +578,324 @@ class JetModel:
         """Free-free flux [Jy/pixel] (classes.py:1498-1541)."""
         scalar = np.isscalar(freq)
         fluxes = self._continuum_product('flux', freq).cpu().numpy()
+        if savefits:
+            self._save_rt_fits(fluxes, savefits, 'flux', freq, scalar, True)
+        return fluxes[0] if scalar else fluxes
+
+    # ------------------------------------------------------------------ #
+    # Radio recombination lines (jetmodel.py:1158-1595)
+    # ------------------------------------------------------------------ #
+    def _use_fused_rrl(self) -> bool:
+        """A float32 model takes the RRL kernels (the tile kernel on
+        compacted tiles, the cube kernel on the full grid when no tile is
+        active) on either device, with or without bursts; float64 takes
+        the plain per-channel loop (jetmodel.py:1158-1169)."""
+        return self._dtype == torch.float32
+
+    def _nd_chi(self, f: StaticFields, t: float):
+        """Time-modulated number density (masked zeros)."""
+        if self._has_bursts:
+            return f.nd * ej.chi_field(f.red, t - f.ts, self._spec_r,
+                                       self._spec_b)
+        return f.nd
+
+    def _chi_from_packed(self, tss, t: float):
+        """Burst factor recovered from packed launch-time tiles (side =
+        sign, time = |tss| - offset)."""
+        lt = t - (tss.abs() - self._ts_pack_offset)
+        return ej.chi_field(tss < 0.0, lt, self._spec_r, self._spec_b)
+
+    def _rrl_tiles(self):
+        """Cached compacted jet-occupied float32 field tiles for the RRL
+        tile kernel: (temp_t, vy_t, ndxi_t, ds_t, inside_t, tss_t, seg), or
+        None when the grid holds no jet cell (jetmodel.py:1181-1219).  The
+        packed launch-time tiles of the epoch compaction are reused when
+        it made them."""
+        if self._rrl_tiles_cache is None:
+            f = self._ensure_fields()
+            st = self._rt_static()
+            ids, seg = self._active_tile_ids()
+            if ids.size == 0:
+                self._rrl_tiles_cache = ()
+            else:
+                f32 = torch.float32
+                bx, yc, bz = kn.TILE
+                tile = dict(block_x=bx, block_z=bz, y_chunk=yc)
+                ds = rt.path_length_cm(f.ff, f.area, self.csize)
+                tss_t = st.tss_t if st.tss_t is not None else \
+                    kn.gather_tiles(st.ts_signed.to(f32), ids, fill=1.0,
+                                    **tile)
+                self._rrl_tiles_cache = (
+                    kn.gather_tiles(f.temp.to(f32), ids, fill=1.0, **tile),
+                    kn.gather_tiles(f.vy.to(f32), ids, **tile),
+                    kn.gather_tiles((f.nd * f.xi).to(f32), ids, **tile),
+                    kn.gather_tiles(ds.to(f32), ids, **tile),
+                    kn.gather_tiles(f.inside, ids, fill=False, **tile),
+                    tss_t,
+                    torch.as_tensor(seg, dtype=torch.int64,
+                                    device=self._device))
+        return self._rrl_tiles_cache or None
+
+    @staticmethod
+    def _nonlte_tau(st: RTStatic, freqs, tau_l, b_n1, b_n2):
+        """Stimulated-corrected non-LTE line opacity b_n1 beta tau_L*
+        (G&S 2.141), from the one ops-level definition."""
+        return rt.tau_rrl_maps_nonlte(freqs, st.tbar, st.any_in, tau_l,
+                                      b_n1, b_n2)
+
+    def _tau_rrl_dispatch(self, coeffs, tiles, fused: bool,
+                          f: StaticFields, t: float, freqs):
+        """The RRL line-opacity dispatch shared by :meth:`_rrl_kernel` and
+        :meth:`rrl_rt_products` (jetmodel.py:1361-1385): compacted tiles
+        through the tile kernel -> the full grid through the cube kernel
+        (float32) -> the plain per-channel loop (float64)."""
+        if tiles is not None:
+            temp_t, vy_t, ndxi_t, ds_t, inside_t, tss_t, seg = tiles
+            if self._has_bursts:
+                n_es_t = ndxi_t * self._chi_from_packed(tss_t, t)
+            else:
+                n_es_t = ndxi_t
+            return rt.tau_rrl_maps_tiles(coeffs, freqs, temp_t, n_es_t, vy_t,
+                                         ds_t, inside_t, seg, self._nx,
+                                         self._nz)
+        n_es = self._nd_chi(f, t) * f.xi
+        ds = rt.path_length_cm(f.ff, f.area, self.csize)
+        if fused:
+            return rt.tau_rrl_maps_fused(coeffs, freqs, f.temp, n_es, f.vy,
+                                         ds, f.inside)
+        return rt.tau_rrl_maps(coeffs, freqs, f.temp, n_es, f.vy, ds,
+                               f.inside)
+
+    def _rrl_kernel(self, line: str, kind: str, freqs, b_n1, b_n2,
+                    collapse: bool = True, nonlte: bool = False):
+        """RRL tau (``kind='tau'``) or intensity product for the channels
+        ``freqs`` at the model time (jetmodel.py:1231-1287).  ``b_n1``/
+        ``b_n2`` are the departure coefficients of the non-LTE mode (1.0
+        for LTE)."""
+        t_0, reyn, csize, _ = self._rt_constants()
+        coeffs = rt.RRLCoeffs(line)
+        fused = self._use_fused_rrl()
+        f = self._ensure_fields()
+        st = self._rt_static()
+        t = self.time
+        if kind == 'tau' and not collapse:
+            n_es = self._nd_chi(f, t) * f.xi
+            ds = rt.path_length_cm(f.ff, f.area, csize)
+            return rt.tau_rrl_cube(coeffs, freqs, f.temp, n_es, f.vy, ds,
+                                   f.inside)
+        tiles = self._rrl_tiles() if fused else None
+        tau_l = self._tau_rrl_dispatch(coeffs, tiles, fused, f, t, freqs)
+        if kind == 'tau':
+            if not nonlte:
+                return tau_l
+            return self._nonlte_tau(st, freqs, tau_l, b_n1, b_n2)
+        if fused:
+            # continuum opacity from the cached factorised base
+            scale = rt.tau_ff_channel_scale(freqs, t_0, reyn)
+            tau_c = scale[:, None, None] * \
+                self._epoch_base_map('a', f, st, t)[None]
+        else:
+            n_es = self._nd_chi(f, t) * f.xi
+            ds = rt.path_length_cm(f.ff, f.area, csize)
+            tau_c = rt.tau_ff_maps(freqs, f.temp, n_es, ds, f.inside, t_0,
+                                   reyn)
+        if nonlte:
+            return rt.intensity_rrl_maps_nonlte(freqs, st.tbar, tau_c,
+                                                tau_l, st.any_in, b_n1,
+                                                b_n2)
+        return rt.intensity_rrl_maps(freqs, st.tbar, tau_c, tau_l,
+                                     st.any_in)
+
+    def rrl_rt_products(self, line: str, freq, contsub: bool = False,
+                        lte: bool = True, departure_coeffs=None,
+                        as_numpy: bool = True):
+        """The complete per-run RRL RT stage — EM map, line optical-depth
+        maps and line(+continuum when ``contsub=False``) flux maps — with
+        the line-opacity chain evaluated once for both products and the
+        continuum opacity and EM from one dual-base epoch pass
+        (jetmodel.py:1289-1359; the reference's per-run sequence at
+        classes.py:2437-2450).  Returns numpy ``(em, tau_l, fluxes)``, or
+        the device tensors with ``as_numpy=False``.
+
+        ``lte=False`` swaps in the G&S non-LTE slab composition: tau
+        becomes the stimulated-corrected line opacity b_n1 beta tau_L* and
+        the flux uses the eta/beta forms, with departure coefficients
+        derived from the bundled table (:meth:`departure_coefficients`)
+        or supplied.
+        """
+        b_n1, b_n2 = self._check_nonlte(lte, departure_coeffs, line)
+        t_0, reyn, csize, dist = self._rt_constants()
+        coeffs = rt.RRLCoeffs(line)
+        fused = self._use_fused_rrl()
+        tiles = self._rrl_tiles() if fused else None
+        f = self._ensure_fields()
+        st = self._rt_static()
+        t = self.time
+        freqs = self._freqs(freq)
+        tau_l = self._tau_rrl_dispatch(coeffs, tiles, fused, f, t, freqs)
+        a_map, em = self._epoch_base_maps_both(f, st, t)
+        scale = rt.tau_ff_channel_scale(freqs, t_0, reyn)
+        tau_c = scale[:, None, None] * a_map[None]
+        if lte:
+            tau_out = tau_l
+            ints = rt.intensity_rrl_maps(freqs, st.tbar, tau_c, tau_l,
+                                         st.any_in)
+        else:
+            tau_out = self._nonlte_tau(st, freqs, tau_l, b_n1, b_n2)
+            ints = rt.intensity_rrl_maps_nonlte(freqs, st.tbar, tau_c,
+                                                tau_l, st.any_in, b_n1, b_n2)
+        fluxes = ints * rt.flux_scale_jy(csize, dist)
+        if not contsub:
+            fluxes = fluxes + rt.flux_ff_maps(freqs, tau_c, st.tbar,
+                                              st.any_in, csize, dist)
+        if not as_numpy:
+            return em, tau_out, fluxes
+        return em.cpu().numpy(), tau_out.cpu().numpy(), fluxes.cpu().numpy()
+
+    def characteristic_conditions(self):
+        """Emission-measure-weighted (T_e [K], n_e [cm^-3]) over the jet at
+        the current model time (n_e averaged in log space), memoised per
+        model time (jetmodel.py:1387-1422)."""
+        key = float(self.time)
+        hit = self._char_cond_cache.get(key)
+        if hit is not None:
+            return hit
+        f = self._ensure_fields()
+        n_e = self._nd_chi(f, self.time) * f.xi
+        w = torch.where(f.inside, n_e * n_e, torch.zeros_like(n_e))
+        wsum = torch.sum(w).clamp_min(1e-30)
+        t_char = torch.sum(w * f.temp) / wsum
+        safe_ne = torch.where(f.inside, n_e.clamp_min(1e-30),
+                              torch.ones_like(n_e))
+        ln_char = torch.sum(w * torch.log10(safe_ne)) / wsum
+        out = (float(t_char), 10.0 ** float(ln_char))
+        self._char_cond_cache[key] = out
+        return out
+
+    def departure_coefficients(self, line: str):
+        """(b_n1, b_n2) for ``line`` from the bundled case-B hydrogenic
+        b_n(n, T_e, n_e) table (ops.departure) at the jet's
+        emission-weighted characteristic conditions: what ``lte=False``
+        uses when no explicit ``departure_coeffs`` are passed
+        (jetmodel.py:1424-1460).  Memoised per (line, model time)."""
+        key = (line, float(self.time))
+        hit = self._departure_cache.get(key)
+        if hit is not None:
+            return hit
+        _, n, dn = mrrl.rrl_parser(line)
+        t_char, ne_char = self.characteristic_conditions()
+        b_n1, b_n2 = dep.b_n_pair(n, dn, t_char, ne_char)
+        self._log.add_entry(
+            "INFO",
+            "Departure coefficients for {}: b_n1 = {:.4f}, b_n2 = {:.4f} "
+            "(case-B table at EM-weighted T_e = {:.0f} K, "
+            "n_e = {:.2e} cm^-3)".format(line, b_n1, b_n2, t_char,
+                                         ne_char),
+            timestamp=False)
+        self._departure_cache[key] = (b_n1, b_n2)
+        return b_n1, b_n2
+
+    def departure_coefficient_systematic(self, line: str):
+        """(s_n1, s_n2): the collisional-rate-prescription systematic of
+        :meth:`departure_coefficients` (ops.departure.b_n_systematic)."""
+        _, n, dn = mrrl.rrl_parser(line)
+        t_char, ne_char = self.characteristic_conditions()
+        return dep.b_n_pair_systematic(n, dn, t_char, ne_char)
+
+    def departure_coefficients_at_scale(self, line: str, which: str):
+        """(b_n1, b_n2) from the rate-scale-band edge tables (``which`` in
+        'lo'/'hi'/'central') at the jet's characteristic conditions."""
+        _, n, dn = mrrl.rrl_parser(line)
+        t_char, ne_char = self.characteristic_conditions()
+        return dep.b_n_pair(n, dn, t_char, ne_char, which)
+
+    def departure_coefficient_maps(self, line: str):
+        """Per-sightline (b_n1, b_n2) numpy maps, shape (nx, nz): the
+        case-B table at each LOS column's EM-weighted (T_e, n_e); b = 1
+        where the column holds no jet cell (jetmodel.py:1484-1518).
+        Accepted directly as ``departure_coeffs=``."""
+        _, n, dn = mrrl.rrl_parser(line)
+        f = self._ensure_fields()
+        n_e = self._nd_chi(f, self.time) * f.xi
+        w = torch.where(f.inside, n_e * n_e, torch.zeros_like(n_e))
+        wsum = torch.sum(w, dim=rt.LOS_AXIS)
+        any_in = wsum > 0.0
+        ws = torch.where(any_in, wsum, torch.ones_like(wsum))
+        t_map = torch.sum(w * f.temp, dim=rt.LOS_AXIS) / ws
+        safe_ne = torch.where(f.inside, n_e.clamp_min(1e-30),
+                              torch.ones_like(n_e))
+        ln_map = torch.sum(w * torch.log10(safe_ne), dim=rt.LOS_AXIS) / ws
+        t_map, ln_map, any_in = (a.cpu().numpy() for a in
+                                 (t_map, ln_map, any_in))
+        t_q = np.where(any_in, t_map, 1e4)
+        ne_q = 10.0 ** np.where(any_in, ln_map, 4.0)
+        b1 = np.where(any_in, dep.b_n(n, t_q, ne_q), 1.0)
+        b2 = np.where(any_in, dep.b_n(n + int(dn), t_q, ne_q), 1.0)
+        return b1, b2
+
+    def _check_nonlte(self, lte, departure_coeffs, line):
+        """(b_n1, b_n2): 1 for LTE, the user-supplied pair (scalars, or
+        per-sightline (nx, nz) maps as tensors on the model's device), or
+        the table-derived scalar pair (jetmodel.py:1520-1534)."""
+        if lte:
+            return 1.0, 1.0
+        if departure_coeffs is None:
+            return self.departure_coefficients(line)
+        b_n1, b_n2 = departure_coeffs
+        if np.ndim(b_n1) or np.ndim(b_n2):
+            def as_t(b):
+                return torch.as_tensor(np.asarray(b, dtype=np.float64),
+                                       device=self._device).to(self._dtype)
+            return as_t(b_n1), as_t(b_n2)
+        return float(b_n1), float(b_n2)
+
+    def optical_depth_rrl(self, rrl: str, freq, lte: bool = True,
+                          savefits: Union[bool, str] = False,
+                          collapse: bool = True,
+                          departure_coeffs=None) -> np.ndarray:
+        """RRL optical depth (classes.py:1130-1229).  ``lte=False`` returns
+        the non-LTE line opacity b_n1 beta tau_L* (beyond the reference,
+        which raises on lte=False)."""
+        b_n1, b_n2 = self._check_nonlte(lte, departure_coeffs, rrl)
+        if not lte and not collapse:
+            raise ValueError("non-LTE opacities are slab quantities: "
+                             "collapse=False is LTE-only")
+        scalar = np.isscalar(freq)
+        taus = self._rrl_kernel(rrl, 'tau', self._freqs(freq), b_n1, b_n2,
+                                collapse, nonlte=not lte).cpu().numpy()
+        if savefits:
+            self._save_rt_fits(taus, savefits, 'tau', freq, scalar, collapse)
+        return taus[0] if scalar else taus
+
+    def intensity_rrl(self, rrl: str, freq, lte: bool = True,
+                      savefits: Union[bool, str] = False,
+                      departure_coeffs=None) -> np.ndarray:
+        """RRL intensity (classes.py:1231-1290, each channel at its own
+        frequency); ``lte=False`` evaluates the non-LTE slab form (G&S
+        eqs. 2.130/2.139/2.141)."""
+        b_n1, b_n2 = self._check_nonlte(lte, departure_coeffs, rrl)
+        scalar = np.isscalar(freq)
+        ints = self._rrl_kernel(rrl, 'intensity', self._freqs(freq), b_n1,
+                                b_n2, nonlte=not lte).cpu().numpy()
+        if savefits:
+            self._save_rt_fits(ints, savefits, 'intensity', freq, scalar,
+                               True)
+        return ints[0] if scalar else ints
+
+    def flux_rrl(self, rrl: str, freq, lte: bool = True,
+                 contsub: bool = True,
+                 savefits: Union[bool, str] = False,
+                 departure_coeffs=None) -> np.ndarray:
+        """RRL flux [Jy/pixel], optionally with continuum
+        (classes.py:1292-1351)."""
+        scalar = np.isscalar(freq)
+        freqs = np.atleast_1d(np.asarray(freq, dtype=float))
+        ints = self.intensity_rrl(rrl, freqs, lte=lte,
+                                  departure_coeffs=departure_coeffs)
+        fluxes = ints * float(rt.flux_scale_jy(
+            self.csize, self.params['target']['dist']))
+        if not contsub:
+            fluxes = fluxes + self.flux_ff(freqs)
         if savefits:
             self._save_rt_fits(fluxes, savefits, 'flux', freq, scalar, True)
         return fluxes[0] if scalar else fluxes

@@ -2,9 +2,8 @@
 table with a Catmull-Rom bicubic interpolation on tensors (PyTorch port of
 rajepy_tpu.ops.gaunt).
 
-The table is the data file bundled with the JAX package, read by path
-(``rajepy_tpu/data/vanHoofetal2014.data`` beside this package), never by
-importing ``rajepy_tpu``.
+The table is the port's own copy of the data file (``data/vanHoofetal2014.data``
+in this package), byte-equal to the JAX package's.
 
 Axes (reference physics.py:666-675):
     log g2 = log10(Z^2 * Ry_inf / (k_B T))   (column axis, 81 values)
@@ -22,8 +21,8 @@ import torch
 from .. import constants as cnsts
 
 _DATA_FILE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "rajepy_tpu", "data", "vanHoofetal2014.data")
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data",
+    "vanHoofetal2014.data")
 
 # Infinite-mass Rydberg energy [J] (physics.py:671-672)
 _RY_INF = cnsts.M_E * cnsts.E_CHARGE ** 4 / (

@@ -1,5 +1,5 @@
-"""Per-epoch burst-map kernels and their compaction glue (PyTorch port of
-the continuum part of rajepy_tpu.ops.pallas_kernels).
+"""Per-epoch burst-map and RRL kernels and their compaction glue (PyTorch
+port of the continuum and RRL parts of rajepy_tpu.ops.pallas_kernels).
 
 The per-epoch half of the free-free/EM products is the LOS sum
 
@@ -17,24 +17,43 @@ wrapper                     TPU kernel replaced                  route
 ``epoch_base_map_full``     pallas_kernels.epoch_base_map_pallas cuda
 ==========================  ===================================  ========
 
+The RRL line opacity (see ``csrc/rrl_maps.cu``)
+
+    tau(c, x, z) = sum_y amp * Re w(x_c + i y_v) * (1 - exp(-(f_c + nu0) hkT))
+
+has two more (the per-cell Voigt function is the Weideman-16 rational or a
+3-term asymptotic series, as the Pallas kernels):
+
+==========================  ===================================  ========
+wrapper                     TPU kernel replaced                  route
+==========================  ===================================  ========
+``rrl_tile_partials``       pallas_kernels.rrl_tiles_pallas      cuda
+``rrl_cube``                pallas_kernels.rrl_cube_pallas       cuda
+==========================  ===================================  ========
+
 Each wrapper takes CUDA tensors to its kernel and CPU tensors to the plain
 PyTorch version beside it (same formula, ``torch.sum`` over y); any other
-device raises.  ``LAUNCHES`` counts kernel launches per wrapper.
+device raises.  ``LAUNCHES`` counts kernel launches per wrapper, under the
+TPU kernel's name.
 
-The kernels are compiled at first use with ``nvcc`` into a shared library
-with a plain C interface under ``rajepy_tpu_torch/_build/`` (rebuilt when
-the source changes) and bound with ``ctypes``.  Nothing here imports or
-builds anything CUDA-specific at import time.
+The kernels are compiled at first use with ``nvcc`` (one process per
+``csrc/*.cu`` source, all started together, then one link) into a shared
+library with a plain C interface under ``rajepy_tpu_torch/_build/``
+(rebuilt when any source changes) and bound with ``ctypes``.  Nothing here
+imports or builds anything CUDA-specific at import time.
 
 Compaction: the jet silhouette covers a few percent of the cube, so the
 epoch-independent cubes are cut once per model into the jet-occupied
 (8, 64, 128) tiles (:func:`active_tiles`, :func:`gather_tiles`); the tile
 kernels write one (8, 128) partial per tile, and :func:`reassemble_tiles`
-folds the partials into the (nx, nz) map with ``index_add_``.
+folds the partials into the (nx, nz) map with ``index_add_``;
+:func:`segment_tile_maps` does the same for the RRL kernel's per-channel
+partials.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -45,20 +64,33 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .voigt import _weideman_coeffs
+
 # Compacted-tile dims (block_x, y_chunk, block_z), fixed in the CUDA source
 TILE = (8, 64, 128)
 MAX_BURSTS = 32
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES = {'epoch_base_map_tiles': 0, 'epoch_base_maps2_tiles': 0,
-            'epoch_base_map_full': 0}
+            'epoch_base_map_full': 0, 'rrl_tiles_pallas': 0,
+            'rrl_cube_pallas': 0}
+
+# Weideman degree of the float32 RRL kernels: its truncation error (1.4e-7
+# on |x| <= 8) already sits at the float32 roundoff floor
+N_WEIDEMAN_RRL = 16
+# Re w switches from the Weideman rational to the asymptotic series here
+FAR_CUT = 8.0
+# channels per thread of the RRL kernels (CPT in csrc/rrl_maps.cu): the
+# launch grid walks ceil(n_chan / CPT) channel blocks in one dimension
+RRL_CPT = 16
+_MAX_GRID_YZ = 65535
+_SQRT_PI = 1.7724538509055159
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, 'csrc', 'epoch_maps.cu')
+_CSRC = os.path.join(_PKG_DIR, 'csrc')
 _BUILD_DIR = os.path.join(_PKG_DIR, '_build')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-fmad=false', '-Xptxas', '-v', '-shared',
-              '-Xcompiler', '-fPIC')
+              '-O3', '-fmad=false', '-Xptxas', '-v', '-Xcompiler', '-fPIC')
 
 _LIB = None
 #: compiler output of the build (ptxas register/spill report), or '' when
@@ -228,6 +260,104 @@ def epoch_base_map_full_plain(a, ts_signed, t, bursts,
     return torch.sum(a * chi * chi, dim=1)
 
 
+def segment_tile_maps(parts: torch.Tensor, seg: torch.Tensor, nx: int,
+                      nz: int) -> torch.Tensor:
+    """Fold (n_act, n_chan, bx, bz) per-tile partials into (n_chan, nx, nz)
+    maps: a segment sum over the tiles' (x, z) positions with
+    ``index_add_`` over the tile axis (pallas_kernels.segment_tile_maps),
+    as :func:`reassemble_tiles` for one channel."""
+    _, n_chan, bx, bz = parts.shape
+    n_xt = _tile_grid(nx, bx)
+    n_zt = _tile_grid(nz, bz)
+    m = parts.new_zeros((n_xt * n_zt, n_chan, bx, bz))
+    m.index_add_(0, seg, parts)
+    m = m.reshape(n_xt, n_zt, n_chan, bx, bz).permute(2, 0, 3, 1, 4)
+    return m.reshape(n_chan, n_xt * bx, n_zt * bz)[:, :nx, :nz]
+
+
+def voigt_re_far(x, y):
+    """Re w(x + iy) by the 3-term asymptotic series
+    w(z) ~ i/(sqrt(pi) z) sum_k (2k-1)!!/(2 z^2)^k, for |x| + y > 8
+    (pallas_kernels._voigt_re_far)."""
+    inv = 1.0 / (x * x + y * y)
+    wr2 = 0.5 * (x * x - y * y) * inv * inv
+    wi2 = -x * y * inv * inv
+    sr = wr2 * 15.0 + 3.0
+    si = wi2 * 15.0
+    sr, si = sr * wr2 - si * wi2 + 1.0, sr * wi2 + si * wr2
+    sr, si = sr * wr2 - si * wi2 + 1.0, sr * wi2 + si * wr2
+    return (y * sr - x * si) * inv / _SQRT_PI
+
+
+def voigt_re_weideman(x, y):
+    """Re w(x + iy) by the Weideman rational alone, for |x| + y <= 8: the
+    real-coefficient p(Z) at Z = (L+iz)/(L-iz) by the Goertzel recurrence
+    b_k = c_k + 2 Re(Z) b_{k+1} - |Z|^2 b_{k+2}, p = b_0 - b_1 conj(Z)
+    (pallas_kernels._voigt_re_weideman)."""
+    ell, coeffs = _weideman_coeffs(N_WEIDEMAN_RRL)
+    ell = float(ell)
+    dr = ell + y
+    di = -x
+    nr = ell - y
+    ni = x
+    inv_den = 1.0 / (dr * dr + di * di)
+    zr = (nr * dr + ni * di) * inv_den
+    zi = (ni * dr - nr * di) * inv_den
+    r = 2.0 * zr
+    s = zr * zr + zi * zi
+    b1 = torch.zeros_like(zr)
+    b2 = torch.zeros_like(zr)
+    for c in coeffs:           # highest power first
+        b1, b2 = float(c) + r * b1 - s * b2, b1
+    pr = b1 - b2 * zr
+    pi = b2 * zi
+    inv_r = dr * inv_den
+    inv_i = -di * inv_den
+    inv2_r = inv_r * inv_r - inv_i * inv_i
+    inv2_i = 2.0 * inv_r * inv_i
+    return 2.0 * (pr * inv2_r - pi * inv2_i) + inv_r / _SQRT_PI
+
+
+def voigt_re_mixed(x, y):
+    """Re w(x + iy) per cell: the Weideman rational where |x| + y <= 8, the
+    asymptotic series beyond (pallas_kernels._voigt_re_mixed)."""
+    w_re = voigt_re_weideman(x, y)
+    far = (x.abs() + y) > FAR_CUT
+    ten = torch.full_like(x, 10.0)
+    xf = torch.where(far, x, ten)   # keep near cells out of the
+    yf = torch.where(far, y, ten)   # asymptotic's singular region
+    return torch.where(far, voigt_re_far(xf, yf), w_re)
+
+
+def _rrl_cells_plain(fo, amp, rest, scale, yv, hkt, nu0: float):
+    """Per-cell amp * Re w * (1 - e^{-(f + nu0) hkT}) at channel offset fo."""
+    x = (fo - rest) * scale
+    stim = -torch.expm1(-((fo + nu0) * hkt))
+    return amp * voigt_re_mixed(x, yv) * stim
+
+
+def rrl_tile_partials_plain(freqs_off, amp_t, rest_t, scale_t, yv_t, hkt_t,
+                            nu0: float) -> torch.Tensor:
+    """Plain version of :func:`rrl_tile_partials`: (n_act, n_chan, bx, bz)
+    per-tile sums over y, one channel at a time."""
+    if freqs_off.numel() == 0:
+        return amp_t.new_zeros((amp_t.shape[0], 0, TILE[0], TILE[2]))
+    return torch.stack([
+        torch.sum(_rrl_cells_plain(fo, amp_t, rest_t, scale_t, yv_t, hkt_t,
+                                   nu0), dim=2) for fo in freqs_off], dim=1)
+
+
+def rrl_cube_plain(freqs_off, amp, rest, scale, yv, hkt,
+                   nu0: float) -> torch.Tensor:
+    """Plain version of :func:`rrl_cube`: (n_chan, nx, nz) sums over y of
+    the full grid, one channel at a time."""
+    if freqs_off.numel() == 0:
+        return amp.new_zeros((0, amp.shape[0], amp.shape[2]))
+    return torch.stack([
+        torch.sum(_rrl_cells_plain(fo, amp, rest, scale, yv, hkt, nu0),
+                  dim=1) for fo in freqs_off])
+
+
 # --------------------------------------------------------------------------- #
 # Build and bind the CUDA library
 # --------------------------------------------------------------------------- #
@@ -238,6 +368,22 @@ class _Bursts(ctypes.Structure):
                 ('inv2s2', ctypes.c_float * MAX_BURSTS),
                 ('amp', ctypes.c_float * MAX_BURSTS),
                 ('is_red', ctypes.c_int * MAX_BURSTS)]
+
+
+class _Weideman(ctypes.Structure):
+    """By-value Weideman-16 scale and coefficients (highest power first);
+    mirrors ``struct Weideman`` in rrl_maps.cu."""
+    _fields_ = [('ell', ctypes.c_float),
+                ('c', ctypes.c_float * N_WEIDEMAN_RRL)]
+
+
+def _weideman_struct() -> _Weideman:
+    ell, coeffs = _weideman_coeffs(N_WEIDEMAN_RRL)
+    w = _Weideman()
+    w.ell = float(ell)
+    for i, c in enumerate(coeffs):
+        w.c[i] = float(c)
+    return w
 
 
 def _bursts_struct(bursts: Sequence) -> _Bursts:
@@ -260,41 +406,62 @@ def _nvcc() -> str:
                               'bin', 'nvcc')):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the epoch kernels are built from "
-                       "csrc/epoch_maps.cu at first use on a CUDA machine")
+    raise RuntimeError("nvcc not found: the kernels are built from "
+                       "csrc/*.cu at first use on a CUDA machine")
+
+
+def sources() -> list:
+    """The CUDA sources of the library, in a fixed order."""
+    return sorted(glob.glob(os.path.join(_CSRC, '*.cu')))
 
 
 def library_path() -> str:
-    """Where the build for the current source and flags lives."""
+    """Where the build for the current sources and flags lives."""
     h = hashlib.sha256()
-    with open(_SOURCE, 'rb') as f:
-        h.update(f.read())
+    for src in sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, 'rb') as f:
+            h.update(f.read())
     h.update(' '.join(NVCC_FLAGS).encode())
-    return os.path.join(_BUILD_DIR, f'libepoch_maps_{h.hexdigest()[:16]}.so')
+    return os.path.join(_BUILD_DIR, f'libkernels_{h.hexdigest()[:16]}.so')
 
 
 def build() -> str:
-    """Compile csrc/epoch_maps.cu unless a build of this source exists;
-    returns the library path.  The compiler's report goes to
+    """Compile every csrc/*.cu into one shared library unless a build of
+    these sources exists; returns the library path.  One ``nvcc`` per
+    source runs at once, then one link.  The compiler's report goes to
     ``BUILD_LOG``."""
     global BUILD_LOG
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=_BUILD_DIR, suffix='.so.tmp')
-    os.close(fd)
-    try:
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, _SOURCE],
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for src in sources():
+            obj = os.path.join(tmpdir, os.path.basename(src) + '.o')
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, '-c', '-o', obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for src, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"{os.path.basename(src)}:\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{src} ({proc.returncode}):\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = os.path.join(tmpdir, 'lib.so')
+        res = subprocess.run([nvcc, '-shared', '-o', tmp, *objs],
                              capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{res.stdout}\n{res.stderr}")
-        BUILD_LOG = res.stdout + res.stderr
         os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    BUILD_LOG = '\n'.join(logs)
     return path
 
 
@@ -306,7 +473,10 @@ def _lib():
         lib.epoch_tiles.argtypes = [p, p, p, i, f, f, _Bursts, p]
         lib.epoch_tiles2.argtypes = [p, p, p, p, p, i, f, f, _Bursts, p]
         lib.epoch_full.argtypes = [p, p, p, i, i, i, f, f, _Bursts, p]
-        for fn in (lib.epoch_tiles, lib.epoch_tiles2, lib.epoch_full):
+        lib.rrl_tiles.argtypes = [p] * 7 + [i, i, f, _Weideman, p]
+        lib.rrl_cube.argtypes = [p] * 7 + [i, i, i, i, f, _Weideman, p]
+        for fn in (lib.epoch_tiles, lib.epoch_tiles2, lib.epoch_full,
+                   lib.rrl_tiles, lib.rrl_cube):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -449,6 +619,94 @@ def epoch_base_map_full(a, ts_signed, t: float, bursts: Sequence,
         err = _lib().epoch_full(a.data_ptr(), ts_signed.data_ptr(),
                                 out.data_ptr(), nx, ny, nz, float(t),
                                 float(pack_offset), b, _stream(a.device))
+    _raise_if_error(name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _check_freqs(name: str, freqs_off, dev) -> int:
+    if freqs_off.device != dev:
+        raise ValueError(f"{name}: freqs_off on {freqs_off.device}, fields "
+                         f"on {dev}")
+    if freqs_off.dim() != 1:
+        raise ValueError(f"{name}: freqs_off must be 1-D, got shape "
+                         f"{tuple(freqs_off.shape)}")
+    _check_cuda(name, (freqs_off,), freqs_off.shape)
+    n_chan = freqs_off.shape[0]
+    if -(-n_chan // RRL_CPT) > _MAX_GRID_YZ:
+        raise ValueError(f"{name}: at most {_MAX_GRID_YZ * RRL_CPT} "
+                         f"channels, got {n_chan}")
+    return n_chan
+
+
+def rrl_tile_partials(freqs_off, amp_t, rest_t, scale_t, yv_t, hkt_t,
+                      nu0: float) -> torch.Tensor:
+    """(n_act, n_chan, 8, 128) per-tile RRL optical-depth partials
+    sum_y amp * Re w * (1 - e^{-(f + nu0) hkT}) of compacted
+    (n_act, 8, 64, 128) float32 factor tiles (counterpart of
+    pallas_kernels.rrl_tiles_pallas): the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors.  ``freqs_off`` and ``rest_t`` are
+    offsets from the line centre ``nu0`` [Hz]."""
+    name = 'rrl_tiles_pallas'
+    if _device_kind(amp_t, name) == 'cpu':
+        return rrl_tile_partials_plain(freqs_off, amp_t, rest_t, scale_t,
+                                       yv_t, hkt_t, nu0)
+    n_act = amp_t.shape[0]
+    _check_cuda(name, (amp_t, rest_t, scale_t, yv_t, hkt_t),
+                (n_act,) + TILE)
+    n_chan = _check_freqs(name, freqs_off, amp_t.device)
+    out = torch.empty((n_act, n_chan, TILE[0], TILE[2]),
+                      dtype=torch.float32, device=amp_t.device)
+    if n_act == 0 or n_chan == 0:
+        return out
+    with torch.cuda.device(amp_t.device):
+        err = _lib().rrl_tiles(
+            freqs_off.data_ptr(), amp_t.data_ptr(), rest_t.data_ptr(),
+            scale_t.data_ptr(), yv_t.data_ptr(), hkt_t.data_ptr(),
+            out.data_ptr(), n_act, n_chan, float(nu0), _weideman_struct(),
+            _stream(amp_t.device))
+    _raise_if_error(name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+def rrl_tiles(freqs_off, amp_t, rest_t, scale_t, yv_t, hkt_t, nu0: float,
+              seg, nx: int, nz: int) -> torch.Tensor:
+    """(n_chan, nx, nz) RRL optical-depth maps from compacted factor tiles:
+    :func:`rrl_tile_partials` folded by :func:`segment_tile_maps`."""
+    parts = rrl_tile_partials(freqs_off, amp_t, rest_t, scale_t, yv_t,
+                              hkt_t, nu0)
+    return segment_tile_maps(parts, seg, nx, nz)
+
+
+def rrl_cube(freqs_off, amp, rest, scale, yv, hkt,
+             nu0: float) -> torch.Tensor:
+    """(n_chan, nx, nz) RRL optical-depth maps of the FULL (nx, ny, nz)
+    float32 factor grid (counterpart of pallas_kernels.rrl_cube_pallas):
+    the model's branch when the grid holds no jet cell, so no tile is
+    active.  The CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    name = 'rrl_cube_pallas'
+    if _device_kind(amp, name) == 'cpu':
+        return rrl_cube_plain(freqs_off, amp, rest, scale, yv, hkt, nu0)
+    if amp.dim() != 3:
+        raise ValueError(f"{name}: expected an (nx, ny, nz) cube, got "
+                         f"shape {tuple(amp.shape)}")
+    nx, ny, nz = amp.shape
+    _check_cuda(name, (amp, rest, scale, yv, hkt), (nx, ny, nz))
+    n_chan = _check_freqs(name, freqs_off, amp.device)
+    if -(-nx // 2) > _MAX_GRID_YZ:      # two x rows per block
+        raise ValueError(f"{name}: nx = {nx} exceeds the launch grid")
+    out = torch.empty((n_chan, nx, nz), dtype=torch.float32,
+                      device=amp.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(amp.device):
+        err = _lib().rrl_cube(
+            freqs_off.data_ptr(), amp.data_ptr(), rest.data_ptr(),
+            scale.data_ptr(), yv.data_ptr(), hkt.data_ptr(), out.data_ptr(),
+            nx, ny, nz, n_chan, float(nu0), _weideman_struct(),
+            _stream(amp.device))
     _raise_if_error(name, err)
     LAUNCHES[name] += 1
     return out

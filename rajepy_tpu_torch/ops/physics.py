@@ -5,9 +5,11 @@ port of the matching part of rajepy_tpu.ops.physics).
 * ``q_tau``         — physics.py:38-63
 * ``v_rot``         — physics.py:66-90
 * ``n_0_from_mlr``  — physics.py:474-517
+* ``doppler_shift``, ``blackbody_nu``, ``nu_rrl`` — the RRL relations,
+  physics.py:547-604
 
-The analytic flux formulas, the RRL relations and the disc model of the
-JAX module are not ported yet.
+The analytic flux formulas and the disc model of the JAX module are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -54,3 +56,37 @@ def n_0_from_mlr(mlr, v_0, w_0, mu, q_nd, q_nv, R_1, R_2):
     const = (2.0 * math.pi * mu * cnsts.atomic_mass('H') * (v_0 * 1e3) *
              (w_0 * cnsts.AU) ** 2.0)
     return mlr_si / const / _mlr_shape_factor(a, r1, r2) / 1e6
+
+
+# --------------------------------------------------------------------------- #
+# Radiative relations used by the RRL products
+# --------------------------------------------------------------------------- #
+def doppler_shift(nu_0, v_lsr):
+    """Doppler-shifted frequency; v_lsr in km/s, receding positive
+    (physics.py:547-558)."""
+    return nu_0 * (1.0 - v_lsr * 1e3 / cnsts.C)
+
+
+# cube root of the Planck prefactor 2h/c^2 [cgs]: the prefactor itself
+# (1.5e-47) underflows float32; its cube root (2.47e-16) does not, and
+# (a nu)^3 stays normal for every radio-to-IR frequency (nu > ~4e2 Hz)
+_BB_PREFACTOR_CBRT = float((2.0 * cnsts.H_CGS / cnsts.C_CGS ** 2) **
+                           (1.0 / 3.0))
+
+
+def blackbody_nu(freq, temp):
+    """Planck spectral radiance B_nu in cgs (erg s^-1 cm^-2 Hz^-1 sr^-1)
+    (physics.py:561-574), as ((2h/c^2)^(1/3) nu)^3 / expm1(h nu / k T) so
+    that no float32 intermediate underflows; expm1 keeps the
+    Rayleigh-Jeans limit (h nu / k T ~ 1e-5) accurate."""
+    t = _BB_PREFACTOR_CBRT * freq
+    return t * t * t / torch.expm1(cnsts.H_CGS * freq / (cnsts.K_CGS * temp))
+
+
+def nu_rrl(n, dn=1, atom="H"):
+    """Radio recombination line frequency, reduced-mass Rydberg
+    (physics.py:577-604)."""
+    n_p, _ = cnsts.NZ[atom]
+    mass = cnsts.atomic_mass(atom) - cnsts.M_E * n_p
+    r_m = cnsts.RYDBERG / (1.0 + cnsts.M_E / mass)
+    return r_m * cnsts.C * (1.0 / n ** 2.0 - 1.0 / (n + dn) ** 2.0)

@@ -1,5 +1,5 @@
-"""Free-free continuum radiative transfer on tensors (PyTorch port of the
-continuum half of rajepy_tpu.ops.radtrans, radtrans.py:44-160).
+"""Free-free continuum and radio-recombination-line radiative transfer on
+tensors (PyTorch port of rajepy_tpu.ops.radtrans, radtrans.py:44-338).
 
 The free-free opacity
 
@@ -11,8 +11,11 @@ reduction serves every channel and per-channel work is a scalar multiply on
 an (nx, nz) map.
 
 The LOS axis is y (axis 1, 'ij' indexing).  All reductions are masked
-sums, NaN-free.  The RRL half and the ordered emergent scan are not ported
-yet.
+sums, NaN-free.  The RRL opacity has no such factorisation: its
+channel-independent per-cell factors (:func:`tau_rrl_precompute`) feed the
+RRL kernels of :mod:`.kernels` on the float32 path, while float64 takes the
+plain per-channel loop (:func:`tau_rrl_maps`).  The ordered emergent scan
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,6 +25,9 @@ import torch
 
 from .. import constants as cnsts
 from . import gaunt as _gaunt
+from . import kernels as kn
+from . import physics as phys
+from . import rrls as mrrl
 
 LOS_AXIS = 1
 
@@ -69,6 +75,16 @@ def tau_ff_channel_scale(freqs, t_0: float, reynolds_gaunt: bool):
     return freqs ** -2.0 * _gaunt.gff(freqs, t_0).to(freqs.dtype)
 
 
+def tau_ff_maps(freqs, temp, n_es, ds_cm, inside, t_0: float,
+                reynolds_gaunt: bool):
+    """Collapsed free-free optical-depth maps, all channels at once:
+    (n_chan, nx, nz), from one grid pass (radtrans.py:95-103)."""
+    base_map = torch.sum(tau_ff_base(temp, n_es, ds_cm, inside,
+                                     reynolds_gaunt), dim=LOS_AXIS)
+    scale = tau_ff_channel_scale(freqs, t_0, reynolds_gaunt)
+    return scale[:, None, None] * base_map[None, :, :]
+
+
 def mean_temperature_map(temp, inside):
     """LOS-mean temperature over jet cells (nanmean of classes.py:1471-1472,
     as a masked mean).  Returns ``(tbar, any_inside)``."""
@@ -101,3 +117,157 @@ def flux_ff_maps(freqs, tau_maps, tbar_map, any_inside, csize_au, dist_pc):
     (classes.py:1498-1541)."""
     ints = intensity_ff_maps(freqs, tau_maps, tbar_map, any_inside)
     return ints * flux_scale_jy(csize_au, dist_pc)
+
+
+# --------------------------------------------------------------------------- #
+# Radio recombination lines (radtrans.py:166-338)
+# --------------------------------------------------------------------------- #
+class RRLCoeffs:
+    """Static per-line constants resolved once per run
+    (classes.py:1158-1171)."""
+
+    def __init__(self, line: str):
+        element, n, dn = mrrl.rrl_parser(line)
+        self.line = line
+        self.element = element
+        self.n = n
+        self.dn = dn
+        self.nu0 = mrrl.rrl_nu_0(element, n, dn)
+        self.fn1n2 = mrrl.f_n1n2(n, dn)
+        self.energy_n = mrrl.energy_n(n, element)
+        self.z = cnsts.z_number(element)
+
+
+def _line_fields(coeffs: RRLCoeffs, temp, n_es, vy, inside):
+    """Masked temperature and density, Doppler-shifted line centre, the
+    two FWHMs and the ion density per cell."""
+    safe_t = torch.where(inside, temp, torch.ones_like(temp))
+    safe_ne = torch.where(inside, n_es, torch.zeros_like(n_es))
+    rest = phys.doppler_shift(coeffs.nu0, vy)
+    fwhm_g = mrrl.deltanu_g(rest, safe_t, coeffs.element)
+    fwhm_l = mrrl.deltanu_l(safe_ne, coeffs.n, coeffs.dn)
+    n_i = mrrl.ni_from_ne(safe_ne, coeffs.element)
+    return safe_t, safe_ne, rest, fwhm_g, fwhm_l, n_i
+
+
+def _tau_rrl_channel(coeffs: RRLCoeffs, f, lf, ds_cm, inside):
+    """Per-cell line optical depth at one channel frequency ``f``."""
+    safe_t, safe_ne, rest, fwhm_g, fwhm_l, n_i = lf
+    phi = mrrl.phi_voigt_nu(rest, fwhm_l, fwhm_g, f)
+    kap = mrrl.kappa_l(f, coeffs.n, coeffs.fn1n2, phi, safe_ne, n_i,
+                       safe_t, coeffs.z, coeffs.energy_n)
+    tau = kap * ds_cm
+    return torch.where(inside, tau, torch.zeros_like(tau))
+
+
+def tau_rrl_maps(coeffs: RRLCoeffs, freqs, temp, n_es, vy, ds_cm, inside):
+    """Collapsed RRL optical-depth maps for all channels: (n_chan, nx, nz).
+
+    Per channel (classes.py:1130-1229): Doppler-shift the rest frequency by
+    the cell's LOS velocity, thermal + Stark FWHMs, Voigt profile at the
+    channel frequency, kappa_L (G&S 2.114), tau = kappa ds, masked sum
+    along y.  A Python loop over channels keeps one grid-shaped temporary
+    set live at a time, as the JAX package's ``lax.map`` does."""
+    lf = _line_fields(coeffs, temp, n_es, vy, inside)
+    return torch.stack([
+        torch.sum(_tau_rrl_channel(coeffs, f, lf, ds_cm, inside),
+                  dim=LOS_AXIS) for f in freqs])
+
+
+def tau_rrl_precompute(coeffs: RRLCoeffs, temp, n_es, vy, ds_cm, inside):
+    """Channel-independent per-cell factors of the RRL opacity, feeding the
+    RRL kernels (ops.kernels.rrl_tile_partials / rrl_cube): returns
+    ``(amp, rest, scale, y_voigt, hkT)`` (radtrans.py:218-242)."""
+    safe_t, safe_ne, rest, fwhm_g, fwhm_l, n_i = _line_fields(
+        coeffs, temp, n_es, vy, inside)
+
+    sigma = fwhm_g / (2.0 * math.sqrt(2.0 * math.log(2.0)))
+    sigma = torch.where(inside, sigma, torch.ones_like(sigma))
+    scale = 1.0 / (sigma * math.sqrt(2.0))
+    y_voigt = 0.5 * fwhm_l * scale
+
+    amp = (mrrl._KAPPA_L_P0 * coeffs.n ** 2.0 * coeffs.fn1n2 *
+           safe_ne * n_i / safe_t ** 1.5 *
+           torch.exp((coeffs.z ** 2.0 * coeffs.energy_n) /
+                     (cnsts.K_CGS * safe_t)) *
+           ds_cm / (sigma * math.sqrt(2.0 * math.pi)))
+    amp = torch.where(inside, amp, torch.zeros_like(amp))
+    hkT = cnsts.H_CGS / (cnsts.K_CGS * safe_t)
+    return amp, rest, scale, y_voigt, hkT
+
+
+def rrl_kernel_inputs(coeffs: RRLCoeffs, freqs, temp, n_es, vy, ds_cm,
+                      inside):
+    """The RRL kernels' float32 arguments ``(freqs_off, amp, rest_off,
+    scale, y_voigt, hkT, nu0)``: channel frequencies and line centres are
+    OFFSETS from nu0, because an absolute 3e10 Hz quantises at ~2 kHz in
+    float32 (radtrans.py:255-257)."""
+    amp, rest, scale, y_voigt, hkT = tau_rrl_precompute(
+        coeffs, temp, n_es, vy, ds_cm, inside)
+    f32 = torch.float32
+    nu0 = float(coeffs.nu0)
+    return ((freqs - nu0).to(f32), amp.to(f32), (rest - nu0).to(f32),
+            scale.to(f32), y_voigt.to(f32), hkT.to(f32), nu0)
+
+
+def tau_rrl_maps_fused(coeffs: RRLCoeffs, freqs, temp, n_es, vy, ds_cm,
+                       inside):
+    """Collapsed RRL optical-depth maps of the FULL grid through the RRL
+    cube kernel (K5; radtrans.py:245-260): per-cell inputs are read once
+    for a block of channels instead of once per channel."""
+    return kn.rrl_cube(*rrl_kernel_inputs(coeffs, freqs, temp, n_es, vy,
+                                          ds_cm, inside))
+
+
+def tau_rrl_maps_tiles(coeffs: RRLCoeffs, freqs, temp_t, n_es_t, vy_t,
+                       ds_t, inside_t, seg, nx: int, nz: int):
+    """Collapsed RRL optical-depth maps from COMPACTED jet-occupied field
+    tiles (radtrans.py:263-282): the opacity factors are evaluated only on
+    the tiles the jet occupies, the tile kernel (K4) writes per-tile
+    partial maps, and :func:`.kernels.segment_tile_maps` folds them into
+    (n_chan, nx, nz)."""
+    return kn.rrl_tiles(*rrl_kernel_inputs(coeffs, freqs, temp_t, n_es_t,
+                                           vy_t, ds_t, inside_t),
+                        seg, nx, nz)
+
+
+def tau_rrl_cube(coeffs: RRLCoeffs, freqs, temp, n_es, vy, ds_cm, inside):
+    """Uncollapsed RRL optical depths (n_chan, nx, ny, nz) — the
+    collapse=False path."""
+    lf = _line_fields(coeffs, temp, n_es, vy, inside)
+    return torch.stack([_tau_rrl_channel(coeffs, f, lf, ds_cm, inside)
+                        for f in freqs])
+
+
+def _safe_tbar(tbar_map, any_inside):
+    return torch.where(any_inside, tbar_map, torch.ones_like(tbar_map))[None]
+
+
+def intensity_rrl_maps(freqs, tbar_map, tau_ff_maps_, tau_rrl_maps_,
+                       any_inside):
+    """LTE RRL intensity maps: B_nu(T) e^-tau_c (1 - e^-tau_L)
+    (classes.py:1231-1290; rrls.py:428-449)."""
+    ints = mrrl.line_intensity_lte(freqs[:, None, None],
+                                   _safe_tbar(tbar_map, any_inside),
+                                   tau_ff_maps_, tau_rrl_maps_)
+    return torch.where(any_inside[None], ints, torch.zeros_like(ints))
+
+
+def tau_rrl_maps_nonlte(freqs, tbar_map, any_inside, tau_rrl_maps_,
+                        b_n1, b_n2):
+    """Stimulated-corrected non-LTE line opacity b_n1 beta tau_L*
+    (G&S eq. 2.141): the one definition every non-LTE product uses."""
+    beta = mrrl.beta_coeff(freqs[:, None, None],
+                           _safe_tbar(tbar_map, any_inside), b_n1, b_n2)
+    return b_n1 * beta * tau_rrl_maps_
+
+
+def intensity_rrl_maps_nonlte(freqs, tbar_map, tau_ff_maps_, tau_rrl_maps_,
+                              any_inside, b_n1, b_n2):
+    """Non-LTE RRL intensity maps from departure coefficients
+    (see ops.rrls.line_intensity_nonlte)."""
+    ints = mrrl.line_intensity_nonlte(freqs[:, None, None],
+                                      _safe_tbar(tbar_map, any_inside),
+                                      tau_ff_maps_, tau_rrl_maps_,
+                                      b_n1, b_n2)
+    return torch.where(any_inside[None], ints, torch.zeros_like(ints))

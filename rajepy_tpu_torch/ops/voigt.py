@@ -1,0 +1,162 @@
+"""Faddeeva function and Voigt profile on tensors (PyTorch port of
+rajepy_tpu.ops.voigt).
+
+``w(z)`` for the upper half-plane is built, as in the JAX package, from:
+
+* the Weideman (1994, SIAM J. Numer. Anal. 31, 1497) rational
+  approximation of degree N (coefficients computed on the host with a
+  numpy FFT, :func:`_weideman_coeffs`);
+* a Laplace continued fraction for ``|x| + y`` beyond the rational
+  region, which avoids the rational form's cancellation near the real
+  axis at large |x|;
+* (float64 only) a third-order Taylor expansion from the real axis for
+  ``y < 3e-5``, where ``Re w(x) = exp(-x**2)`` is exact.
+
+float64 uses Weideman-128 with a 15-level fraction beyond |x| + y = 9;
+float32 uses Weideman-32 with a 9-level fraction beyond 8.  Complex
+arithmetic is written out in (re, im) pairs, like the JAX code, so both
+packages evaluate the same operations in the same order.
+
+The JAX package's custom JVP (voigt.py:171) is not ported here: it
+becomes a ``torch.autograd.Function`` with the ``fit`` slice.
+"""
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+_SQRT_PI = 1.7724538509055159
+_N_WEIDEMAN = 128          # float64 rational degree (roundoff-floor accurate)
+_CF_LEVELS_F64 = 15        # float64 continued-fraction depth
+_CF_LEVELS_F32 = 9
+_Y_TAYLOR_F64 = 3e-5       # below this, Taylor from the exact real-axis value
+
+
+@lru_cache(maxsize=4)
+def _weideman_coeffs(n: int = _N_WEIDEMAN):
+    """Host-side FFT computation of the Weideman (1994) expansion
+    coefficients (highest power first) and scale L."""
+    m = 2 * n
+    m2 = 2 * m
+    ell = np.sqrt(n / np.sqrt(2.0))
+    k = np.arange(-m + 1, m)
+    theta = k * np.pi / m
+    t = ell * np.tan(theta / 2.0)
+    f = np.exp(-t ** 2) * (ell ** 2 + t ** 2)
+    f = np.append(0.0, f)
+    a = np.real(np.fft.fft(np.fft.fftshift(f))) / m2
+    a = np.flipud(a[1:n + 1])
+    return ell, a
+
+
+def _wofz_core(x, y, n_weideman, cf_levels, s_cut):
+    """Weideman-rational (interior) / continued-fraction (wings) composite
+    for tensors ``x``, ``y >= 0`` of one float dtype.  Branch-free."""
+    ell, a_np = _weideman_coeffs(n_weideman)
+    a = [float(v) for v in a_np]
+    zero = torch.zeros_like(x)
+
+    s = x.abs() + y
+    far = s > s_cut
+
+    # ---- Weideman: Z = (L + iz)/(L - iz) with z = x + iy ------------------
+    # Far entries are evaluated at a harmless interior point so the
+    # rational form stays pole-free where its result is discarded.
+    xi = torch.where(far, zero, x)
+    yi = torch.where(far, torch.zeros_like(y), y)
+    dr, di = ell + yi, -xi
+    nr, ni = ell - yi, xi
+    den = dr * dr + di * di
+    zr = (nr * dr + ni * di) / den
+    zi = (ni * dr - nr * di) / den
+
+    # Horner evaluation of p(Z) = sum a_k Z^k (a in descending order)
+    pr = zero + a[0]
+    pi = torch.zeros_like(zr)
+    for k in range(1, len(a)):
+        pr, pi = pr * zr - pi * zi + a[k], pr * zi + pi * zr
+
+    # w = 2 p / (L - iz)^2 + (1/sqrt(pi)) / (L - iz)
+    inv_r, inv_i = dr / den, -di / den
+    inv2_r = inv_r * inv_r - inv_i * inv_i
+    inv2_i = 2.0 * inv_r * inv_i
+    w_re = 2.0 * (pr * inv2_r - pi * inv2_i) + inv_r / _SQRT_PI
+    w_im = 2.0 * (pr * inv2_i + pi * inv2_r) + inv_i / _SQRT_PI
+
+    # ---- far wings: Laplace continued fraction ----------------------------
+    # w(z) = (i/sqrt(pi)) / (z - (1/2)/(z - 1/(z - (3/2)/(z - ...))))
+    xf = torch.where(far, x, torch.full_like(x, 10.0))
+    yf = torch.where(far, y, torch.full_like(y, 10.0))
+    rr = torch.zeros_like(xf)
+    ri = torch.zeros_like(xf)
+    for k in range(cf_levels, 0, -1):
+        den_r = xf - rr
+        den_i = yf - ri
+        den = den_r * den_r + den_i * den_i
+        rr = (k / 2.0) * den_r / den
+        ri = -(k / 2.0) * den_i / den
+    den_r = xf - rr
+    den_i = yf - ri
+    den = den_r * den_r + den_i * den_i
+    asym_re = den_i / (den * _SQRT_PI)
+    asym_im = den_r / (den * _SQRT_PI)
+
+    return torch.where(far, asym_re, w_re), torch.where(far, asym_im, w_im)
+
+
+def wofz(x, y):
+    """Faddeeva function ``w(x + iy)`` for ``y >= 0``; returns ``(re, im)``.
+
+    The scheme follows the dtype, as rajepy_tpu.ops.voigt.wofz:
+
+    * **float64** — Weideman N=128 interior, 15-level continued fraction
+      for ``|x| + y > 9``, and a third-order Taylor expansion from the
+      real axis for ``y < 3e-5``;
+    * **float32** — Weideman N=32 / 9-level fraction.
+    """
+    x = torch.as_tensor(x)
+    y = torch.as_tensor(y, device=x.device)
+    dtype = torch.promote_types(x.dtype, y.dtype)
+    if not dtype.is_floating_point:
+        dtype = torch.get_default_dtype()
+    x, y = torch.broadcast_tensors(x.to(dtype), y.to(dtype))
+    if dtype == torch.float32:
+        return _wofz_core(x, y, 32, _CF_LEVELS_F32, 8.0)
+
+    tiny = y < _Y_TAYLOR_F64
+    y_eff = torch.where(tiny, torch.zeros_like(y), y)
+    w_re, w_im = _wofz_core(x, y_eff, _N_WEIDEMAN, _CF_LEVELS_F64, 9.0)
+
+    # Small-y branch: Re w on the axis is exp(-x^2) exactly (the
+    # composite's Re has an absolute roundoff floor ~1e-15); Taylor both
+    # parts up to y^3 from w' = -2 z w + 2i/sqrt(pi).
+    w0r = torch.exp(-x * x)
+    w0i = w_im
+    d1r = -2.0 * x * w0r
+    d1i = -2.0 * x * w0i + 2.0 / _SQRT_PI
+    d2r = -2.0 * w0r - 2.0 * x * d1r
+    d2i = -2.0 * w0i - 2.0 * x * d1i
+    d3r = -4.0 * d1r - 2.0 * x * d2r
+    d3i = -4.0 * d1i - 2.0 * x * d2i
+    y2 = y * y
+    taylor_re = w0r - y * d1i - 0.5 * y2 * d2r + (y2 * y / 6.0) * d3i
+    taylor_im = w0i + y * d1r - 0.5 * y2 * d2i - (y2 * y / 6.0) * d3r
+
+    return (torch.where(tiny, taylor_re, w_re),
+            torch.where(tiny, taylor_im, w_im))
+
+
+def voigt_profile(dnu, fwhm_gauss, fwhm_lorentz):
+    """Area-normalised Voigt profile ``phi_V(nu0 + dnu)`` [Hz^-1]
+    (voigt.py:185; the reference's ``phi_voigt_nu``, rrls.py:329-359):
+    ``Re w((dnu + i G/2) / (sigma sqrt 2)) / (sigma sqrt(2 pi))`` with
+    ``sigma = fwhm_gauss / (2 sqrt(2 ln 2))`` and ``G = fwhm_lorentz``."""
+    sigma = fwhm_gauss / (2.0 * math.sqrt(2.0 * math.log(2.0)))
+    scale = 1.0 / (sigma * math.sqrt(2.0))
+    x = dnu * scale
+    y = 0.5 * fwhm_lorentz * scale
+    re, _ = wofz(x, y)
+    return re / (sigma * math.sqrt(2.0 * math.pi))

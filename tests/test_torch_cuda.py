@@ -1,4 +1,5 @@
-"""The CUDA epoch kernels against their plain versions, on the card.
+"""The CUDA kernels (epoch and RRL) against their plain versions, on the
+card.
 
 Needs an NVIDIA GPU with ``nvcc``; skipped elsewhere.  This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
@@ -16,6 +17,7 @@ import torch
 
 from rajepy_tpu_torch import JetModel
 from rajepy_tpu_torch.ops import kernels as kn
+from rajepy_tpu_torch.ops import radtrans as rt
 
 pytestmark = pytest.mark.cuda
 
@@ -31,7 +33,7 @@ def card():
 
 
 def _params(n):
-    p = runpy.run_path(os.path.join(ROOT, 'rajepy_tpu', 'data',
+    p = runpy.run_path(os.path.join(ROOT, 'rajepy_tpu_torch', 'data',
                                     'example-model-params.py'))['params']
     p = copy.deepcopy(p)
     p['grid'].update(n_x=n[0], n_y=n[1], n_z=n[2], l_z=None)
@@ -64,7 +66,9 @@ def test_kernels_match_plain_versions(card):
     got = kn.epoch_base_map_full(st.a, st.ts_signed, t, bursts, off)
     want = kn.epoch_base_map_full_plain(st.a, st.ts_signed, t, bursts, off)
     assert _rel(got, want) < 1e-5
-    assert all(n == 1 for n in kn.LAUNCHES.values())
+    assert all(kn.LAUNCHES[k] == 1 for k in ('epoch_base_map_tiles',
+                                             'epoch_base_maps2_tiles',
+                                             'epoch_base_map_full'))
     with pytest.raises(TypeError, match='float32'):
         kn.epoch_base_map_full(st.a.double(), st.ts_signed.double(), t,
                                bursts, off)
@@ -79,3 +83,51 @@ def test_f32_card_products_match_f64_cpu(card):
                          cpu.continuum_rt_products(freqs)):
         err = np.max(np.abs(got - want)) / np.abs(want).max()
         assert err < 2e-4
+
+
+def _rrl_band(n):
+    nu0 = rt.RRLCoeffs('H58a').nu0
+    return np.linspace(nu0 - 5e7, nu0 + 5e7, n)
+
+
+def test_rrl_kernels_match_plain_versions(card):
+    jm = JetModel(_params((64, 160, 64)), device=card)
+    jm.time = 2.0 * YEAR
+    freqs = jm._freqs(np.concatenate([_rrl_band(200)[::10],
+                                      _rrl_band(2001)[990:1010]]))
+    coeffs = rt.RRLCoeffs('H58a')
+    temp_t, vy_t, ndxi_t, ds_t, inside_t, tss_t, seg = jm._rrl_tiles()
+    n_es_t = ndxi_t * jm._chi_from_packed(tss_t, jm.time)
+    k4 = rt.rrl_kernel_inputs(coeffs, freqs, temp_t, n_es_t, vy_t, ds_t,
+                              inside_t)
+    f = jm._ensure_fields()
+    k5 = rt.rrl_kernel_inputs(coeffs, freqs, f.temp,
+                              jm._nd_chi(f, jm.time) * f.xi, f.vy,
+                              rt.path_length_cm(f.ff, f.area, jm.csize),
+                              f.inside)
+    kn.reset_launches()
+    got = kn.rrl_tile_partials(*k4)
+    want = kn.rrl_tile_partials_plain(*k4)
+    assert _rel(got, want) < 1e-5
+    got = kn.rrl_cube(*k5)
+    want = kn.rrl_cube_plain(*k5)
+    assert _rel(got, want) < 1e-5
+    torch.cuda.synchronize()
+    assert kn.LAUNCHES['rrl_tiles_pallas'] == 1
+    assert kn.LAUNCHES['rrl_cube_pallas'] == 1
+    with pytest.raises(TypeError, match='float32'):
+        kn.rrl_cube(k5[0], *(a.double() for a in k5[1:6]), k5[6])
+
+
+def test_f32_card_rrl_products_match_f64_cpu(card):
+    freqs = _rrl_band(1000)[::25]
+    gpu = JetModel(_params((64, 160, 64)), device=card)
+    cpu = JetModel(_params((64, 160, 64)), dtype='parity', device='cpu')
+    gpu.time = cpu.time = 2.0 * YEAR
+    kn.reset_launches()
+    for lte in (True, False):
+        got = gpu.rrl_rt_products('H58a', freqs, contsub=False, lte=lte)
+        want = cpu.rrl_rt_products('H58a', freqs, contsub=False, lte=lte)
+        for g, w in zip(got, want):
+            assert np.max(np.abs(g - w)) / np.abs(w).max() < 1e-3
+    assert kn.LAUNCHES['rrl_tiles_pallas'] == 2

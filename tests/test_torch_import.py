@@ -1,6 +1,9 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its kernels module imports without a CUDA compiler.  ``chip_smoke.py``
-refuses to run without a GPU or without the checkout beside it."""
+"""The port stands alone: it imports neither JAX nor the JAX package, reads
+no file of the JAX package (its data files are its own, byte-equal
+copies), and its kernels module imports without a CUDA compiler.
+``chip_smoke.py`` refuses to run without a GPU or without the checkout
+beside it."""
+import filecmp
 import os
 import re
 import shutil
@@ -36,18 +39,49 @@ def test_port_imports_without_jax():
     assert res.stdout.strip() == 'ok'
 
 
-def test_no_jax_imports_in_the_port_sources():
-    pattern = re.compile(r'^\s*(import jax|from jax|import rajepy_tpu\b(?!_)'
-                         r'|from rajepy_tpu\b(?!_))', re.M)
+def _port_sources():
     files = [os.path.join(ROOT, 'chip_smoke.py')]
     for dirpath, _, names in os.walk(os.path.join(ROOT, 'rajepy_tpu_torch')):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(('.py', '.cu'))]
     assert len(files) > 15
-    for path in files:
+    return files
+
+
+def test_no_jax_imports_in_the_port_sources():
+    pattern = re.compile(r'^\s*(import jax|from jax|import rajepy_tpu\b(?!_)'
+                         r'|from rajepy_tpu\b(?!_))', re.M)
+    for path in _port_sources():
         with open(path) as f:
             src = f.read()
         assert not pattern.search(src), path
+
+
+def test_no_port_source_builds_a_path_into_the_jax_package():
+    """No string literal names the JAX package's directory as a path
+    component ('rajepy_tpu', or 'rajepy_tpu/...' other than a
+    'file.py:line' reference to a TPU kernel)."""
+    pattern = re.compile(r"""(['"])rajepy_tpu\1"""
+                         r"""|['"]rajepy_tpu/(?![\w/]+\.py:\d+['"])""")
+    for path in _port_sources():
+        with open(path) as f:
+            src = f.read()
+        assert not pattern.search(src), path
+
+
+@pytest.mark.parametrize("name", ["vanHoofetal2014.data", "departure_bn.npz",
+                                  "example-model-params.py"])
+def test_port_data_files_equal_the_jax_packages(name):
+    port = os.path.join(ROOT, 'rajepy_tpu_torch', 'data', name)
+    assert filecmp.cmp(port, os.path.join(ROOT, 'rajepy_tpu', 'data', name),
+                       shallow=False)
+
+
+def test_port_reads_its_own_data_files():
+    from rajepy_tpu_torch.ops import departure, gaunt
+    data = os.path.join(ROOT, 'rajepy_tpu_torch', 'data')
+    assert os.path.dirname(gaunt._DATA_FILE) == data
+    assert os.path.dirname(departure._TABLE_FILE) == data
 
 
 @pytest.mark.parametrize("alone", [False, True])
