@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's continuum and RRL main paths once on one
-NVIDIA GPU.
+"""Run the PyTorch/CUDA port's continuum, RRL and emergent main paths once
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -10,8 +10,11 @@ Phases (any failure exits non-zero; nothing is caught):
    against its plain PyTorch version on the card, on small random inputs:
    the epoch kernels with fully empty tiles and negative travel times, the
    RRL kernels with empty tiles, a ragged grid with an amp = 0 slab, and
-   channel sets that are all-far, all-near and mixed (1e-5 of the plain
-   map's maximum);
+   channel sets that are all-far, all-near and mixed; the emergent kernels
+   with fully empty tiles, segments of one and of several tiles, negative
+   travel times, a ragged grid, zero-opacity y ranges and both observer
+   orientations (1e-5 of the plain map's maximum), and the emergent tile
+   and full-grid kernels against the float64 host oracle (1e-5);
 2. main paths, each counted: the launch counters are reset just before a
    path and read just after, and each of its kernels must have been
    launched.
@@ -24,15 +27,26 @@ Phases (any failure exits non-zero; nothing is caught):
       departure coefficients), ``optical_depth_rrl`` on 16 channels over
       nu0 (1 +- 1e-4) with a FITS product, ``flux_rrl`` on those 16
       channels with the continuum, and the jet-free 512^3 grid through
-      ``rrl_rt_products`` (the full-grid RRL branch).
+      ``rrl_rt_products`` (the full-grid RRL branch);
+   c. emergent: the same jet at 2.2 yr, ``emergent_intensity_ff`` on the 16
+      continuum channels (the compacted tile kernel), the jet-free 512^3
+      grid (the full-grid kernel), and the ordered-scan op
+      ``transfer_scan_maps`` on one channel's 512^3 source and opacity
+      cubes, the channel chosen so that tau reaches 1 on the map.
    Outputs must be finite, non-zero where the jet is (all-zero on the
    jet-free grid), equal to the plain versions on the same card tensors
    (2e-4), and a small model at float32 must agree with the float64 plain
-   path (2e-4 continuum, 1e-3 RRL).  Each kernel is also held against its
-   plain version at the main path's shapes (1e-5).
+   path (2e-4 continuum, 1e-3 RRL, 3e-3 emergent on axis and at inc 55 /
+   pa 30).  Each kernel is also held against its plain version at the main
+   path's shapes (1e-5); the emergent full-grid kernel on the flagship's
+   own cubes against the tile kernel's maps, and the scan op against that
+   channel of the full-grid kernel's maps (2e-4: two implementations of
+   one image).
 3. numbers: the GPU's name and power limit, n_act, fill time and peak
-   memory, the warm per-epoch time of ``continuum_rt_products`` and per-run
-   time of ``rrl_rt_products`` (CUDA events), device busy time under
+   memory, the warm per-epoch time of ``continuum_rt_products``, per-run
+   time of ``rrl_rt_products`` and per-call time of the emergent maps
+   (CUDA events), the emergent compaction's tiles and segments, device
+   busy time under
    ``torch.profiler``, and each kernel's time beside its plain version's
    and its bound (the larger of bytes over 3.35 TB/s and float32
    operations over 67 TFLOP/s, the H100 SXM data sheet's peaks).
@@ -73,8 +87,18 @@ PEAK_F32_OPS_PER_S = 67e12
 # offset, stimulated factor, branch test and accumulation; then the
 # Weideman-16 core (16 Goertzel steps of 4) or the asymptotic wings
 RRL_OPS_COMMON, RRL_OPS_CORE, RRL_OPS_FAR = 10, 98, 33
+EMERGENT_EPOCH_YR = 2.2
+EMERGENT_F32_RTOL = 3e-3
+# float32 operations of the emergent kernels, counted from
+# csrc/emergent_maps.cu (a division or a transcendental counts as one):
+# per cell and channel of the ordered update; per burst of chi; per live
+# tile cell outside the burst loop (unpacking, side test, a*chi^2, skip
+# test); per cell of the scan op
+EMERGENT_OPS_CHAN, EMERGENT_OPS_BURST, EMERGENT_OPS_CHI = 13, 8, 7
+SCAN_OPS = 9
 EPOCH_SRC = 'rajepy_tpu_torch/csrc/epoch_maps.cu'
 RRL_SRC = 'rajepy_tpu_torch/csrc/rrl_maps.cu'
+EMERGENT_SRC = 'rajepy_tpu_torch/csrc/emergent_maps.cu'
 KERNELS = {   # name -> (source, TPU kernel replaced)
     'epoch_base_map_tiles': (EPOCH_SRC,
                              'rajepy_tpu/ops/pallas_kernels.py:348'),
@@ -84,10 +108,18 @@ KERNELS = {   # name -> (source, TPU kernel replaced)
                             'rajepy_tpu/ops/pallas_kernels.py:203'),
     'rrl_tiles_pallas': (RRL_SRC, 'rajepy_tpu/ops/pallas_kernels.py:942'),
     'rrl_cube_pallas': (RRL_SRC, 'rajepy_tpu/ops/pallas_kernels.py:993'),
+    'emergent_ff_tiles': (EMERGENT_SRC,
+                          'rajepy_tpu/ops/pallas_kernels.py:707'),
+    'emergent_ff_pallas': (EMERGENT_SRC,
+                           'rajepy_tpu/ops/pallas_kernels.py:553'),
+    'transfer_scan_pallas': (EMERGENT_SRC,
+                             'rajepy_tpu/ops/pallas_kernels.py:104'),
 }
 CONTINUUM_KERNELS = ('epoch_base_map_tiles', 'epoch_base_maps2_tiles',
                      'epoch_base_map_full')
 RRL_KERNELS = ('rrl_tiles_pallas', 'rrl_cube_pallas')
+EMERGENT_KERNELS = ('emergent_ff_tiles', 'emergent_ff_pallas',
+                    'transfer_scan_pallas')
 
 
 def rel_err(got, want):
@@ -259,6 +291,137 @@ def rrl_factors(rng, shape, device):
             for a in out]
 
 
+def chan_consts(freqs, device):
+    """(cnu, hnuk) = (2 h nu^3 / c^2, h nu / k) in float64, cast to
+    float32, as the model forms them."""
+    import torch
+    from rajepy_tpu_torch import constants as cnsts
+    f64 = np.asarray(freqs, dtype=np.float64)
+    return [torch.as_tensor(a, dtype=torch.float32, device=device)
+            for a in (2.0 * cnsts.H_CGS * f64 ** 3 / cnsts.C_CGS ** 2,
+                      cnsts.H_CGS * f64 / cnsts.K_CGS)]
+
+
+def emergent_oracle(cnu, hnuk, temp, dtau, near_y0=False):
+    """float64 host oracle of the ordered emergent scan (bench.py's): the
+    given (n_chan, nx, ny, nz) opacity, the exact blackbody source where
+    the opacity is non-zero, tau in front of each cell by cumsum."""
+    d = np.asarray(dtau.double().cpu(), np.float64)
+    t64 = np.asarray(temp.double().cpu(), np.float64)[None]
+    cn = np.asarray(cnu.double().cpu())[:, None, None, None]
+    hk = np.asarray(hnuk.double().cpu())[:, None, None, None]
+    with np.errstate(over='ignore'):
+        src = np.where(d > 0, cn / np.expm1(hk / t64), 0.0)
+    if not near_y0:
+        d, src = d[:, :, ::-1], src[:, :, ::-1]
+    tau_in = np.cumsum(d, axis=2) - d
+    return np.sum(src * np.exp(-tau_in) * (-np.expm1(-d)), axis=2)
+
+
+def emergent_tiles_oracle(cnu, hnuk, scale, temp_t, a_t, tss_t, starts, t,
+                          bursts, off):
+    """float64 oracle of the emergent tile kernel: chi from the packed
+    launch times, each segment's tiles joined along y in observer order."""
+    import torch
+    tss = np.asarray(tss_t.double().cpu())
+    lt = t - (np.abs(tss) - off)
+    red = tss < 0.0
+    chi = np.ones_like(lt)
+    for t0, inv2s2, amp, is_red in bursts:
+        g = amp * np.exp(-(lt - t0) ** 2 * inv2s2)
+        chi += np.where(red if is_red else ~red, g, 0.0)
+    d_base = np.asarray(a_t.double().cpu()) * chi * chi
+    sc = np.asarray(scale.double().cpu())[:, None, None, None]
+    out = []
+    for s0, s1 in zip(starts[:-1], starts[1:]):
+        d = sc * np.concatenate(list(d_base[s0:s1]), axis=1)[None]
+        temp = torch.as_tensor(np.concatenate(
+            list(np.asarray(temp_t[s0:s1].double().cpu())), axis=1))
+        out.append(emergent_oracle(cnu, hnuk, temp, torch.as_tensor(d),
+                                   near_y0=True))
+    return np.stack(out)
+
+
+def check_emergent_kernels(bursts, dev):
+    """Phase 1 for the emergent kernels: each against its plain version on
+    small card tensors, and the tile and full-grid kernels against the
+    float64 oracle."""
+    import torch
+    from rajepy_tpu_torch.ops import kernels as kn
+    from rajepy_tpu_torch.ops import radtrans as rt
+    rng = np.random.default_rng(3)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    t = 2.0 * YEAR
+    # tiles: 4 segments of 2, 1, 3 and 1 tiles in observer order; tiles 0,
+    # 3 and 6 fully empty (so is the one-tile segment 3); 6 channels
+    a_t, _, tss_t, off = random_tiles(rng, 7, dev)
+    a_t = a_t * as_t(rng.random(a_t.shape) < 0.4)
+    temp_t = torch.where(a_t > 0, as_t(rng.uniform(5e3, 2e4, a_t.shape)),
+                         torch.ones_like(a_t))
+    seg = np.array([0, 0, 1, 2, 2, 2, 3])
+    starts = kn.segment_starts(seg, 4)
+    seg_start = torch.as_tensor(starts, device=dev)
+    freqs = np.geomspace(1e9, 3e11, 6)
+    cnu, hnuk = chan_consts(freqs, dev)
+    scale = as_t(np.geomspace(1e-3, 0.3, 6))
+    args = (cnu, hnuk, scale, temp_t, a_t, tss_t, seg_start, t, bursts, off)
+    got = kn.emergent_tile_partials(*args)
+    want = kn.emergent_tile_partials_plain(*args)
+    check('emergent_ff_tiles I', got[0], want[0], KERNEL_RTOL)
+    check('emergent_ff_tiles tau', got[1], want[1], KERNEL_RTOL)
+    if got[0][3].abs().max() != 0 or got[1][3].abs().max() != 0:
+        raise AssertionError("an empty segment gave non-zero maps")
+    oracle = emergent_tiles_oracle(cnu, hnuk, scale, temp_t, a_t, tss_t,
+                                   starts, t, bursts, off)
+    check('emergent_ff_tiles vs float64 oracle', got[0],
+          torch.as_tensor(oracle, device=dev), KERNEL_RTOL)
+
+    # full grid and scan op: ragged in every axis, an empty x slab and a
+    # zero-opacity y range; 20 channels (two channel blocks of 16)
+    shape = (37, 70, 150)
+    inside = rng.random(shape) < 0.3
+    inside[:8] = False
+    inside[:, 20:45] = False
+    temp = as_t(np.where(inside, rng.uniform(5e3, 2e4, shape), 1.0))
+    base = as_t(np.where(inside, 0.05 * rng.random(shape), 0.0))
+    freqs = np.geomspace(1e9, 3e11, 20)
+    cnu, hnuk = chan_consts(freqs, dev)
+    scale = as_t(np.geomspace(0.02, 5.0, 20))
+    src = as_t(rng.random(shape))
+    for near in (False, True):
+        got = kn.emergent_ff_full(cnu, hnuk, scale, temp, base, near)
+        want = kn.emergent_ff_full_plain(cnu, hnuk, scale, temp, base, near)
+        check(f'emergent_ff_pallas I, near_y0={near}', got[0], want[0],
+              KERNEL_RTOL)
+        check(f'emergent_ff_pallas tau, near_y0={near}', got[1], want[1],
+              KERNEL_RTOL)
+        if got[0][:, :8].abs().max() != 0:
+            raise AssertionError("the empty slab gave non-zero maps")
+        got = kn.transfer_scan_maps(src, base * 3.0, near)
+        want = kn.transfer_scan_maps_plain(src, base * 3.0, near)
+        check(f'transfer_scan_pallas I, near_y0={near}', got[0], want[0],
+              KERNEL_RTOL)
+        check(f'transfer_scan_pallas tau, near_y0={near}', got[1], want[1],
+              KERNEL_RTOL)
+    # bench.py's case for the full-grid kernel against the oracle
+    shape = (16, 48, 128)
+    inside = rng.random(shape) < 0.3
+    inside[8:] = False
+    temp = as_t(np.where(inside, 1e4 * (0.5 + rng.random(shape)), 1.0))
+    n_es = as_t(np.where(inside, 1e7 * rng.random(shape), 0.0))
+    ds = as_t(np.where(inside, 7.5e12, 0.0))
+    inside = torch.as_tensor(inside, device=dev)
+    base = rt.tau_ff_base(temp, n_es, ds, inside, True)
+    freqs = np.linspace(1e9, 5e10, 6)
+    cnu, hnuk = chan_consts(freqs, dev)
+    scale = rt.tau_ff_channel_scale(as_t(freqs), 1e4, True)
+    got = kn.emergent_ff_full(cnu, hnuk, scale, temp, base)
+    oracle = emergent_oracle(cnu, hnuk, temp,
+                             scale[:, None, None, None] * base[None])
+    check('emergent_ff_pallas vs float64 oracle', got[0],
+          torch.as_tensor(oracle, device=dev), KERNEL_RTOL)
+
+
 # channel offsets from nu0 [Hz] that put every cell of rrl_factors in the
 # wings, every cell in the core, and a mix
 RRL_CHANNEL_SETS = {'all-far': (1e7, 5e7, 9), 'all-near': (-2e5, 2e5, 7),
@@ -334,6 +497,7 @@ def phase_kernels(bursts):
         check(f'rrl_cube_pallas, {label}', got, want, KERNEL_RTOL)
         if got[:, :8].abs().max() != 0:
             raise AssertionError("the amp = 0 slab gave non-zero maps")
+    check_emergent_kernels(bursts, dev)
     torch.cuda.synchronize()
 
 
@@ -534,6 +698,206 @@ def rrl_products_plain(jm, band):
     return tau_l, fluxes, inputs
 
 
+def emergent_tile_args(jm):
+    """The emergent tile kernel's arguments as the model's path makes them,
+    and the segments' (x, z) tile coordinates."""
+    cnu, hnuk, scale = jm._emergent_channels(jm._freqs(FREQS))
+    temp_t, a_t, tss_t, _, seg_start, it, kt = jm._emergent_tiles()[:7]
+    return ((cnu, hnuk, scale, temp_t, a_t, tss_t, seg_start, jm.time,
+             jm._burst_tuple(), jm._ts_pack_offset), it, kt)
+
+
+def emergent_full_args(jm):
+    """The full-grid kernel's arguments from the model's own cubes
+    (base = a chi^2, safe temperature): real jet cells, unlike the jet-free
+    grid that takes this kernel on the main path."""
+    import torch
+    f = jm._ensure_fields()
+    cnu, hnuk, scale = jm._emergent_channels(jm._freqs(FREQS))
+    base = jm._rt_static().a * jm._chi2(f, jm.time)
+    safe_t = torch.where(f.inside, f.temp, torch.ones_like(f.temp))
+    return cnu, hnuk, scale, safe_t, base
+
+
+def scan_channel_args(jm, c):
+    """One channel's source B_nu(T) inside the jet and opacity
+    scale[c] a chi^2, (nx, ny, nz) each, for the scan op."""
+    import torch
+    from rajepy_tpu_torch.ops import physics
+    cnu, hnuk, scale, safe_t, base = emergent_full_args(jm)
+    f = jm._ensure_fields()
+    src = torch.where(f.inside, physics.blackbody_nu(jm._freqs(FREQS)[c],
+                                                     safe_t),
+                      torch.zeros_like(safe_t))
+    return src, base * scale[c]
+
+
+def run_emergent(jm, empty):
+    """The emergent main path, counted (phase 2c): the flagship through the
+    tile kernel, the jet-free grid through the full-grid kernel, and the
+    scan op on one channel whose tau reaches 1 on the map."""
+    import torch
+    from rajepy_tpu_torch.ops import kernels as kn
+    print(f"phase 2c: emergent, {N_GRID}^3 x {len(FREQS)} channels, "
+          f"float32, {EMERGENT_EPOCH_YR} yr")
+    jm.time = empty.time = EMERGENT_EPOCH_YR * YEAR
+    taus = jm.continuum_rt_products(FREQS, as_numpy=False)[1]
+    tau_max = taus.amax(dim=(1, 2)).cpu().numpy()
+    c = int(np.flatnonzero(tau_max >= 1.0).max())
+    scan_args = scan_channel_args(jm, c)
+    del taus
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kn.reset_launches()
+    t_wall = time.perf_counter()
+    ints = jm.emergent_intensity_ff(FREQS)
+    e_ints = empty.emergent_intensity_ff(FREQS)
+    scan = kn.transfer_scan_maps(*scan_args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t_wall
+    launches = read_launches('emergent')
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require_launched(launches, EMERGENT_KERNELS, 'emergent')
+
+    if ints.shape != (len(FREQS), N_GRID, N_GRID):
+        raise AssertionError(f"emergent maps: shape {ints.shape}")
+    finite_nonzero((ints, scan[0].cpu().numpy()), 'emergent')
+    all_zero((e_ints,), 'emergent')
+    if empty._emergent_tiles() is not None:
+        raise AssertionError("the jet-free grid has active tiles")
+    print(f"  maps finite and non-zero, max I {ints.max():.4e} W m^-2 Hz^-1 "
+          f"sr^-1; scan op on channel {c} ({FREQS[c]:.4e} Hz, max tau "
+          f"{tau_max[c]:.4f}); jet-free grid all zero; run {wall_s:.4f} s "
+          f"(flipped compaction, both grids, the scan op); peak memory "
+          f"{peak_gb:.3f} GB")
+    return launches, dict(c=c, scan=scan, scan_args=scan_args)
+
+
+def check_emergent(jm, em):
+    """Phase 2c's comparisons on the card: the main path against the plain
+    versions, each kernel against its plain version at the main path's
+    shapes (1e-5), the full-grid kernel against the tile kernel and the
+    scan op against the full-grid kernel (2e-4)."""
+    from rajepy_tpu_torch.ops import kernels as kn
+    errs = {}
+    k6, it, kt = emergent_tile_args(jm)
+    got = jm._emergent_maps(FREQS)
+    parts = kn.emergent_tile_partials_plain(*k6)
+    want = kn.scatter_tile_maps(parts[0], it, kt, *jm._emergent_tiles()[8:],
+                                jm.nx, jm.nz) * 1e-7 * 1e4
+    check('flagship emergent maps vs plain', got, want, MAP_RTOL)
+    k6_out = kn.emergent_tile_partials(*k6)
+    errs['emergent_ff_tiles'] = max(
+        check('emergent_ff_tiles I at main-path shape', k6_out[0], parts[0],
+              KERNEL_RTOL),
+        check('emergent_ff_tiles tau at main-path shape', k6_out[1],
+              parts[1], KERNEL_RTOL))
+    k6_maps = [kn.scatter_tile_maps(p, it, kt, *jm._emergent_tiles()[8:],
+                                    jm.nx, jm.nz) for p in k6_out]
+    del parts, k6_out, got, want
+
+    k7 = emergent_full_args(jm)
+    k7_out = kn.emergent_ff_full(*k7)
+    want = kn.emergent_ff_full_plain(*k7)
+    errs['emergent_ff_pallas'] = max(
+        check(f'emergent_ff_pallas I, {N_GRID}^3 flagship cubes', k7_out[0],
+              want[0], KERNEL_RTOL),
+        check(f'emergent_ff_pallas tau, {N_GRID}^3 flagship cubes',
+              k7_out[1], want[1], KERNEL_RTOL))
+    del want
+    check('emergent_ff_pallas I vs emergent_ff_tiles', k7_out[0],
+          k6_maps[0], MAP_RTOL)
+    check('emergent_ff_pallas tau vs emergent_ff_tiles', k7_out[1],
+          k6_maps[1], MAP_RTOL)
+    del k7, k6_maps
+
+    c = em['c']
+    err = []
+    for near in (False, True):
+        got = em['scan'] if not near else kn.transfer_scan_maps(
+            *em['scan_args'], near)
+        want = kn.transfer_scan_maps_plain(*em['scan_args'], near)
+        for what, g, w in zip(('I', 'tau'), got, want):
+            err.append(check(f'transfer_scan_pallas {what}, near_y0={near}, '
+                             f'channel {c}', g, w, KERNEL_RTOL))
+    errs['transfer_scan_pallas'] = max(err)
+    check(f'transfer_scan_pallas I vs emergent_ff_pallas, channel {c}',
+          em['scan'][0], k7_out[0][c], MAP_RTOL)
+    check(f'transfer_scan_pallas tau vs emergent_ff_pallas, channel {c}',
+          em['scan'][1], k7_out[1][c], MAP_RTOL)
+    return errs
+
+
+def emergent_numbers(jm, scan_c):
+    """Phase 3 for the emergent path: the per-call time of the maps, the
+    compaction, and each kernel against its plain version (plain, kernel,
+    kernel, plain) and its bound; returns the kernels' summary rows."""
+    import torch
+    from rajepy_tpu_torch.ops import kernels as kn
+    rows = []
+    jm.time = EMERGENT_EPOCH_YR * YEAR
+    tiles = jm._emergent_tiles()
+    seg_len = np.diff(tiles[4].cpu().numpy())
+    print(f"  emergent compaction (cubes flipped into observer order): "
+          f"n_act = {tiles[0].shape[0]} tiles in n_seg = {tiles[7]} "
+          f"segments of 1 to {seg_len.max()} tiles; the tile kernel "
+          f"runs {tiles[7] * 1024} columns per block of "
+          f"{kn.EMERGENT_CPT_TILES} channels")
+    em_ms = cuda_ms(lambda: jm._emergent_maps(FREQS))
+    t0 = time.perf_counter()
+    for _ in range(10):
+        jm.emergent_intensity_ff(FREQS)
+    em_host_ms = (time.perf_counter() - t0) / 10 * 1e3
+    print(f"  emergent_intensity_ff warm ({len(FREQS)} ch): {em_ms:.4f} "
+          f"ms per call (CUDA events, median of 30, device tensors "
+          f"out); {em_host_ms:.4f} ms per call with the numpy copy-out "
+          f"(host clock, mean of 10)")
+    print_busy('emergent_intensity_ff calls',
+               lambda: jm._emergent_maps(FREQS), 10)
+    k6, _, _ = emergent_tile_args(jm)
+    k7 = emergent_full_args(jm)
+    k8 = scan_channel_args(jm, scan_c)
+    n_chan = len(FREQS)
+    a_t, base = k6[4], k7[4]
+    live6 = int(torch.count_nonzero(a_t))
+    live7 = int(torch.count_nonzero(base))
+    em_work = {   # kernel, plain, kernel batch, plain samples, B, ops
+        'emergent_ff_tiles': (
+            lambda: kn.emergent_tile_partials(*k6),
+            lambda: kn.emergent_tile_partials_plain(*k6), 20, 5,
+            nbytes(a_t, *k6[:3], k6[6]) + 2 * 4 * live6 +
+            2 * 4 * tiles[7] * n_chan * 1024,
+            (a_t.numel() - live6) + live6 * (
+                EMERGENT_OPS_CHI + EMERGENT_OPS_BURST * len(k6[8]) +
+                EMERGENT_OPS_CHAN * n_chan)),
+        'emergent_ff_pallas': (
+            lambda: kn.emergent_ff_full(*k7),
+            lambda: kn.emergent_ff_full_plain(*k7), 5, 3,
+            nbytes(base, *k7[:3]) + 4 * live7 +
+            2 * 4 * n_chan * jm.nx * jm.nz,
+            base.numel() + live7 * EMERGENT_OPS_CHAN * n_chan),
+        'transfer_scan_pallas': (
+            lambda: kn.transfer_scan_maps(*k8),
+            lambda: kn.transfer_scan_maps_plain(*k8), 10, 5,
+            nbytes(*k8) + 2 * 4 * jm.nx * jm.nz,
+            k8[0].numel() * SCAN_OPS),
+    }
+    print(f"  emergent kernels at the main path's shapes: {live6} jet "
+          f"cells in the tiles, {live7} in the full grid")
+    for name, (kfn, pfn, k_batch, p_rep, n_b, n_ops) in em_work.items():
+        p1 = cuda_ms(pfn, n_rep=p_rep, n_warm=1)
+        k1 = cuda_ms(kfn, batch=k_batch)
+        k2 = cuda_ms(kfn, batch=k_batch)
+        p2 = cuda_ms(pfn, n_rep=p_rep, n_warm=0)
+        b_ms, b_by = bound(n_b, n_ops)
+        print(f"  {name}: kernel {k1:.4f} / {k2:.4f} ms (median of 30 "
+              f"batches of {k_batch}), plain {p1:.4f} / {p2:.4f} ms "
+              f"(median of {p_rep}); bound {b_ms:.4f} ms by {b_by} "
+              f"({n_b} B, {n_ops} ops), {b_ms / k1:.3f} of it")
+        rows.append((name, k1, p1, b_ms, b_by))
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -564,6 +928,8 @@ def main() -> int:
         launches, cont = run_continuum(jm, empty, tmp)
         rrl_launches, rrl = run_rrl(jm, empty, tmp)
         launches.update({k: rrl_launches[k] for k in RRL_KERNELS})
+        em_launches, em = run_emergent(jm, empty)
+        launches.update({k: em_launches[k] for k in EMERGENT_KERNELS})
         band, core16 = rrl['band'], rrl['core16']
 
         # continuum: the same card tensors through the plain versions
@@ -634,6 +1000,14 @@ def main() -> int:
             g5, w5, KERNEL_RTOL)
         del g5, w5
 
+        # emergent: the flagship's maps and each kernel against its plain
+        # version, the two full-grid kernels against the tile kernel
+        jm.time = EMERGENT_EPOCH_YR * YEAR
+        errs.update(check_emergent(jm, em))
+        scan_c = em['c']
+        del em
+        torch.cuda.empty_cache()
+
         # small models: float32 kernels against the float64 plain path
         small = []
         rrl_small = []
@@ -652,6 +1026,17 @@ def main() -> int:
             check(f"64x160x64 float32 RRL {name} vs float64", g, w,
                   RRL_F32_RTOL)
         del small, rrl_small
+        for inc, pa in ((90.0, 0.0), (55.0, 30.0)):
+            maps = []
+            for dt in (torch.float32, torch.float64):
+                p = example_params((64, 160, 64))
+                p['geometry'].update(inc=inc, pa=pa)
+                m = JetModel(p, log=log, dtype=dt, device='cuda')
+                m.time = EMERGENT_EPOCH_YR * YEAR
+                maps.append(m._emergent_maps(FREQS))
+            check(f"64x160x64 float32 emergent vs float64, inc {inc:g} pa "
+                  f"{pa:g}", *maps, EMERGENT_F32_RTOL)
+        del maps
 
         # ---------------- phase 3: numbers ---------------- #
         print("phase 3: numbers")
@@ -768,6 +1153,8 @@ def main() -> int:
                       f"{b_ms / k1:.3f} of it")
                 if n_chan == RRL_NCHAN:
                     rows.append((name, k1, p1, b_ms, b_by))
+
+        rows += emergent_numbers(jm, scan_c)
 
         print(f"  script time before the summary "
               f"{time.perf_counter() - t_script:.1f} s")

@@ -27,41 +27,18 @@
 // grid steps; here one thread owns a whole column, so nothing depends on
 // the order in which blocks run.
 //
-// Numerics follow the Pallas kernels' float32 order:
-//   lt = t - (|tss| - pack_offset),  g = amp * expf(-(lt - t0)^2 * inv2s2),
-//   chi = 1 + sum of g over the cell's side's bursts.
-// Build with -fmad=false so that no multiply-add is contracted.
+// Numerics follow the Pallas kernels' float32 order (burst_chi in
+// bursts.cuh).  Build with -fmad=false so that no multiply-add is
+// contracted.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-#define MAX_BURSTS 32
+#include "bursts.cuh"
+
 #define TILE_X 8
 #define TILE_Y 64
 #define TILE_Z 128
-
-// Burst list: (t0 [s], 1/(2 sigma^2) [s^-2], relative amplitude, is_red).
-// Mirrors the ctypes Structure _Bursts in ops/kernels.py field for field.
-struct Bursts {
-    int n;
-    float t0[MAX_BURSTS];
-    float inv2s2[MAX_BURSTS];
-    float amp[MAX_BURSTS];
-    int is_red[MAX_BURSTS];
-};
-
-__device__ __forceinline__ float burst_chi(float tss, float t, float off,
-                                           const Bursts& b) {
-    const float lt = t - (fabsf(tss) - off);
-    const int red = tss < 0.0f;
-    float chi = 1.0f;
-    for (int i = 0; i < b.n; ++i) {
-        const float d = lt - b.t0[i];
-        const float g = b.amp[i] * expf(-(d * d) * b.inv2s2[i]);
-        if (b.is_red[i] == red) chi = chi + g;
-    }
-    return chi;
-}
 
 // One block per active tile; out[tile, x, z] = sum_y base * chi * chi.
 __global__ void __launch_bounds__(TILE_X * TILE_Z)

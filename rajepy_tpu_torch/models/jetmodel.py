@@ -27,8 +27,13 @@ cube kernel), with or without bursts; a float64 model takes the plain
 per-channel loop.  Non-LTE products take departure coefficients from the
 bundled case-B table (:mod:`..ops.departure`) or from the caller.
 
-The emergent-scan, diagnostic and velocity members of the JAX model are
-not ported yet.
+The ordered emergent intensity (``emergent_intensity_ff``): a float32
+model streams its jet-occupied tiles, flipped into observer order, through
+the emergent tile kernel (or, when no tile is active, the full grid through
+the emergent full-grid kernel); a float64 model takes the plain
+flip-and-cumsum scan per channel.
+
+The diagnostic and velocity members of the JAX model are not ported yet.
 """
 from __future__ import annotations
 
@@ -227,6 +232,7 @@ class JetModel:
         self._rt_static_cache: Optional[RTStatic] = None
         self._tile_ids_cache = None
         self._rrl_tiles_cache = None
+        self._emergent_tiles_cache = None
         self._char_cond_cache: Dict[float, tuple] = {}
         self._departure_cache: Dict[tuple, tuple] = {}
         self._ts_pack_offset = 1.0  # finalised by _rt_static (ts can go
@@ -290,6 +296,7 @@ class JetModel:
         self._rt_static_cache = None  # derived from ff/area: recompute
         self._tile_ids_cache = None
         self._rrl_tiles_cache = None
+        self._emergent_tiles_cache = None
         self._char_cond_cache = {}
         self._departure_cache = {}
 
@@ -899,6 +906,103 @@ class JetModel:
         if savefits:
             self._save_rt_fits(fluxes, savefits, 'flux', freq, scalar, True)
         return fluxes[0] if scalar else fluxes
+
+    # ------------------------------------------------------------------ #
+    # Ordered RT along the LOS (jetmodel.py:1600-1711)
+    # ------------------------------------------------------------------ #
+    def _emergent_tiles(self):
+        """Cached compacted observer-ordered float32 tiles for the emergent
+        tile kernel: (temp_t, a_t, tss_t, seg, seg_start, it, kt, n_seg,
+        n_xt, n_zt), or None when the grid holds no jet cell.  The cubes
+        are flipped along the LOS so that y=0 faces the observer, one at a
+        time, then compacted in scan order."""
+        if self._emergent_tiles_cache is None:
+            f = self._ensure_fields()
+            st = self._rt_static()
+            bx, yc, bz = kn.TILE
+            tile = dict(block_x=bx, block_z=bz, y_chunk=yc)
+            ids, seg, it, kt = kn.active_tiles_scan_order(
+                torch.flip(f.inside, [1]), **tile)
+            if ids.size == 0:
+                self._emergent_tiles_cache = ()
+            else:
+                f32 = torch.float32
+
+                def flipped_tiles(cube, fill=0.0):
+                    return kn.gather_tiles(torch.flip(cube, [1]).to(f32),
+                                           ids, fill=fill, **tile)
+
+                safe_t = torch.where(f.inside, f.temp,
+                                     torch.ones_like(f.temp))
+                temp_t = flipped_tiles(safe_t, fill=1.0)
+                del safe_t
+                n_seg = int(seg.max()) + 1
+                dev = self._device
+                self._emergent_tiles_cache = (
+                    temp_t, flipped_tiles(st.a),
+                    flipped_tiles(st.ts_signed, fill=1.0),
+                    torch.as_tensor(seg, dtype=torch.int64, device=dev),
+                    torch.as_tensor(kn.segment_starts(seg, n_seg),
+                                    device=dev),
+                    torch.as_tensor(it, dtype=torch.int64, device=dev),
+                    torch.as_tensor(kt, dtype=torch.int64, device=dev),
+                    n_seg, -(-self._nx // bx), -(-self._nz // bz))
+        return self._emergent_tiles_cache or None
+
+    def _emergent_channels(self, freqs):
+        """(cnu, hnuk, tau_scale) of the emergent kernels in float32, from
+        the model's (float32-rounded) channel frequencies: cnu = 2 h nu^3 /
+        c^2 and hnuk = h nu / k formed in float64, then cast
+        (jetmodel.py:1647-1652)."""
+        t_0, reyn, _, _ = self._rt_constants()
+        f32 = torch.float32
+        scale = rt.tau_ff_channel_scale(freqs, t_0, reyn)
+        freqs64 = freqs.to(torch.float64)
+        cnu = 2.0 * cnsts.H_CGS * freqs64 ** 3 / cnsts.C_CGS ** 2
+        hnuk = cnsts.H_CGS * freqs64 / cnsts.K_CGS
+        return cnu.to(f32), hnuk.to(f32), scale.to(f32)
+
+    def _emergent_maps(self, freq) -> torch.Tensor:
+        """(n_chan, nx, nz) emergent free-free intensity on the model's
+        device [W m^-2 Hz^-1 sr^-1]: the emergent tile kernel on compacted
+        observer-ordered tiles -> the full-grid kernel when no tile is
+        active (float32) -> the plain scan per channel (float64)."""
+        f = self._ensure_fields()
+        freqs = self._freqs(freq)
+        t = self.time
+        fused = self._use_fused_rrl()
+        tiles = self._emergent_tiles() if fused else None
+        if tiles is not None:
+            temp_t, a_t, tss_t, _, seg_start, it, kt = tiles[:7]
+            inten, _ = kn.emergent_ff_tiles(
+                *self._emergent_channels(freqs), temp_t, a_t, tss_t,
+                seg_start, it, kt, t, self._burst_tuple(), self._nx,
+                self._nz, pack_offset=self._ts_pack_offset)
+            return inten * 1e-7 * 1e4
+        base = self._rt_static().a * self._chi2(f, t)
+        safe_t = torch.where(f.inside, f.temp, torch.ones_like(f.temp))
+        if fused:
+            f32 = torch.float32
+            inten, _ = kn.emergent_ff_full(*self._emergent_channels(freqs),
+                                           safe_t.to(f32), base.to(f32))
+            return inten * 1e-7 * 1e4
+        t_0, reyn, _, _ = self._rt_constants()
+        scale = rt.tau_ff_channel_scale(freqs, t_0, reyn)
+        ints = []
+        for c in range(freqs.shape[0]):
+            src = mphys.blackbody_nu(freqs[c], safe_t)
+            src = torch.where(f.inside, src, torch.zeros_like(src))
+            ints.append(rt.transfer_scan(src, scale[c] * base))
+        return torch.stack(ints) * 1e-7 * 1e4
+
+    def emergent_intensity_ff(self, freq) -> np.ndarray:
+        """Emergent free-free intensity from the ordered transfer integral
+        sum S_i e^-tau (1-e^-dtau) along the LOS, in W m^-2 Hz^-1 sr^-1
+        (jetmodel.py:1635-1711).  Reduces to the reference's slab form for
+        an isothermal jet."""
+        scalar = np.isscalar(freq)
+        ints = self._emergent_maps(freq).cpu().numpy()
+        return ints[0] if scalar else ints
 
     # ------------------------------------------------------------------ #
     # FITS output (classes.py:1543-1652)

@@ -31,15 +31,30 @@ wrapper                     TPU kernel replaced                  route
 ``rrl_cube``                pallas_kernels.rrl_cube_pallas       cuda
 ==========================  ===================================  ========
 
+The ordered emergent scan (see ``csrc/emergent_maps.cu``)
+
+    I(x, z) = sum_y S e^{-tau_acc} (1 - e^{-dtau}),  tau_acc = dtau in front,
+
+has three more, walking each (x, z) column from the observer's end:
+
+==========================  ===================================  ========
+wrapper                     TPU kernel replaced                  route
+==========================  ===================================  ========
+``emergent_tile_partials``  pallas_kernels.emergent_ff_tiles     cuda
+``emergent_ff_full``        pallas_kernels.emergent_ff_pallas    cuda
+``transfer_scan_maps``      pallas_kernels.transfer_scan_pallas  cuda
+==========================  ===================================  ========
+
 Each wrapper takes CUDA tensors to its kernel and CPU tensors to the plain
-PyTorch version beside it (same formula, ``torch.sum`` over y); any other
-device raises.  ``LAUNCHES`` counts kernel launches per wrapper, under the
-TPU kernel's name.
+PyTorch version beside it (same formula, ``torch.sum`` over y; the ordered
+scans by an exclusive cumsum); any other device raises.  ``LAUNCHES``
+counts kernel launches per wrapper, under the TPU kernel's name.
 
 The kernels are compiled at first use with ``nvcc`` (one process per
 ``csrc/*.cu`` source, all started together, then one link) into a shared
 library with a plain C interface under ``rajepy_tpu_torch/_build/``
-(rebuilt when any source changes) and bound with ``ctypes``.  Nothing here
+(rebuilt when any source or shared ``csrc/*.cuh`` header changes) and
+bound with ``ctypes``.  Nothing here
 imports or builds anything CUDA-specific at import time.
 
 Compaction: the jet silhouette covers a few percent of the cube, so the
@@ -48,7 +63,10 @@ epoch-independent cubes are cut once per model into the jet-occupied
 kernels write one (8, 128) partial per tile, and :func:`reassemble_tiles`
 folds the partials into the (nx, nz) map with ``index_add_``;
 :func:`segment_tile_maps` does the same for the RRL kernel's per-channel
-partials.
+partials.  The emergent scan compacts the cubes flipped into observer
+order (:func:`active_tiles_scan_order`), so that a segment's tiles are
+consecutive and in LOS order; its kernel writes one (n_chan, bx, bz) map
+per segment and :func:`scatter_tile_maps` places them on the image.
 """
 from __future__ import annotations
 
@@ -73,7 +91,8 @@ MAX_BURSTS = 32
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES = {'epoch_base_map_tiles': 0, 'epoch_base_maps2_tiles': 0,
             'epoch_base_map_full': 0, 'rrl_tiles_pallas': 0,
-            'rrl_cube_pallas': 0}
+            'rrl_cube_pallas': 0, 'emergent_ff_tiles': 0,
+            'emergent_ff_pallas': 0, 'transfer_scan_pallas': 0}
 
 # Weideman degree of the float32 RRL kernels: its truncation error (1.4e-7
 # on |x| <= 8) already sits at the float32 roundoff floor
@@ -83,6 +102,10 @@ FAR_CUT = 8.0
 # channels per thread of the RRL kernels (CPT in csrc/rrl_maps.cu): the
 # launch grid walks ceil(n_chan / CPT) channel blocks in one dimension
 RRL_CPT = 16
+# channels per thread of the emergent kernels (CPT_FULL and CPT_TILES in
+# csrc/emergent_maps.cu)
+EMERGENT_CPT_FULL = 16
+EMERGENT_CPT_TILES = 4
 _MAX_GRID_YZ = 65535
 _SQRT_PI = 1.7724538509055159
 
@@ -135,6 +158,13 @@ def _tile_grid(n: int, b: int) -> int:
     return -(-n // b)
 
 
+def _index(a, device) -> torch.Tensor:
+    """int64 index tensor on ``device`` from a numpy array or a tensor."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device)
+
+
 def _pad_to_tiles(cube: torch.Tensor, bx: int, yc: int, bz: int, fill):
     nx, ny, nz = cube.shape
     pads = ((-nx) % bx, (-ny) % yc, (-nz) % bz)
@@ -183,8 +213,7 @@ def gather_tiles(cube: torch.Tensor, ids, block_x: int = 8,
     padded cube is never copied whole)."""
     t = _tile_view(cube, block_x, y_chunk, block_z, fill)
     n_yt, n_zt = t.shape[1], t.shape[2]
-    ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64,
-                          device=cube.device)
+    ids = _index(ids, cube.device)
     return t[ids // (n_yt * n_zt), (ids // n_zt) % n_yt,
              ids % n_zt].contiguous()
 
@@ -203,6 +232,54 @@ def reassemble_tiles(parts: torch.Tensor, seg: torch.Tensor, nx: int,
     m.index_add_(0, seg, parts)
     m = m.reshape(n_xt, n_zt, bx, bz).permute(0, 2, 1, 3)
     return m.reshape(n_xt * bx, n_zt * bz)[:nx, :nz]
+
+
+def active_tiles_scan_order(inside_flipped: torch.Tensor, block_x: int = 8,
+                            block_z: int = 128, y_chunk: int = 64):
+    """Jet-occupied tiles of the ordered emergent scan, once per model
+    (pallas_kernels.active_tiles_scan_order).
+
+    ``inside_flipped`` is already flipped along y into observer order (y=0
+    nearest the observer).  Tiles are sorted by (x-tile, z-tile) segment,
+    then by y, so that a segment's tiles are consecutive and in LOS order.
+    Returns int32 numpy ``(ids, seg, it, kt)``: flat tile ids into the
+    padded tile grid, the dense [0, n_seg) segment of each tile (non-
+    decreasing), and each segment's (x, z) tile coordinates."""
+    act = _tile_activity(inside_flipped, block_x, block_z,
+                         y_chunk).cpu().numpy()
+    n_xt, n_yt, n_zt = act.shape
+    ids = np.flatnonzero(act.reshape(-1)).astype(np.int32)
+    i = ids // (n_yt * n_zt)
+    j = (ids // n_zt) % n_yt
+    k = ids % n_zt
+    order = np.lexsort((j, k, i))         # primary i, then k, then j
+    ids, i, j, k = ids[order], i[order], j[order], k[order]
+    uniq, seg = np.unique(i * n_zt + k, return_inverse=True)
+    return (ids, seg.astype(np.int32), (uniq // n_zt).astype(np.int32),
+            (uniq % n_zt).astype(np.int32))
+
+
+def segment_starts(seg, n_seg: int) -> np.ndarray:
+    """(n_seg + 1,) int32 offsets: segment s holds tiles seg_start[s] ..
+    seg_start[s + 1] - 1 of the scan-ordered tiles.  The tile kernel reads
+    them where the TPU kernel detects a segment's first tile inside its
+    sequential grid."""
+    counts = np.bincount(np.asarray(seg, dtype=np.int64), minlength=n_seg)
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+def scatter_tile_maps(parts: torch.Tensor, it, kt, n_xt: int, n_zt: int,
+                      nx: int, nz: int) -> torch.Tensor:
+    """(n_seg, n_chan, bx, bz) per-segment maps -> (n_chan, nx, nz), zero
+    where no segment exists, i.e. no jet along that line of sight
+    (pallas_kernels.scatter_tile_maps).  ``it``/``kt`` are each segment's
+    (x, z) tile coordinates."""
+    _, n_chan, bx, bz = parts.shape
+    grid = parts.new_zeros((n_chan, n_xt, n_zt, bx, bz))
+    grid[:, _index(it, parts.device), _index(kt, parts.device)] = \
+        parts.transpose(0, 1)
+    m = grid.permute(0, 1, 3, 2, 4).reshape(n_chan, n_xt * bx, n_zt * bz)
+    return m[:, :nx, :nz]
 
 
 # --------------------------------------------------------------------------- #
@@ -358,11 +435,81 @@ def rrl_cube_plain(freqs_off, amp, rest, scale, yv, hkt,
                   dim=1) for fo in freqs_off])
 
 
+def exclusive_cumsum(d: torch.Tensor, dim: int) -> torch.Tensor:
+    """Optical depth in front of each cell along ``dim``: the inclusive
+    cumsum shifted by one cell, so that no large total is subtracted back
+    out (at 3e8 Hz the flagship's tau reaches the hundreds)."""
+    c = torch.cumsum(d, dim)
+    n = d.shape[dim]
+    return torch.cat([torch.zeros_like(c.narrow(dim, 0, 1)),
+                      c.narrow(dim, 0, n - 1)], dim)
+
+
+def transfer_scan_maps_plain(source, dtau, observer_near_y0: bool = False):
+    """Plain version of :func:`transfer_scan_maps`: ``(I, tau_total)``."""
+    from .radtrans import transfer_scan   # radtrans imports this module
+    return (transfer_scan(source, dtau, observer_near_y0),
+            torch.sum(dtau, dim=1))
+
+
+def emergent_ff_full_plain(cnu, hnuk, tau_scale, temp, dtau_base,
+                           observer_near_y0: bool = False):
+    """Plain version of :func:`emergent_ff_full`: (n_chan, nx, nz) maps of
+    I and tau_total, one channel at a time (so a 512^3 call holds a few
+    cube-sized temporaries, not n_chan of them)."""
+    ints, taus = [], []
+    for c in range(cnu.shape[0]):
+        src = cnu[c] / torch.expm1(hnuk[c] / temp)
+        i, tau = transfer_scan_maps_plain(src, dtau_base * tau_scale[c],
+                                          observer_near_y0)
+        ints.append(i)
+        taus.append(tau)
+    if not ints:
+        empty = temp.new_zeros((0, temp.shape[0], temp.shape[2]))
+        return empty, empty.clone()
+    return torch.stack(ints), torch.stack(taus)
+
+
+def emergent_tile_partials_plain(cnu, hnuk, tau_scale, temp_t, a_t, tss_t,
+                                 seg_start, t: float, bursts: Sequence,
+                                 pack_offset: float = 1.0):
+    """Plain version of :func:`emergent_tile_partials`: per-segment maps of
+    I and tau_total, (n_seg, n_chan, bx, bz), for tiles of any shape.
+
+    Vectorised over tiles and channels: the optical depth in front of a
+    cell is its tile's exclusive cumsum along y plus the totals of the
+    segment's earlier tiles, carried by a loop over position in the
+    segment (at most ny / y_chunk steps, all segments at once)."""
+    starts = np.asarray(torch.as_tensor(seg_start).cpu(), dtype=np.int64)
+    n_seg = starts.size - 1
+    n_act, bx, _, bz = a_t.shape
+    dev = a_t.device
+    chan = (None, slice(None), None, None, None)
+    chi = _chi_plain(tss_t, t, bursts, pack_offset)
+    d = (a_t * chi * chi)[:, None] * tau_scale[chan]
+    emit = cnu[chan] / torch.expm1(hnuk[chan] / temp_t[:, None]) * \
+        -torch.expm1(-d)
+    tau_in = exclusive_cumsum(d, 3)
+    tot = torch.sum(d, dim=3)                  # (n_act, n_chan, bx, bz)
+    seg = np.repeat(np.arange(n_seg), np.diff(starts))
+    pos = np.arange(n_act) - starts[seg]
+    front = torch.zeros_like(tot)              # tau of the earlier tiles
+    for k in range(1, int(pos.max(initial=0)) + 1):
+        idx = _index(np.flatnonzero(pos == k), dev)
+        front[idx] = front[idx - 1] + tot[idx - 1]
+    parts = torch.sum(emit * torch.exp(-(tau_in + front[:, :, :, None])),
+                      dim=3)
+    inten = parts.new_zeros((n_seg,) + parts.shape[1:])
+    inten.index_add_(0, _index(seg, dev), parts)
+    last = _index(starts[1:] - 1, dev)
+    return inten, front[last] + tot[last]
+
+
 # --------------------------------------------------------------------------- #
 # Build and bind the CUDA library
 # --------------------------------------------------------------------------- #
 class _Bursts(ctypes.Structure):
-    """By-value burst list; mirrors ``struct Bursts`` in epoch_maps.cu."""
+    """By-value burst list; mirrors ``struct Bursts`` in bursts.cuh."""
     _fields_ = [('n', ctypes.c_int),
                 ('t0', ctypes.c_float * MAX_BURSTS),
                 ('inv2s2', ctypes.c_float * MAX_BURSTS),
@@ -410,15 +557,22 @@ def _nvcc() -> str:
                        "csrc/*.cu at first use on a CUDA machine")
 
 
-def sources() -> list:
-    """The CUDA sources of the library, in a fixed order."""
-    return sorted(glob.glob(os.path.join(_CSRC, '*.cu')))
+def sources(csrc: str = _CSRC) -> list:
+    """The CUDA compilation units of the library (``csrc/*.cu``), in a
+    fixed order."""
+    return sorted(glob.glob(os.path.join(csrc, '*.cu')))
 
 
-def library_path() -> str:
-    """Where the build for the current sources and flags lives."""
+def build_inputs(csrc: str = _CSRC) -> list:
+    """Every file under ``csrc`` that the build reads: the sources and the
+    headers they include (``*.cuh``), in a fixed order."""
+    return sorted(sources(csrc) + glob.glob(os.path.join(csrc, '*.cuh')))
+
+
+def library_path(csrc: str = _CSRC) -> str:
+    """Where the build for the current sources, headers and flags lives."""
     h = hashlib.sha256()
-    for src in sources():
+    for src in build_inputs(csrc):
         h.update(os.path.basename(src).encode())
         with open(src, 'rb') as f:
             h.update(f.read())
@@ -475,8 +629,12 @@ def _lib():
         lib.epoch_full.argtypes = [p, p, p, i, i, i, f, f, _Bursts, p]
         lib.rrl_tiles.argtypes = [p] * 7 + [i, i, f, _Weideman, p]
         lib.rrl_cube.argtypes = [p] * 7 + [i, i, i, i, f, _Weideman, p]
+        lib.transfer_scan.argtypes = [p] * 4 + [i, i, i, i, p]
+        lib.emergent_full.argtypes = [p] * 7 + [i, i, i, i, i, p]
+        lib.emergent_tiles.argtypes = [p] * 9 + [i, i, f, f, _Bursts, p]
         for fn in (lib.epoch_tiles, lib.epoch_tiles2, lib.epoch_full,
-                   lib.rrl_tiles, lib.rrl_cube):
+                   lib.rrl_tiles, lib.rrl_cube, lib.transfer_scan,
+                   lib.emergent_full, lib.emergent_tiles):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -710,3 +868,155 @@ def rrl_cube(freqs_off, amp, rest, scale, yv, hkt,
     _raise_if_error(name, err)
     LAUNCHES[name] += 1
     return out
+
+
+def transfer_scan_maps(source, dtau, observer_near_y0: bool = False):
+    """Emergent intensity and total optical depth maps ``(I, tau_total)``,
+    both (nx, nz), from (nx, ny, nz) source-function and per-cell opacity
+    cubes: the ordered scan I = sum_y S e^{-tau_acc} (1 - e^{-dtau})
+    (counterpart of pallas_kernels.transfer_scan_pallas).
+    ``observer_near_y0`` selects which end of y faces the observer
+    (radtrans.transfer_scan convention).  The CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    name = 'transfer_scan_pallas'
+    if _device_kind(source, name) == 'cpu':
+        return transfer_scan_maps_plain(source, dtau, observer_near_y0)
+    if source.dim() != 3:
+        raise ValueError(f"{name}: expected an (nx, ny, nz) cube, got "
+                         f"shape {tuple(source.shape)}")
+    nx, ny, nz = source.shape
+    _check_cuda(name, (source, dtau), (nx, ny, nz))
+    if -(-nx // 8) > _MAX_GRID_YZ:      # eight x rows per block
+        raise ValueError(f"{name}: nx = {nx} exceeds the launch grid")
+    out_i = torch.empty((nx, nz), dtype=torch.float32, device=source.device)
+    out_tau = torch.empty_like(out_i)
+    if out_i.numel() == 0:
+        return out_i, out_tau
+    with torch.cuda.device(source.device):
+        err = _lib().transfer_scan(
+            source.data_ptr(), dtau.data_ptr(), out_i.data_ptr(),
+            out_tau.data_ptr(), nx, ny, nz, int(bool(observer_near_y0)),
+            _stream(source.device))
+    _raise_if_error(name, err)
+    LAUNCHES[name] += 1
+    return out_i, out_tau
+
+
+def _check_channels(name: str, consts, dev, cpt: int) -> int:
+    """(n_chan,) float32 channel constants on the fields' device."""
+    if consts[0].dim() != 1 or consts[0].device != dev:
+        raise ValueError(f"{name}: channel constants must be 1-D on {dev}")
+    n_chan = consts[0].shape[0]
+    _check_cuda(name, consts, (n_chan,))
+    if -(-n_chan // cpt) > _MAX_GRID_YZ:
+        raise ValueError(f"{name}: at most {_MAX_GRID_YZ * cpt} channels, "
+                         f"got {n_chan}")
+    return n_chan
+
+
+def emergent_ff_full(cnu, hnuk, tau_scale, temp, dtau_base,
+                     observer_near_y0: bool = False):
+    """Multi-channel emergent free-free intensity and total optical depth,
+    (n_chan, nx, nz) each, over the FULL (nx, ny, nz) grid (counterpart of
+    pallas_kernels.emergent_ff_pallas): dtau = tau_scale[c] * dtau_base and
+    S = cnu[c] / expm1(hnuk[c] / temp) per cell and channel, so no
+    per-channel cube exists.  The model's branch when the grid holds no jet
+    cell, so no tile is active.
+
+    Args:
+      cnu:       (n_chan,) blackbody prefactor 2 h nu^3 / c^2 [cgs]
+      hnuk:      (n_chan,) h nu / k_B [K]
+      tau_scale: (n_chan,) per-channel opacity multiplier
+      temp:      (nx, ny, nz) temperature, safe (> 0) outside the jet
+      dtau_base: (nx, ny, nz) frequency-independent opacity, 0 outside
+    """
+    name = 'emergent_ff_pallas'
+    if _device_kind(temp, name) == 'cpu':
+        return emergent_ff_full_plain(cnu, hnuk, tau_scale, temp, dtau_base,
+                                      observer_near_y0)
+    if temp.dim() != 3:
+        raise ValueError(f"{name}: expected an (nx, ny, nz) cube, got "
+                         f"shape {tuple(temp.shape)}")
+    nx, ny, nz = temp.shape
+    _check_cuda(name, (temp, dtau_base), (nx, ny, nz))
+    n_chan = _check_channels(name, (cnu, hnuk, tau_scale), temp.device,
+                             EMERGENT_CPT_FULL)
+    if -(-nx // 2) > _MAX_GRID_YZ:      # two x rows per block
+        raise ValueError(f"{name}: nx = {nx} exceeds the launch grid")
+    out_i = torch.empty((n_chan, nx, nz), dtype=torch.float32,
+                        device=temp.device)
+    out_tau = torch.empty_like(out_i)
+    if out_i.numel() == 0:
+        return out_i, out_tau
+    with torch.cuda.device(temp.device):
+        err = _lib().emergent_full(
+            cnu.data_ptr(), hnuk.data_ptr(), tau_scale.data_ptr(),
+            temp.data_ptr(), dtau_base.data_ptr(), out_i.data_ptr(),
+            out_tau.data_ptr(), nx, ny, nz, n_chan,
+            int(bool(observer_near_y0)), _stream(temp.device))
+    _raise_if_error(name, err)
+    LAUNCHES[name] += 1
+    return out_i, out_tau
+
+
+def emergent_tile_partials(cnu, hnuk, tau_scale, temp_t, a_t, tss_t,
+                           seg_start, t: float, bursts: Sequence,
+                           pack_offset: float = 1.0):
+    """Per-segment emergent intensity and total optical depth maps
+    (n_seg, n_chan, 8, 128) from compacted observer-ordered
+    (n_act, 8, 64, 128) tiles (counterpart of
+    pallas_kernels.emergent_ff_tiles): dtau = a * chi(t - ts)^2 *
+    tau_scale[c] with the burst factor evaluated per cell, tau carried
+    across a segment's tiles.  Tiles come from
+    :func:`active_tiles_scan_order` (temp gathered with fill 1.0, tss with
+    fill 1.0); ``seg_start`` is the (n_seg + 1,) int32 tensor of
+    :func:`segment_starts`.  The CUDA kernel for CUDA tensors (the
+    (8, 64, 128) tile only), the plain version for CPU tensors (any tile
+    shape)."""
+    name = 'emergent_ff_tiles'
+    if _device_kind(a_t, name) == 'cpu':
+        return emergent_tile_partials_plain(cnu, hnuk, tau_scale, temp_t,
+                                            a_t, tss_t, seg_start, t, bursts,
+                                            pack_offset)
+    n_act = a_t.shape[0]
+    _check_cuda(name, (temp_t, a_t, tss_t), (n_act,) + TILE)
+    n_chan = _check_channels(name, (cnu, hnuk, tau_scale), a_t.device,
+                             EMERGENT_CPT_TILES)
+    if seg_start.device != a_t.device or seg_start.dtype != torch.int32 \
+            or seg_start.dim() != 1 or seg_start.numel() < 1 \
+            or not seg_start.is_contiguous():
+        raise ValueError(f"{name}: seg_start must be a contiguous 1-D int32 "
+                         f"tensor on {a_t.device}")
+    n_seg = seg_start.numel() - 1
+    b = _bursts_struct(bursts)
+    out_i = torch.empty((n_seg, n_chan, TILE[0], TILE[2]),
+                        dtype=torch.float32, device=a_t.device)
+    out_tau = torch.empty_like(out_i)
+    if out_i.numel() == 0:
+        return out_i, out_tau
+    with torch.cuda.device(a_t.device):
+        err = _lib().emergent_tiles(
+            cnu.data_ptr(), hnuk.data_ptr(), tau_scale.data_ptr(),
+            temp_t.data_ptr(), a_t.data_ptr(), tss_t.data_ptr(),
+            seg_start.data_ptr(), out_i.data_ptr(), out_tau.data_ptr(),
+            n_seg, n_chan, float(t), float(pack_offset), b,
+            _stream(a_t.device))
+    _raise_if_error(name, err)
+    LAUNCHES[name] += 1
+    return out_i, out_tau
+
+
+def emergent_ff_tiles(cnu, hnuk, tau_scale, temp_t, a_t, tss_t, seg_start,
+                      it, kt, t: float, bursts: Sequence, nx: int, nz: int,
+                      pack_offset: float = 1.0):
+    """(n_chan, nx, nz) emergent intensity and total optical depth maps
+    from compacted observer-ordered tiles: :func:`emergent_tile_partials`
+    placed on the image by :func:`scatter_tile_maps` (``it``/``kt``: each
+    segment's (x, z) tile coordinates)."""
+    inten, tau = emergent_tile_partials(cnu, hnuk, tau_scale, temp_t, a_t,
+                                        tss_t, seg_start, t, bursts,
+                                        pack_offset)
+    bx, bz = a_t.shape[1], a_t.shape[3]
+    n_xt, n_zt = _tile_grid(nx, bx), _tile_grid(nz, bz)
+    return (scatter_tile_maps(inten, it, kt, n_xt, n_zt, nx, nz),
+            scatter_tile_maps(tau, it, kt, n_xt, n_zt, nx, nz))

@@ -15,7 +15,8 @@ sums, NaN-free.  The RRL opacity has no such factorisation: its
 channel-independent per-cell factors (:func:`tau_rrl_precompute`) feed the
 RRL kernels of :mod:`.kernels` on the float32 path, while float64 takes the
 plain per-channel loop (:func:`tau_rrl_maps`).  The ordered emergent scan
-is not ported yet.
+(:func:`transfer_scan`) is the plain form of the emergent kernels of
+:mod:`.kernels`.
 """
 from __future__ import annotations
 
@@ -40,6 +41,12 @@ def path_length_cm(ff, area, csize_au):
     safe_area = torch.where(pos, area, torch.ones_like(area))
     return torch.where(pos, csize_au * cnsts.AU2CM * ff / safe_area,
                        torch.zeros_like(area))
+
+
+def emission_measure_map(n_e, x_i, ff, area, csize_au):
+    """EM = sum_los (n_e x)^2 ds [pc cm^-6] (classes.py:1101-1128)."""
+    return torch.sum(emission_measure_base(n_e, x_i, ff, area, csize_au),
+                     dim=LOS_AXIS)
 
 
 def emission_measure_base(n_e, x_i, ff, area, csize_au):
@@ -83,6 +90,25 @@ def tau_ff_maps(freqs, temp, n_es, ds_cm, inside, t_0: float,
                                      reynolds_gaunt), dim=LOS_AXIS)
     scale = tau_ff_channel_scale(freqs, t_0, reynolds_gaunt)
     return scale[:, None, None] * base_map[None, :, :]
+
+
+def tau_ff_maps_from_static(freqs, base_static, chi2, t_0: float,
+                            reynolds_gaunt: bool):
+    """Collapsed tau maps from the epoch-independent base-opacity cube:
+    tau(t) = scale(nu) * sum_los A * chi(t)^2 (radtrans.py:106-119).
+    ``chi2`` may be a cube or the scalar 1 (no bursts)."""
+    base_map = torch.sum(base_static * chi2, dim=LOS_AXIS)
+    scale = tau_ff_channel_scale(freqs, t_0, reynolds_gaunt)
+    return scale[:, None, None] * base_map[None, :, :]
+
+
+def tau_ff_cube(freqs, temp, n_es, ds_cm, inside, t_0: float,
+                reynolds_gaunt: bool):
+    """Uncollapsed per-cell optical depths (n_chan, nx, ny, nz) — the
+    reference's collapse=False path (classes.py:1366-1368)."""
+    base = tau_ff_base(temp, n_es, ds_cm, inside, reynolds_gaunt)
+    scale = tau_ff_channel_scale(freqs, t_0, reynolds_gaunt)
+    return scale[:, None, None, None] * base[None]
 
 
 def mean_temperature_map(temp, inside):
@@ -271,3 +297,28 @@ def intensity_rrl_maps_nonlte(freqs, tbar_map, tau_ff_maps_, tau_rrl_maps_,
                                       tau_ff_maps_, tau_rrl_maps_,
                                       b_n1, b_n2)
     return torch.where(any_inside[None], ints, torch.zeros_like(ints))
+
+
+# --------------------------------------------------------------------------- #
+# Ordered radiative transfer along the line of sight (radtrans.py:343-369)
+# --------------------------------------------------------------------------- #
+def transfer_scan(source_fn_cgs, dtau, observer_near_y0: bool = False):
+    """Emergent intensity from the ordered transfer integral
+    I = sum_i S_i e^{-tau_acc,i} (1 - e^{-dtau_i}) along the LOS (y), with
+    tau_acc the optical depth in front of cell i (an exclusive cumsum).
+
+    ``observer_near_y0``: the observer sits at y -> -infinity when True
+    (material at smaller y is in front), else at y -> +infinity."""
+    if observer_near_y0:
+        dtau_o, src_o = dtau, source_fn_cgs
+    else:
+        dtau_o = torch.flip(dtau, [LOS_AXIS])
+        src_o = torch.flip(source_fn_cgs, [LOS_AXIS])
+    tau_acc = kn.exclusive_cumsum(dtau_o, LOS_AXIS)
+    contrib = src_o * torch.exp(-tau_acc) * (-torch.expm1(-dtau_o))
+    return torch.sum(contrib, dim=LOS_AXIS)
+
+
+def cumulative_tau(dtau):
+    """Cumulative optical depth along the LOS (inclusive prefix scan)."""
+    return torch.cumsum(dtau, dim=LOS_AXIS)

@@ -1,5 +1,5 @@
-"""The CUDA kernels (epoch and RRL) against their plain versions, on the
-card.
+"""The CUDA kernels (epoch, RRL and emergent) against their plain
+versions, on the card.
 
 Needs an NVIDIA GPU with ``nvcc``; skipped elsewhere.  This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
@@ -17,6 +17,7 @@ import torch
 
 from rajepy_tpu_torch import JetModel
 from rajepy_tpu_torch.ops import kernels as kn
+from rajepy_tpu_torch.ops import physics
 from rajepy_tpu_torch.ops import radtrans as rt
 
 pytestmark = pytest.mark.cuda
@@ -131,3 +132,53 @@ def test_f32_card_rrl_products_match_f64_cpu(card):
         for g, w in zip(got, want):
             assert np.max(np.abs(g - w)) / np.abs(w).max() < 1e-3
     assert kn.LAUNCHES['rrl_tiles_pallas'] == 2
+
+
+def test_emergent_kernels_match_plain_versions(card):
+    jm = JetModel(_params((64, 160, 64)), device=card)
+    jm.time = 2.2 * YEAR
+    freqs = jm._freqs(np.geomspace(3e8, 3e11, 6))
+    cnu, hnuk, scale = jm._emergent_channels(freqs)
+    temp_t, a_t, tss_t, _, seg_start, it, kt = jm._emergent_tiles()[:7]
+    bursts, off, t = jm._burst_tuple(), jm._ts_pack_offset, jm.time
+    f = jm._ensure_fields()
+    base = (jm._rt_static().a * jm._chi2(f, t)).contiguous()
+    safe_t = torch.where(f.inside, f.temp, torch.ones_like(f.temp))
+    src = torch.where(f.inside, physics.blackbody_nu(freqs[0], safe_t),
+                      torch.zeros_like(safe_t))
+    kn.reset_launches()
+    k6 = (cnu, hnuk, scale, temp_t, a_t, tss_t, seg_start, t, bursts, off)
+    for g, w in zip(kn.emergent_tile_partials(*k6),
+                    kn.emergent_tile_partials_plain(*k6)):
+        assert _rel(g, w) < 1e-5
+    for near in (False, True):
+        for g, w in zip(kn.emergent_ff_full(cnu, hnuk, scale, safe_t, base,
+                                            near),
+                        kn.emergent_ff_full_plain(cnu, hnuk, scale, safe_t,
+                                                  base, near)):
+            assert _rel(g, w) < 1e-5
+        for g, w in zip(kn.transfer_scan_maps(src, base * scale[0], near),
+                        kn.transfer_scan_maps_plain(src, base * scale[0],
+                                                    near)):
+            assert _rel(g, w) < 1e-5
+    torch.cuda.synchronize()
+    assert kn.LAUNCHES['emergent_ff_tiles'] == 1
+    assert kn.LAUNCHES['emergent_ff_pallas'] == 2
+    assert kn.LAUNCHES['transfer_scan_pallas'] == 2
+    with pytest.raises(ValueError, match='int32'):
+        kn.emergent_tile_partials(*k6[:6], seg_start.long(), *k6[7:])
+
+
+def test_f32_card_emergent_matches_f64_cpu(card):
+    freqs = np.geomspace(3e8, 3e11, 4)
+    for inc, pa in ((90.0, 0.0), (55.0, 30.0)):
+        p = _params((64, 160, 64))
+        p['geometry'].update(inc=inc, pa=pa)
+        gpu = JetModel(copy.deepcopy(p), device=card)
+        cpu = JetModel(p, dtype='parity', device='cpu')
+        gpu.time = cpu.time = 2.2 * YEAR
+        kn.reset_launches()
+        got = gpu.emergent_intensity_ff(freqs)
+        want = cpu.emergent_intensity_ff(freqs)
+        assert kn.LAUNCHES['emergent_ff_tiles'] == 1
+        assert np.max(np.abs(got - want)) / np.abs(want).max() < 3e-3

@@ -43,7 +43,7 @@ def _port_sources():
     files = [os.path.join(ROOT, 'chip_smoke.py')]
     for dirpath, _, names in os.walk(os.path.join(ROOT, 'rajepy_tpu_torch')):
         files += [os.path.join(dirpath, n) for n in names
-                  if n.endswith(('.py', '.cu'))]
+                  if n.endswith(('.py', '.cu', '.cuh'))]
     assert len(files) > 15
     return files
 
@@ -82,6 +82,25 @@ def test_port_reads_its_own_data_files():
     data = os.path.join(ROOT, 'rajepy_tpu_torch', 'data')
     assert os.path.dirname(gaunt._DATA_FILE) == data
     assert os.path.dirname(departure._TABLE_FILE) == data
+
+
+def test_library_hash_covers_the_shared_headers(tmp_path):
+    """A change to a header under csrc/ (not only to a .cu source) names
+    a new library, so the card never runs a stale build.  Checked on a
+    copy of the directory."""
+    from rajepy_tpu_torch.ops import kernels
+    csrc = str(tmp_path / 'csrc')
+    shutil.copytree(kernels._CSRC, csrc)
+    headers = [n for n in os.listdir(csrc) if n.endswith('.cuh')]
+    assert headers, "the kernels share at least one header"
+    assert os.path.basename(kernels.library_path()) == \
+        os.path.basename(kernels.library_path(csrc))
+    before = kernels.library_path(csrc)
+    with open(os.path.join(csrc, headers[0]), 'a') as f:
+        f.write('\n// edited\n')
+    assert kernels.library_path(csrc) != before
+    assert [os.path.basename(p) for p in kernels.sources(csrc)] == \
+        sorted(n for n in os.listdir(csrc) if n.endswith('.cu'))
 
 
 @pytest.mark.parametrize("alone", [False, True])
