@@ -9,8 +9,12 @@ Phases (any failure exits non-zero; nothing is caught):
 1. kernels: build every kernel of ``rajepy_tpu_torch/csrc/`` and hold each
    against its plain PyTorch version on the card, on small random inputs:
    the epoch kernels with fully empty tiles and negative travel times, the
-   RRL kernels with empty tiles, a ragged grid with an amp = 0 slab, and
-   channel sets that are all-far, all-near and mixed; the emergent kernels
+   RRL kernels (maps on tiles, per-tile partials, the full grid and its
+   activity pass) with an empty tile, a wholly jet tile, segments of
+   several tiles out of segment order, tile positions with no tile, a
+   ragged grid with an amp = 0 slab and wholly jet x rows, channel sets
+   that are all-far, all-near and mixed, and 1, 33 and 1000 channels
+   (exact zeros where no jet cell lies); the emergent kernels
    with fully empty tiles, segments of one and of several tiles, negative
    travel times, a ragged grid, zero-opacity y ranges and both observer
    orientations (1e-5 of the plain map's maximum), and the emergent tile
@@ -49,7 +53,11 @@ Phases (any failure exits non-zero; nothing is caught):
    busy time under
    ``torch.profiler``, and each kernel's time beside its plain version's
    and its bound (the larger of bytes over 3.35 TB/s and float32
-   operations over 67 TFLOP/s, the H100 SXM data sheet's peaks).
+   operations over 67 TFLOP/s, the H100 SXM data sheet's peaks).  The RRL
+   kernels are timed at 16 and 1000 channels: the tile kernel as the maps
+   call beside the fold it replaced, the full-grid kernel on the
+   flagship's factors and on the jet-free grid; ptxas's registers and
+   spills of both are printed (no spill allowed).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Needs the repository
@@ -82,11 +90,19 @@ RRL_F32_RTOL = 1e-3
 # H100 SXM data sheet: HBM bandwidth and float32 (non-tensor) peak
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-# float32 operations per cell and channel of the RRL kernels, counted
-# from csrc/rrl_maps.cu (a division or an expm1f counts as one):
-# offset, stimulated factor, branch test and accumulation; then the
+# float32 operations per cell and channel of the RRL kernels, the work of
+# the function (a division or an expm1f counts as one, a multiply-add as
+# two): offset, stimulated factor, branch test and accumulation; then the
 # Weideman-16 core (16 Goertzel steps of 4) or the asymptotic wings
 RRL_OPS_COMMON, RRL_OPS_CORE, RRL_OPS_FAR = 10, 98, 33
+# float32 instructions that csrc/rrl_maps.cu issues for the same parts,
+# counted from the source with multiply-adds contracted (an FMA or a
+# reciprocal counts as one), f + nu0 formed per channel, the Goertzel
+# recurrence started at its second step and the stimulated factor by its
+# 4-term series (every flagship jet cell); the card issues at most
+# 33.5e12 of them per second (half the FLOP rate)
+RRL_ISSUE_COMMON, RRL_ISSUE_CORE, RRL_ISSUE_FAR = 12, 52, 25
+PEAK_F32_ISSUE_PER_S = PEAK_F32_OPS_PER_S / 2
 EMERGENT_EPOCH_YR = 2.2
 EMERGENT_F32_RTOL = 3e-3
 # float32 operations of the emergent kernels, counted from
@@ -203,6 +219,30 @@ def device_busy(fn, n=10, n_top=8):
                               for k, (c, us) in top]
 
 
+def kernel_ms(fn, n=10):
+    """Device time per call (ms) of the kernels that ``fn`` launches once
+    each, by ``torch.profiler`` over ``n`` warm calls: the sum over kernel
+    names of each one's mean duration, so the kernels' own time, free of
+    the host's launch gap that a short call's CUDA events include, and of
+    any event the profiler drops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            calls, us = kernels.get(e.name, (0, 0.0))
+            kernels[e.name] = (calls + 1, us + e.time_range.elapsed_us())
+    if not kernels:
+        raise AssertionError("the profiler recorded no device time")
+    return sum(us / calls for calls, us in kernels.values()) / 1e3
+
+
 def print_busy(label, fn, n):
     busy_ms, wall_ms, top = device_busy(fn, n=n)
     print(f"  torch.profiler, {n} warm {label}: device busy {busy_ms:.4f} ms "
@@ -249,6 +289,31 @@ def rrl_ops(freqs_off, amp, rest, scale, yv, chunk=32):
     n_core = n_pairs - n_far
     return (n_pairs * RRL_OPS_COMMON + n_core * RRL_OPS_CORE +
             n_far * RRL_OPS_FAR), n_core, n_far
+
+
+def print_rrl_ptxas(log):
+    """ptxas's registers, shared memory and spills of the RRL kernels (each
+    block size the maps kernels are built for), from the build's report;
+    raises if one spills or is missing."""
+    import re
+    found = set()
+    for entry in log.split("Compiling entry function '")[1:]:
+        name = entry.split("'", 1)[0]
+        kernel = re.search(r'rrl_\w+?_kernel', name)
+        if kernel is None:
+            continue
+        found.add(kernel.group(0))
+        used = re.search(r'Used \d+ registers[^\n]*', entry)
+        spill = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
+                          r'loads', entry)
+        print(f"  ptxas {name}: {used.group(0) if used else '?'}; "
+              f"{spill.group(0) if spill else '?'}")
+        if spill is None or int(spill.group(1)) or int(spill.group(2)):
+            raise AssertionError(f"{name}: spills, or no ptxas report")
+    want = {'rrl_tiles_kernel', 'rrl_activity_kernel', 'rrl_cube_kernel'}
+    if found != want:
+        raise AssertionError(f"ptxas reported the RRL kernels {found}, not "
+                             f"{want}")
 
 
 def example_params(n=None, csize=None):
@@ -438,8 +503,9 @@ def phase_kernels(bursts):
     kn.build()
     print(f"  build {time.perf_counter() - t0:.1f} s ({len(kn.sources())} "
           f"sources, one nvcc each, in parallel)")
-    if kn.BUILD_LOG:
-        print("  nvcc: " + kn.BUILD_LOG.strip().replace('\n', '\n  nvcc: '))
+    log = kn.build_log()
+    if log:
+        print("  nvcc: " + log.strip().replace('\n', '\n  nvcc: '))
     rng = np.random.default_rng(1)
     t = 2.0 * YEAR
     n_act = 7
@@ -471,34 +537,71 @@ def phase_kernels(bursts):
     want = kn.epoch_base_map_full_plain(a, tss, t, bursts, off)
     check('epoch_base_map_full', got, want, KERNEL_RTOL)
 
-    # RRL kernels: empty tiles, a ragged grid with an amp = 0 slab, and
-    # all-far / all-near / mixed channel sets (the three evaluators of the
-    # TPU kernels)
+    check_rrl_kernels(rng, shape, dev)
+    check_emergent_kernels(bursts, dev)
+    torch.cuda.synchronize()
+
+
+def check_rrl_kernels(rng, shape, dev):
+    """Phase 1 for the RRL kernels, each against its plain version on
+    small card tensors.  Tiles: 7 on a 3 x 2 grid of tile positions
+    (24 x 200 maps), segments of 3, 2, 1 and 1 tiles out of segment order,
+    two positions with no tile, tile 2 empty and tile 4 wholly jet (every
+    cell amp != 0, so its chunks are staged whole).  Grid: ``shape``,
+    ragged in every axis, an amp = 0 slab and wholly jet x rows.  Channels:
+    all-far, all-near and mixed sets (the three evaluators of the TPU
+    kernels), and 1, 33 and 1000 channels (not multiples of a group)."""
+    import torch
+    from rajepy_tpu_torch.ops import kernels as kn
     nu0 = 3.2e10
-    tiles = rrl_factors(rng, (5,) + kn.TILE, dev)
+    tiles = rrl_factors(rng, (7,) + kn.TILE, dev)
     tiles[0][2] = 0.0
+    tiles[0][4] = tiles[0][4] + 1e-6
+    seg = np.array([0, 0, 3, 1, 3, 2, 0])
+    nx, nz = 24, 200
+    order, seg_start = (torch.as_tensor(a, device=dev)
+                        for a in kn.segment_order(seg, 6))
+    walk = (order, seg_start, nx, nz)
     cube = rrl_factors(rng, shape, dev)
     cube[0][:8] = 0.0
-    for label, (lo, hi, n) in RRL_CHANNEL_SETS.items():
+    cube[0][20:24] = cube[0][20:24] + 1e-6
+    if not (bool(tiles[0][4].all()) and bool(cube[0][20:24].all())):
+        raise AssertionError("the wholly jet tile or rows hold amp = 0")
+    sets = dict(RRL_CHANNEL_SETS, **{'1 ch': (0.0, 0.0, 1),
+                                     '33 ch': (-4e6, 4e6, 33),
+                                     '1000 ch': (-5e7, 5e7, 1000)})
+    for label, (lo, hi, n) in sets.items():
         fo = torch.linspace(lo, hi, n, dtype=torch.float32, device=dev)
         _, n_core, n_far = rrl_ops(fo, *tiles[:4])
-        if (label == 'all-far') != (n_core == 0) or \
-                (label == 'all-near') != (n_far == 0):
+        if label in RRL_CHANNEL_SETS and (
+                (label == 'all-far') != (n_core == 0) or
+                (label == 'all-near') != (n_far == 0)):
             raise AssertionError(f"channel set {label}: {n_core} core and "
                                  f"{n_far} wing cell-channels")
-        got = kn.rrl_tile_partials(fo, *tiles, nu0)
-        want = kn.rrl_tile_partials_plain(fo, *tiles, nu0)
-        check(f'rrl_tiles_pallas, {label} ({n_core} core, {n_far} wing)',
-              got, want, KERNEL_RTOL)
-        if got[2].abs().max() != 0:
-            raise AssertionError("an empty tile gave a non-zero partial")
+        got = kn.rrl_tiles(fo, *tiles, nu0, *walk)
+        want = kn.rrl_tiles_plain(fo, *tiles, nu0, *walk)
+        check(f'rrl_tiles_pallas maps, {label} ({n_core} core, {n_far} '
+              f'wing)', got, want, KERNEL_RTOL)
+        if got[:, 16:].abs().max() != 0:
+            raise AssertionError("a tile position with no tile gave "
+                                 "non-zero maps")
         got = kn.rrl_cube(fo, *cube, nu0)
         want = kn.rrl_cube_plain(fo, *cube, nu0)
         check(f'rrl_cube_pallas, {label}', got, want, KERNEL_RTOL)
         if got[:, :8].abs().max() != 0:
             raise AssertionError("the amp = 0 slab gave non-zero maps")
-    check_emergent_kernels(bursts, dev)
-    torch.cuda.synchronize()
+    fo = torch.linspace(-4e6, 4e6, 21, dtype=torch.float32, device=dev)
+    got = kn.rrl_tile_partials(fo, *tiles, nu0)
+    check('rrl_tiles_pallas per-tile partials, mixed', got,
+          kn.rrl_tile_partials_plain(fo, *tiles, nu0), KERNEL_RTOL)
+    if got[2].abs().max() != 0:
+        raise AssertionError("an empty tile gave a non-zero partial")
+    active = kn.rrl_row_activity(cube[0])
+    if not torch.equal(active, kn.rrl_row_activity_plain(cube[0])):
+        raise AssertionError("rrl_cube_pallas activity pass differs from "
+                             "its plain version")
+    print(f"  rrl_cube_pallas activity pass: {int(active.sum())} of "
+          f"{active.numel()} row blocks flagged, equal to the plain version")
 
 
 def products_from_maps(jm, st, a_map, em):
@@ -658,12 +761,15 @@ def run_rrl(jm, empty, tmp):
 
 
 def rrl_tile_inputs(jm, freqs):
-    """The tile kernel's inputs as the model's RRL path makes them."""
+    """The tile kernel's inputs as the model's RRL path makes them, and its
+    walk (order, seg_start, nx, nz)."""
     from rajepy_tpu_torch.ops import radtrans as rt
-    temp_t, vy_t, ndxi_t, ds_t, inside_t, tss_t, seg = jm._rrl_tiles()
+    temp_t, vy_t, ndxi_t, ds_t, inside_t, tss_t, order, seg_start = \
+        jm._rrl_tiles()
     n_es_t = ndxi_t * jm._chi_from_packed(tss_t, jm.time)
-    return rt.rrl_kernel_inputs(rt.RRLCoeffs(RRL_LINE), jm._freqs(freqs),
-                                temp_t, n_es_t, vy_t, ds_t, inside_t), seg
+    return (rt.rrl_kernel_inputs(rt.RRLCoeffs(RRL_LINE), jm._freqs(freqs),
+                                 temp_t, n_es_t, vy_t, ds_t, inside_t),
+            (order, seg_start, jm.nx, jm.nz))
 
 
 def rrl_full_inputs(jm, freqs):
@@ -681,9 +787,8 @@ def rrl_products_plain(jm, band):
     tile kernels, on the model's own card tensors."""
     from rajepy_tpu_torch.ops import kernels as kn
     from rajepy_tpu_torch.ops import radtrans as rt
-    inputs, seg = rrl_tile_inputs(jm, band)
-    tau_l = kn.segment_tile_maps(kn.rrl_tile_partials_plain(*inputs), seg,
-                                 jm.nx, jm.nz)
+    inputs, walk = rrl_tile_inputs(jm, band)
+    tau_l = kn.rrl_tiles_plain(*inputs, *walk)
     st = jm._rt_static()
     a_map, _ = kn.epoch_base_maps2_tiles_plain(
         st.a_t, st.em_t, st.tss_t, st.seg, jm.time, jm._burst_tuple(),
@@ -695,7 +800,7 @@ def rrl_products_plain(jm, band):
     ints = rt.intensity_rrl_maps(freqs, st.tbar, tau_c, tau_l, st.any_in)
     fluxes = ints * rt.flux_scale_jy(csize, dist) + rt.flux_ff_maps(
         freqs, tau_c, st.tbar, st.any_in, csize, dist)
-    return tau_l, fluxes, inputs
+    return tau_l, fluxes, inputs, walk
 
 
 def emergent_tile_args(jm):
@@ -969,20 +1074,25 @@ def main() -> int:
         jm.time = RRL_EPOCH_YR * YEAR
         _, tau_k, flux_k = jm.rrl_rt_products(RRL_LINE, band, contsub=False,
                                               as_numpy=False)
-        (tau_p, flux_p, k4_in), plain4_ms = timed_once(
-            lambda: rrl_products_plain(jm, band))
+        (tau_p, flux_p, k4_in, walk) = rrl_products_plain(jm, band)
         check(f"flagship RRL tau_L ({RRL_NCHAN} ch) vs plain", tau_k, tau_p,
               MAP_RTOL)
         check(f"flagship RRL flux ({RRL_NCHAN} ch) vs plain", flux_k,
               flux_p, MAP_RTOL)
         del tau_k, flux_k, tau_p, flux_p
-        parts_p, plain4_ms = timed_once(
+        # the tile kernel's maps against its plain version (per-tile
+        # partials, then the fold); the partials are kept to time the fold
+        parts_p, parts_ms = timed_once(
             lambda: kn.rrl_tile_partials_plain(*k4_in))
-        parts_k = kn.rrl_tile_partials(*k4_in)
+        seg = kn.tile_segments(*walk[:2])
+        maps_p, fold_ms = timed_once(
+            lambda: kn.segment_tile_maps(parts_p, seg, jm.nx, jm.nz))
+        plain4_ms = parts_ms + fold_ms
+        maps_k = kn.rrl_tiles(*k4_in, *walk)
         errs['rrl_tiles_pallas'] = check(
-            f'rrl_tiles_pallas at main-path shape ({RRL_NCHAN} ch)',
-            parts_k, parts_p, KERNEL_RTOL)
-        del parts_k, parts_p
+            f'rrl_tiles_pallas maps at main-path shape ({RRL_NCHAN} ch)',
+            maps_k, maps_p, KERNEL_RTOL)
+        del maps_k, maps_p
         # the cube kernel on the flagship's full-grid factors (real jet
         # cells), at 16 and at RRL_NCHAN channels
         k5_in16 = rrl_full_inputs(jm, core16)
@@ -995,9 +1105,20 @@ def main() -> int:
                  *k5_in16[1:])
         g5 = kn.rrl_cube(*k5_in)
         w5, plain5_ms = timed_once(lambda: kn.rrl_cube_plain(*k5_in))
-        errs['rrl_cube_pallas'] = check(
+        err5 = check(
             f'rrl_cube_pallas, {N_GRID}^3 flagship factors, {RRL_NCHAN} ch',
             g5, w5, KERNEL_RTOL)
+        del g5, w5
+        # ... and on the jet-free grid, the main path's case: exact zeros
+        empty.time = jm.time
+        k5_free = rrl_full_inputs(empty, band)
+        g5 = kn.rrl_cube(*k5_free)
+        w5, plain5_free_ms = timed_once(lambda: kn.rrl_cube_plain(*k5_free))
+        errs['rrl_cube_pallas'] = max(err5, check(
+            f'rrl_cube_pallas, {N_GRID}^3 jet-free grid, {RRL_NCHAN} ch', g5,
+            w5, KERNEL_RTOL))
+        if int(torch.count_nonzero(g5)) or int(torch.count_nonzero(w5)):
+            raise AssertionError("the jet-free grid gave non-zero RRL maps")
         del g5, w5
 
         # emergent: the flagship's maps and each kernel against its plain
@@ -1118,41 +1239,79 @@ def main() -> int:
                   f"{b_ms / k1:.3f} of it")
             rows.append((name, k1, p1, b_ms, b_by))
 
-        # RRL kernels at 16 and RRL_NCHAN channels: kernel, plain, kernel
+        # RRL kernels: kernel, plain, kernel.  The tile kernel as the maps
+        # call at 16 and RRL_NCHAN channels; the cube kernel on the
+        # flagship's factors at both, and on the jet-free grid (its main
+        # path's case, the row of the summary line)
+        print_rrl_ptxas(kn.build_log())
         k4_in16, _ = rrl_tile_inputs(jm, core16)
-        rrl_work = {
-            'rrl_tiles_pallas': (kn.rrl_tile_partials,
-                                 kn.rrl_tile_partials_plain,
-                                 {16: k4_in16, RRL_NCHAN: k4_in},
-                                 {RRL_NCHAN: plain4_ms},
-                                 lambda s, c: (s[0], c, 1024)),
-            'rrl_cube_pallas': (kn.rrl_cube, kn.rrl_cube_plain,
-                                {16: k5_in16, RRL_NCHAN: k5_in},
-                                {RRL_NCHAN: plain5_ms},
-                                lambda s, c: (c, N_GRID, N_GRID)),
-        }
-        for name, (kfn, pfn, inputs, plain_once, out_shape) in \
-                rrl_work.items():
-            for n_chan, args in inputs.items():
-                n_rep = 10 if n_chan == RRL_NCHAN else 30
-                k1 = cuda_ms(lambda: kfn(*args), n_rep=n_rep, n_warm=1)
-                if n_chan in plain_once:
-                    p1, how = plain_once[n_chan], 'one call'
-                else:
-                    p1, how = cuda_ms(lambda: pfn(*args), n_rep=3,
-                                      n_warm=1), 'median of 3'
-                k2 = cuda_ms(lambda: kfn(*args), n_rep=n_rep, n_warm=0)
-                shape = out_shape(args[1].shape, n_chan)
-                n_b = rrl_bytes(args, shape)
-                n_ops, n_core, n_far = rrl_ops(*args[:5])
-                b_ms, b_by = bound(n_b, n_ops)
-                print(f"  {name}, {n_chan} ch: kernel {k1:.4f} / {k2:.4f} "
-                      f"ms (median of {n_rep}), plain {p1:.4f} ms ({how}); "
-                      f"bound {b_ms:.4f} ms by {b_by} ({n_b} B, {n_ops} ops: "
-                      f"{n_core} core and {n_far} wing cell-channels), "
-                      f"{b_ms / k1:.3f} of it")
-                if n_chan == RRL_NCHAN:
-                    rows.append((name, k1, p1, b_ms, b_by))
+        maps4 = lambda *a: kn.rrl_tiles(*a, *walk)
+        maps4_plain = lambda *a: kn.rrl_tiles_plain(*a, *walk)
+        rrl_work = [
+            ('rrl_tiles_pallas', 'maps', maps4, maps4_plain, k4_in16, None),
+            ('rrl_tiles_pallas', 'maps', maps4, maps4_plain, k4_in,
+             plain4_ms),
+            ('rrl_cube_pallas', 'flagship factors', kn.rrl_cube,
+             kn.rrl_cube_plain, k5_in16, None),
+            ('rrl_cube_pallas', 'flagship factors', kn.rrl_cube,
+             kn.rrl_cube_plain, k5_in, plain5_ms),
+            ('rrl_cube_pallas', 'jet-free grid', kn.rrl_cube,
+             kn.rrl_cube_plain, k5_free, plain5_free_ms),
+        ]
+        for name, what, kfn, pfn, args, plain_once in rrl_work:
+            n_chan = args[0].numel()
+            n_rep, batch = (10, 1) if n_chan == RRL_NCHAN else (30, 10)
+            k1 = cuda_ms(lambda: kfn(*args), n_rep=n_rep, batch=batch,
+                         n_warm=1)
+            if plain_once is not None:
+                p1, how = plain_once, 'one call'
+            else:
+                p1, how = cuda_ms(lambda: pfn(*args), n_rep=3,
+                                  n_warm=1), 'median of 3'
+            k2 = cuda_ms(lambda: kfn(*args), n_rep=n_rep, batch=batch,
+                         n_warm=0)
+            dev = kernel_ms(lambda: kfn(*args))
+            n_b = rrl_bytes(args, (n_chan, jm.nx, jm.nz))
+            n_ops, n_core, n_far = rrl_ops(*args[:5])
+            b_ms, b_by = bound(n_b, n_ops)
+            issue_ms = ((n_core + n_far) * RRL_ISSUE_COMMON +
+                        n_core * RRL_ISSUE_CORE + n_far * RRL_ISSUE_FAR) / \
+                PEAK_F32_ISSUE_PER_S * 1e3
+            print(f"  {name} ({what}), {n_chan} ch: kernel {k1:.4f} / "
+                  f"{k2:.4f} ms (median of {n_rep} batches of {batch}), "
+                  f"device {dev:.4f} ms (profiler, mean of 10), plain "
+                  f"{p1:.4f} ms ({how}); bound {b_ms:.4f} ms by {b_by} "
+                  f"({n_b} B, "
+                  f"{n_ops} ops: {n_core} core and {n_far} wing "
+                  f"cell-channels), {b_ms / k1:.3f} of it; the source's "
+                  f"contracted instructions at the issue peak "
+                  f"{issue_ms:.4f} ms")
+            if n_chan == RRL_NCHAN and what != 'flagship factors':
+                rows.append((name, k1, p1, b_ms, b_by))
+        # where K4's time goes at RRL_NCHAN channels: the same cells with
+        # every channel in the wings, with every channel near the line
+        # centre, and no cell at all (the maps' zero writes alone)
+        order, seg_start = walk[:2]
+        no_tiles = (order, torch.zeros_like(seg_start), jm.nx, jm.nz)
+        splits = {'wings only': (torch.linspace(3e7, 8e7, RRL_NCHAN), walk),
+                  'line centre': (torch.linspace(-2e5, 2e5, RRL_NCHAN),
+                                  walk),
+                  'no jet cell': (k4_in[0], no_tiles)}
+        for what, (fo, w) in splits.items():
+            args = (fo.to(k4_in[0]),) + tuple(k4_in[1:])
+            n_core, n_far = rrl_ops(*args[:5])[1:] if w is walk else (0, 0)
+            dev = kernel_ms(lambda: kn.rrl_tiles(*args, *w))
+            print(f"  rrl_tiles_pallas, {RRL_NCHAN} ch, {what}: device "
+                  f"{dev:.4f} ms (profiler, mean of 10; {n_core} core and "
+                  f"{n_far} wing cell-channels)")
+        fold = cuda_ms(lambda: kn.segment_tile_maps(parts_p, seg, jm.nx,
+                                                    jm.nz), n_rep=10)
+        print(f"  the fold rrl_tiles_pallas replaced, {RRL_NCHAN} ch: "
+              f"segment_tile_maps of the {nbytes(parts_p)}-byte per-tile "
+              f"partials {fold:.4f} ms (median of 10; zero-filled buffer, "
+              f"index_add_, permute copy); plain partials {parts_ms:.4f} ms "
+              f"(one call)")
+        del parts_p
 
         rows += emergent_numbers(jm, scan_c)
 

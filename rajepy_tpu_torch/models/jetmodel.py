@@ -614,10 +614,12 @@ class JetModel:
 
     def _rrl_tiles(self):
         """Cached compacted jet-occupied float32 field tiles for the RRL
-        tile kernel: (temp_t, vy_t, ndxi_t, ds_t, inside_t, tss_t, seg), or
-        None when the grid holds no jet cell (jetmodel.py:1181-1219).  The
-        packed launch-time tiles of the epoch compaction are reused when
-        it made them."""
+        tile kernel: (temp_t, vy_t, ndxi_t, ds_t, inside_t, tss_t, order,
+        seg_start), or None when the grid holds no jet cell
+        (jetmodel.py:1181-1219).  The tiles keep the epoch compaction's
+        order, and its packed launch-time tiles are reused when it made
+        them; ``(order, seg_start)`` (int32, :func:`kernels.segment_order`)
+        is the kernel's walk over each (x, z) tile position's tiles."""
         if self._rrl_tiles_cache is None:
             f = self._ensure_fields()
             st = self._rt_static()
@@ -632,6 +634,8 @@ class JetModel:
                 tss_t = st.tss_t if st.tss_t is not None else \
                     kn.gather_tiles(st.ts_signed.to(f32), ids, fill=1.0,
                                     **tile)
+                order, seg_start = kn.segment_order(
+                    seg, -(-self._nx // bx) * -(-self._nz // bz))
                 self._rrl_tiles_cache = (
                     kn.gather_tiles(f.temp.to(f32), ids, fill=1.0, **tile),
                     kn.gather_tiles(f.vy.to(f32), ids, **tile),
@@ -639,8 +643,8 @@ class JetModel:
                     kn.gather_tiles(ds.to(f32), ids, **tile),
                     kn.gather_tiles(f.inside, ids, fill=False, **tile),
                     tss_t,
-                    torch.as_tensor(seg, dtype=torch.int64,
-                                    device=self._device))
+                    torch.as_tensor(order, device=self._device),
+                    torch.as_tensor(seg_start, device=self._device))
         return self._rrl_tiles_cache or None
 
     @staticmethod
@@ -657,14 +661,15 @@ class JetModel:
         through the tile kernel -> the full grid through the cube kernel
         (float32) -> the plain per-channel loop (float64)."""
         if tiles is not None:
-            temp_t, vy_t, ndxi_t, ds_t, inside_t, tss_t, seg = tiles
+            temp_t, vy_t, ndxi_t, ds_t, inside_t, tss_t, order, seg_start = \
+                tiles
             if self._has_bursts:
                 n_es_t = ndxi_t * self._chi_from_packed(tss_t, t)
             else:
                 n_es_t = ndxi_t
             return rt.tau_rrl_maps_tiles(coeffs, freqs, temp_t, n_es_t, vy_t,
-                                         ds_t, inside_t, seg, self._nx,
-                                         self._nz)
+                                         ds_t, inside_t, order, seg_start,
+                                         self._nx, self._nz)
         n_es = self._nd_chi(f, t) * f.xi
         ds = rt.path_length_cm(f.ff, f.area, self.csize)
         if fused:

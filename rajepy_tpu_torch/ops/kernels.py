@@ -27,9 +27,17 @@ has two more (the per-cell Voigt function is the Weideman-16 rational or a
 ==========================  ===================================  ========
 wrapper                     TPU kernel replaced                  route
 ==========================  ===================================  ========
-``rrl_tile_partials``       pallas_kernels.rrl_tiles_pallas      cuda
+``rrl_tiles``               pallas_kernels.rrl_tiles_pallas      cuda
+                            and its fold segment_tile_maps
 ``rrl_cube``                pallas_kernels.rrl_cube_pallas       cuda
 ==========================  ===================================  ========
+
+``rrl_tiles`` sums a segment's tiles itself, walking them through the
+per-model permutation of :func:`segment_order`; ``rrl_tile_partials`` (the
+TPU kernel's per-tile layout) runs the same kernel with each tile its own
+segment.  ``rrl_cube`` is two launches: a pass that reads amp once and
+flags the row blocks holding a jet cell (:func:`rrl_row_activity`), then
+the maps over those blocks only.
 
 The ordered emergent scan (see ``csrc/emergent_maps.cu``)
 
@@ -51,26 +59,29 @@ scans by an exclusive cumsum); any other device raises.  ``LAUNCHES``
 counts kernel launches per wrapper, under the TPU kernel's name.
 
 The kernels are compiled at first use with ``nvcc`` (one process per
-``csrc/*.cu`` source, all started together, then one link) into a shared
+``csrc/*.cu`` source, all started together, each with the common
+``NVCC_FLAGS`` and its own ``SOURCE_FLAGS``, then one link) into a shared
 library with a plain C interface under ``rajepy_tpu_torch/_build/``
-(rebuilt when any source or shared ``csrc/*.cuh`` header changes) and
-bound with ``ctypes``.  Nothing here
+(rebuilt when any source, shared ``csrc/*.cuh`` header or flag changes)
+and bound with ``ctypes``.  Nothing here
 imports or builds anything CUDA-specific at import time.
 
 Compaction: the jet silhouette covers a few percent of the cube, so the
 epoch-independent cubes are cut once per model into the jet-occupied
-(8, 64, 128) tiles (:func:`active_tiles`, :func:`gather_tiles`); the tile
-kernels write one (8, 128) partial per tile, and :func:`reassemble_tiles`
-folds the partials into the (nx, nz) map with ``index_add_``;
-:func:`segment_tile_maps` does the same for the RRL kernel's per-channel
-partials.  The emergent scan compacts the cubes flipped into observer
-order (:func:`active_tiles_scan_order`), so that a segment's tiles are
-consecutive and in LOS order; its kernel writes one (n_chan, bx, bz) map
-per segment and :func:`scatter_tile_maps` places them on the image.
+(8, 64, 128) tiles (:func:`active_tiles`, :func:`gather_tiles`); the epoch
+tile kernels write one (8, 128) partial per tile, and
+:func:`reassemble_tiles` folds the partials into the (nx, nz) map with
+``index_add_``; :func:`segment_tile_maps` is the same fold for per-channel
+partials (the plain RRL maps).  The emergent scan compacts the cubes
+flipped into observer order (:func:`active_tiles_scan_order`), so that a
+segment's tiles are consecutive and in LOS order; its kernel writes one
+(n_chan, bx, bz) map per segment and :func:`scatter_tile_maps` places them
+on the image.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -99,26 +110,34 @@ LAUNCHES = {'epoch_base_map_tiles': 0, 'epoch_base_maps2_tiles': 0,
 N_WEIDEMAN_RRL = 16
 # Re w switches from the Weideman rational to the asymptotic series here
 FAR_CUT = 8.0
-# channels per thread of the RRL kernels (CPT in csrc/rrl_maps.cu): the
-# launch grid walks ceil(n_chan / CPT) channel blocks in one dimension
-RRL_CPT = 16
+# channels per lane of the RRL maps kernels (CPL in csrc/rrl_maps.cu): a
+# block takes a group of RRL_CPL * lanes channels (rrl_lanes_log2), at most
+# RRL_MAX_GROUP, whose sums fill 33 KB of its shared memory
+RRL_CPL = 4
+RRL_MAX_GROUP = 64
+# (1, y, z) extent of the full-grid RRL kernel's row blocks (ROW_Y, ROW_Z)
+RRL_ROW = (1, 64, 128)
 # channels per thread of the emergent kernels (CPT_FULL and CPT_TILES in
 # csrc/emergent_maps.cu)
 EMERGENT_CPT_FULL = 16
 EMERGENT_CPT_TILES = 4
 _MAX_GRID_YZ = 65535
+_MAX_GRID_X = 2 ** 31 - 1
 _SQRT_PI = 1.7724538509055159
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, 'csrc')
 _BUILD_DIR = os.path.join(_PKG_DIR, '_build')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-fmad=false', '-Xptxas', '-v', '-Xcompiler', '-fPIC')
+              '-O3', '-Xptxas', '-v', '-Xcompiler', '-fPIC')
+#: each source's own flags, after NVCC_FLAGS: the epoch and emergent
+#: kernels keep the TPU's float32 operation order (no contracted
+#: multiply-add); the RRL kernels contract (two FMAs per Goertzel step)
+SOURCE_FLAGS = {'epoch_maps.cu': ('-fmad=false',),
+                'emergent_maps.cu': ('-fmad=false',),
+                'rrl_maps.cu': ()}
 
 _LIB = None
-#: compiler output of the build (ptxas register/spill report), or '' when
-#: the library was already built
-BUILD_LOG = ''
 
 
 def reset_launches() -> None:
@@ -266,6 +285,30 @@ def segment_starts(seg, n_seg: int) -> np.ndarray:
     sequential grid."""
     counts = np.bincount(np.asarray(seg, dtype=np.int64), minlength=n_seg)
     return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+def segment_order(seg, n_seg: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The RRL maps kernel's walk over compacted tiles, once per model:
+    int32 numpy ``(order, seg_start)``.  Segment s (the (x, z) tile
+    position s // n_zt, s % n_zt, of ``n_seg`` = n_xt * n_zt) holds tiles
+    ``order[seg_start[s]] .. order[seg_start[s + 1] - 1]``, in their
+    compacted order; a position with no tile has an empty range.  The tiles
+    themselves stay in :func:`active_tiles` order, which the epoch kernels
+    share."""
+    seg = np.asarray(seg, dtype=np.int64)
+    order = np.argsort(seg, kind='stable').astype(np.int32)
+    return order, segment_starts(seg, n_seg)
+
+
+def tile_segments(order: torch.Tensor, seg_start: torch.Tensor
+                  ) -> torch.Tensor:
+    """Each tile's segment id (int64, on ``order``'s device), from
+    :func:`segment_order`'s ``(order, seg_start)``."""
+    counts = torch.diff(seg_start.to(torch.int64))
+    ids = torch.arange(counts.numel(), device=order.device)
+    seg = torch.empty(order.numel(), dtype=torch.int64, device=order.device)
+    seg[order.to(torch.int64)] = torch.repeat_interleave(ids, counts)
+    return seg
 
 
 def scatter_tile_maps(parts: torch.Tensor, it, kt, n_xt: int, n_zt: int,
@@ -424,6 +467,22 @@ def rrl_tile_partials_plain(freqs_off, amp_t, rest_t, scale_t, yv_t, hkt_t,
                                    nu0), dim=2) for fo in freqs_off], dim=1)
 
 
+def rrl_tiles_plain(freqs_off, amp_t, rest_t, scale_t, yv_t, hkt_t,
+                    nu0: float, order, seg_start, nx: int,
+                    nz: int) -> torch.Tensor:
+    """Plain version of :func:`rrl_tiles`: the per-tile partials folded by
+    :func:`segment_tile_maps`."""
+    parts = rrl_tile_partials_plain(freqs_off, amp_t, rest_t, scale_t, yv_t,
+                                    hkt_t, nu0)
+    return segment_tile_maps(parts, tile_segments(order, seg_start), nx, nz)
+
+
+def rrl_row_activity_plain(amp: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`rrl_row_activity`."""
+    _, yc, zc = RRL_ROW
+    return _tile_activity(amp != 0, 1, zc, yc)
+
+
 def rrl_cube_plain(freqs_off, amp, rest, scale, yv, hkt,
                    nu0: float) -> torch.Tensor:
     """Plain version of :func:`rrl_cube`: (n_chan, nx, nz) sums over y of
@@ -524,7 +583,9 @@ class _Weideman(ctypes.Structure):
                 ('c', ctypes.c_float * N_WEIDEMAN_RRL)]
 
 
+@functools.lru_cache(maxsize=1)
 def _weideman_struct() -> _Weideman:
+    """The RRL kernels' constants, made once (an FFT on the host)."""
     ell, coeffs = _weideman_coeffs(N_WEIDEMAN_RRL)
     w = _Weideman()
     w.ell = float(ell)
@@ -569,6 +630,15 @@ def build_inputs(csrc: str = _CSRC) -> list:
     return sorted(sources(csrc) + glob.glob(os.path.join(csrc, '*.cuh')))
 
 
+def nvcc_flags(src: str) -> tuple:
+    """The flags one source is compiled with: ``NVCC_FLAGS`` and its own
+    ``SOURCE_FLAGS`` entry (every source must have one)."""
+    name = os.path.basename(src)
+    if name not in SOURCE_FLAGS:
+        raise KeyError(f"{name}: no entry in kernels.SOURCE_FLAGS")
+    return NVCC_FLAGS + tuple(SOURCE_FLAGS[name])
+
+
 def library_path(csrc: str = _CSRC) -> str:
     """Where the build for the current sources, headers and flags lives."""
     h = hashlib.sha256()
@@ -576,16 +646,26 @@ def library_path(csrc: str = _CSRC) -> str:
         h.update(os.path.basename(src).encode())
         with open(src, 'rb') as f:
             h.update(f.read())
-    h.update(' '.join(NVCC_FLAGS).encode())
+        if src.endswith('.cu'):
+            h.update(' '.join(nvcc_flags(src)).encode())
     return os.path.join(_BUILD_DIR, f'libkernels_{h.hexdigest()[:16]}.so')
+
+
+def build_log() -> str:
+    """The compiler's report (ptxas registers, shared memory and spills of
+    every kernel) of the current library's build, kept beside it."""
+    path = library_path()[:-len('.so')] + '.log'
+    if not os.path.exists(path):
+        return ''
+    with open(path) as f:
+        return f.read()
 
 
 def build() -> str:
     """Compile every csrc/*.cu into one shared library unless a build of
     these sources exists; returns the library path.  One ``nvcc`` per
-    source runs at once, then one link.  The compiler's report goes to
-    ``BUILD_LOG``."""
-    global BUILD_LOG
+    source runs at once, then one link.  The compiler's report is kept
+    beside the library (:func:`build_log`)."""
     path = library_path()
     if os.path.exists(path):
         return path
@@ -597,7 +677,7 @@ def build() -> str:
             obj = os.path.join(tmpdir, os.path.basename(src) + '.o')
             objs.append(obj)
             procs.append((src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, '-c', '-o', obj, src],
+                [nvcc, *nvcc_flags(src), '-c', '-o', obj, src],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         logs, failed = [], []
@@ -614,8 +694,9 @@ def build() -> str:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{res.stdout}\n{res.stderr}")
+        with open(path[:-len('.so')] + '.log', 'w') as f:
+            f.write('\n'.join(logs))
         os.replace(tmp, path)
-    BUILD_LOG = '\n'.join(logs)
     return path
 
 
@@ -627,14 +708,16 @@ def _lib():
         lib.epoch_tiles.argtypes = [p, p, p, i, f, f, _Bursts, p]
         lib.epoch_tiles2.argtypes = [p, p, p, p, p, i, f, f, _Bursts, p]
         lib.epoch_full.argtypes = [p, p, p, i, i, i, f, f, _Bursts, p]
-        lib.rrl_tiles.argtypes = [p] * 7 + [i, i, f, _Weideman, p]
-        lib.rrl_cube.argtypes = [p] * 7 + [i, i, i, i, f, _Weideman, p]
+        lib.rrl_tiles.argtypes = [p] * 9 + [i] * 6 + [f, _Weideman, p]
+        lib.rrl_activity.argtypes = [p, p, i, i, i, p]
+        lib.rrl_cube.argtypes = [p] * 8 + [i] * 5 + [f, _Weideman, p]
         lib.transfer_scan.argtypes = [p] * 4 + [i, i, i, i, p]
         lib.emergent_full.argtypes = [p] * 7 + [i, i, i, i, i, p]
         lib.emergent_tiles.argtypes = [p] * 9 + [i, i, f, f, _Bursts, p]
         for fn in (lib.epoch_tiles, lib.epoch_tiles2, lib.epoch_full,
-                   lib.rrl_tiles, lib.rrl_cube, lib.transfer_scan,
-                   lib.emergent_full, lib.emergent_tiles):
+                   lib.rrl_tiles, lib.rrl_activity, lib.rrl_cube,
+                   lib.transfer_scan, lib.emergent_full,
+                   lib.emergent_tiles):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -790,51 +873,123 @@ def _check_freqs(name: str, freqs_off, dev) -> int:
         raise ValueError(f"{name}: freqs_off must be 1-D, got shape "
                          f"{tuple(freqs_off.shape)}")
     _check_cuda(name, (freqs_off,), freqs_off.shape)
-    n_chan = freqs_off.shape[0]
-    if -(-n_chan // RRL_CPT) > _MAX_GRID_YZ:
-        raise ValueError(f"{name}: at most {_MAX_GRID_YZ * RRL_CPT} "
-                         f"channels, got {n_chan}")
-    return n_chan
+    return freqs_off.shape[0]
 
 
-def rrl_tile_partials(freqs_off, amp_t, rest_t, scale_t, yv_t, hkt_t,
-                      nu0: float) -> torch.Tensor:
-    """(n_act, n_chan, 8, 128) per-tile RRL optical-depth partials
-    sum_y amp * Re w * (1 - e^{-(f + nu0) hkT}) of compacted
+def rrl_lanes_log2(n_chan: int) -> int:
+    """log2 of the lanes per cell slot of the RRL maps kernels: a block
+    takes RRL_CPL * lanes channels, lanes the power of two that covers
+    n_chan / RRL_CPL, at most RRL_MAX_GROUP / RRL_CPL.  A warp's lanes
+    split into 32 / lanes slots that share a column's cells."""
+    lanes = 1
+    while lanes * RRL_CPL < min(n_chan, RRL_MAX_GROUP):
+        lanes *= 2
+    return lanes.bit_length() - 1
+
+
+def _rrl_grid_lanes(name: str, n_rows: int, n_chan: int) -> int:
+    """``rrl_lanes_log2(n_chan)`` for a maps launch over ``n_rows`` row
+    blocks, after checking that its one-dimensional grid fits."""
+    lanes_log2 = rrl_lanes_log2(n_chan)
+    group = RRL_CPL << lanes_log2
+    if n_rows * -(-n_chan // group) > _MAX_GRID_X:
+        raise ValueError(f"{name}: {n_rows} rows x {n_chan} channels "
+                         f"exceed the launch grid")
+    return lanes_log2
+
+
+def _check_index(name: str, t, n: int, dev) -> None:
+    if t.device != dev or t.dtype != torch.int32 or \
+            tuple(t.shape) != (n,) or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous ({n},) int32 "
+                         f"tensor on {dev}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def rrl_tiles(freqs_off, amp_t, rest_t, scale_t, yv_t, hkt_t, nu0: float,
+              order, seg_start, nx: int, nz: int) -> torch.Tensor:
+    """(n_chan, nx, nz) RRL optical-depth maps
+    sum_y amp * Re w * (1 - e^{-(f + nu0) hkT}) from compacted
     (n_act, 8, 64, 128) float32 factor tiles (counterpart of
-    pallas_kernels.rrl_tiles_pallas): the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors.  ``freqs_off`` and ``rest_t`` are
-    offsets from the line centre ``nu0`` [Hz]."""
+    pallas_kernels.rrl_tiles_pallas folded by segment_tile_maps): the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors.
+
+    ``freqs_off`` and ``rest_t`` are offsets from the line centre ``nu0``
+    [Hz]; ``(order, seg_start)`` are :func:`segment_order`'s, as int32
+    tensors on the tiles' device (``seg_start`` of n_xt * n_zt + 1
+    entries).  Every map element is written by the kernel, 0 where no tile
+    lies on the line of sight."""
     name = 'rrl_tiles_pallas'
     if _device_kind(amp_t, name) == 'cpu':
-        return rrl_tile_partials_plain(freqs_off, amp_t, rest_t, scale_t,
-                                       yv_t, hkt_t, nu0)
+        return rrl_tiles_plain(freqs_off, amp_t, rest_t, scale_t, yv_t,
+                               hkt_t, nu0, order, seg_start, nx, nz)
     n_act = amp_t.shape[0]
+    dev = amp_t.device
     _check_cuda(name, (amp_t, rest_t, scale_t, yv_t, hkt_t),
                 (n_act,) + TILE)
-    n_chan = _check_freqs(name, freqs_off, amp_t.device)
-    out = torch.empty((n_act, n_chan, TILE[0], TILE[2]),
-                      dtype=torch.float32, device=amp_t.device)
-    if n_act == 0 or n_chan == 0:
+    n_chan = _check_freqs(name, freqs_off, dev)
+    n_xt, n_zt = _tile_grid(nx, TILE[0]), _tile_grid(nz, TILE[2])
+    _check_index(name, order, n_act, dev)
+    _check_index(name, seg_start, n_xt * n_zt + 1, dev)
+    lanes_log2 = _rrl_grid_lanes(name, n_xt * n_zt * TILE[0], n_chan)
+    out = torch.empty((n_chan, nx, nz), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
         return out
-    with torch.cuda.device(amp_t.device):
+    with torch.cuda.device(dev):
         err = _lib().rrl_tiles(
             freqs_off.data_ptr(), amp_t.data_ptr(), rest_t.data_ptr(),
             scale_t.data_ptr(), yv_t.data_ptr(), hkt_t.data_ptr(),
-            out.data_ptr(), n_act, n_chan, float(nu0), _weideman_struct(),
-            _stream(amp_t.device))
+            order.data_ptr(), seg_start.data_ptr(), out.data_ptr(), n_xt,
+            n_zt, nx, nz, n_chan, lanes_log2, float(nu0), _weideman_struct(),
+            _stream(dev))
     _raise_if_error(name, err)
     LAUNCHES[name] += 1
     return out
 
 
-def rrl_tiles(freqs_off, amp_t, rest_t, scale_t, yv_t, hkt_t, nu0: float,
-              seg, nx: int, nz: int) -> torch.Tensor:
-    """(n_chan, nx, nz) RRL optical-depth maps from compacted factor tiles:
-    :func:`rrl_tile_partials` folded by :func:`segment_tile_maps`."""
-    parts = rrl_tile_partials(freqs_off, amp_t, rest_t, scale_t, yv_t,
-                              hkt_t, nu0)
-    return segment_tile_maps(parts, seg, nx, nz)
+def rrl_tile_partials(freqs_off, amp_t, rest_t, scale_t, yv_t, hkt_t,
+                      nu0: float) -> torch.Tensor:
+    """(n_act, n_chan, 8, 128) per-tile RRL optical-depth partials of
+    compacted factor tiles, the layout of pallas_kernels.rrl_tiles_pallas:
+    for CUDA tensors the :func:`rrl_tiles` kernel with every tile its own
+    segment (a column of n_act x tiles), for CPU tensors the plain
+    version."""
+    if _device_kind(amp_t, 'rrl_tiles_pallas') == 'cpu':
+        return rrl_tile_partials_plain(freqs_off, amp_t, rest_t, scale_t,
+                                       yv_t, hkt_t, nu0)
+    n_act = amp_t.shape[0]
+    ident = torch.arange(n_act + 1, dtype=torch.int32, device=amp_t.device)
+    maps = rrl_tiles(freqs_off, amp_t, rest_t, scale_t, yv_t, hkt_t, nu0,
+                     ident[:-1], ident, n_act * TILE[0], TILE[2])
+    return maps.reshape(freqs_off.shape[0], n_act, TILE[0], TILE[2]) \
+        .transpose(0, 1).contiguous()
+
+
+def rrl_row_activity(amp: torch.Tensor) -> torch.Tensor:
+    """(nx, ceil(ny / 64), ceil(nz / 128)) bool: which (1, 64, 128) row
+    blocks of the full (nx, ny, nz) grid hold a cell with amp != 0 — the
+    first pass of :func:`rrl_cube`, the one read of the whole amp cube.
+    The CUDA kernel for a CUDA tensor, the plain version for a CPU one."""
+    name = 'rrl_cube_pallas'
+    if _device_kind(amp, name) == 'cpu':
+        return rrl_row_activity_plain(amp)
+    if amp.dim() != 3:
+        raise ValueError(f"{name}: expected an (nx, ny, nz) cube, got "
+                         f"shape {tuple(amp.shape)}")
+    nx, ny, nz = amp.shape
+    _check_cuda(name, (amp,), (nx, ny, nz))
+    shape = (nx, _tile_grid(ny, RRL_ROW[1]), _tile_grid(nz, RRL_ROW[2]))
+    if int(np.prod(shape)) > _MAX_GRID_X:
+        raise ValueError(f"{name}: {shape} row blocks exceed the launch "
+                         f"grid")
+    active = torch.empty(shape, dtype=torch.uint8, device=amp.device)
+    if active.numel() == 0:
+        return active.view(torch.bool)
+    with torch.cuda.device(amp.device):
+        err = _lib().rrl_activity(amp.data_ptr(), active.data_ptr(), nx, ny,
+                                  nz, _stream(amp.device))
+    _raise_if_error(name, err)
+    return active.view(torch.bool)
 
 
 def rrl_cube(freqs_off, amp, rest, scale, yv, hkt,
@@ -842,7 +997,8 @@ def rrl_cube(freqs_off, amp, rest, scale, yv, hkt,
     """(n_chan, nx, nz) RRL optical-depth maps of the FULL (nx, ny, nz)
     float32 factor grid (counterpart of pallas_kernels.rrl_cube_pallas):
     the model's branch when the grid holds no jet cell, so no tile is
-    active.  The CUDA kernel for CUDA tensors, the plain version for CPU
+    active.  The CUDA kernels for CUDA tensors (:func:`rrl_row_activity`,
+    then the maps over the flagged row blocks), the plain version for CPU
     tensors."""
     name = 'rrl_cube_pallas'
     if _device_kind(amp, name) == 'cpu':
@@ -853,18 +1009,19 @@ def rrl_cube(freqs_off, amp, rest, scale, yv, hkt,
     nx, ny, nz = amp.shape
     _check_cuda(name, (amp, rest, scale, yv, hkt), (nx, ny, nz))
     n_chan = _check_freqs(name, freqs_off, amp.device)
-    if -(-nx // 2) > _MAX_GRID_YZ:      # two x rows per block
-        raise ValueError(f"{name}: nx = {nx} exceeds the launch grid")
+    lanes_log2 = _rrl_grid_lanes(name, nx * _tile_grid(nz, RRL_ROW[2]),
+                                    n_chan)
     out = torch.empty((n_chan, nx, nz), dtype=torch.float32,
                       device=amp.device)
     if out.numel() == 0:
         return out
+    active = rrl_row_activity(amp)
     with torch.cuda.device(amp.device):
         err = _lib().rrl_cube(
             freqs_off.data_ptr(), amp.data_ptr(), rest.data_ptr(),
-            scale.data_ptr(), yv.data_ptr(), hkt.data_ptr(), out.data_ptr(),
-            nx, ny, nz, n_chan, float(nu0), _weideman_struct(),
-            _stream(amp.device))
+            scale.data_ptr(), yv.data_ptr(), hkt.data_ptr(),
+            active.data_ptr(), out.data_ptr(), nx, ny, nz, n_chan,
+            lanes_log2, float(nu0), _weideman_struct(), _stream(amp.device))
     _raise_if_error(name, err)
     LAUNCHES[name] += 1
     return out

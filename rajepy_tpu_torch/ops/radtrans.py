@@ -202,7 +202,7 @@ def tau_rrl_maps(coeffs: RRLCoeffs, freqs, temp, n_es, vy, ds_cm, inside):
 
 def tau_rrl_precompute(coeffs: RRLCoeffs, temp, n_es, vy, ds_cm, inside):
     """Channel-independent per-cell factors of the RRL opacity, feeding the
-    RRL kernels (ops.kernels.rrl_tile_partials / rrl_cube): returns
+    RRL kernels (ops.kernels.rrl_tiles / rrl_cube): returns
     ``(amp, rest, scale, y_voigt, hkT)`` (radtrans.py:218-242)."""
     safe_t, safe_ne, rest, fwhm_g, fwhm_l, n_i = _line_fields(
         coeffs, temp, n_es, vy, inside)
@@ -239,22 +239,23 @@ def rrl_kernel_inputs(coeffs: RRLCoeffs, freqs, temp, n_es, vy, ds_cm,
 def tau_rrl_maps_fused(coeffs: RRLCoeffs, freqs, temp, n_es, vy, ds_cm,
                        inside):
     """Collapsed RRL optical-depth maps of the FULL grid through the RRL
-    cube kernel (K5; radtrans.py:245-260): per-cell inputs are read once
-    for a block of channels instead of once per channel."""
+    cube kernel (K5; radtrans.py:245-260): amp is read once to find the
+    row blocks that hold jet cells, and only those are evaluated, for a
+    group of channels at a time."""
     return kn.rrl_cube(*rrl_kernel_inputs(coeffs, freqs, temp, n_es, vy,
                                           ds_cm, inside))
 
 
 def tau_rrl_maps_tiles(coeffs: RRLCoeffs, freqs, temp_t, n_es_t, vy_t,
-                       ds_t, inside_t, seg, nx: int, nz: int):
+                       ds_t, inside_t, order, seg_start, nx: int, nz: int):
     """Collapsed RRL optical-depth maps from COMPACTED jet-occupied field
     tiles (radtrans.py:263-282): the opacity factors are evaluated only on
-    the tiles the jet occupies, the tile kernel (K4) writes per-tile
-    partial maps, and :func:`.kernels.segment_tile_maps` folds them into
-    (n_chan, nx, nz)."""
+    the tiles the jet occupies, and the tile kernel (K4) sums each (x, z)
+    tile position's tiles, walked through ``(order, seg_start)`` of
+    :func:`.kernels.segment_order`, straight into (n_chan, nx, nz)."""
     return kn.rrl_tiles(*rrl_kernel_inputs(coeffs, freqs, temp_t, n_es_t,
                                            vy_t, ds_t, inside_t),
-                        seg, nx, nz)
+                        order, seg_start, nx, nz)
 
 
 def tau_rrl_cube(coeffs: RRLCoeffs, freqs, temp, n_es, vy, ds_cm, inside):

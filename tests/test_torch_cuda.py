@@ -92,32 +92,48 @@ def _rrl_band(n):
 
 
 def test_rrl_kernels_match_plain_versions(card):
+    """The maps kernels (K4 on tiles, K5 on the grid) against their plain
+    versions at 40, 1 and 33 channels, on a wholly jet tile, and in the
+    per-tile layout; K5's activity pass against its plain version."""
     jm = JetModel(_params((64, 160, 64)), device=card)
     jm.time = 2.0 * YEAR
-    freqs = jm._freqs(np.concatenate([_rrl_band(200)[::10],
-                                      _rrl_band(2001)[990:1010]]))
     coeffs = rt.RRLCoeffs('H58a')
-    temp_t, vy_t, ndxi_t, ds_t, inside_t, tss_t, seg = jm._rrl_tiles()
+    temp_t, vy_t, ndxi_t, ds_t, inside_t, tss_t, order, seg_start = \
+        jm._rrl_tiles()
     n_es_t = ndxi_t * jm._chi_from_packed(tss_t, jm.time)
-    k4 = rt.rrl_kernel_inputs(coeffs, freqs, temp_t, n_es_t, vy_t, ds_t,
-                              inside_t)
     f = jm._ensure_fields()
-    k5 = rt.rrl_kernel_inputs(coeffs, freqs, f.temp,
-                              jm._nd_chi(f, jm.time) * f.xi, f.vy,
-                              rt.path_length_cm(f.ff, f.area, jm.csize),
-                              f.inside)
+    walk = (order, seg_start, jm.nx, jm.nz)
+    bands = [np.concatenate([_rrl_band(200)[::10], _rrl_band(2001)[990:1010]]),
+             _rrl_band(2001)[1000:1001], _rrl_band(2001)[984:1017]]
     kn.reset_launches()
-    got = kn.rrl_tile_partials(*k4)
-    want = kn.rrl_tile_partials_plain(*k4)
-    assert _rel(got, want) < 1e-5
-    got = kn.rrl_cube(*k5)
-    want = kn.rrl_cube_plain(*k5)
-    assert _rel(got, want) < 1e-5
+    for band in bands:
+        freqs = jm._freqs(band)
+        k4 = rt.rrl_kernel_inputs(coeffs, freqs, temp_t, n_es_t, vy_t, ds_t,
+                                  inside_t)
+        k5 = rt.rrl_kernel_inputs(coeffs, freqs, f.temp,
+                                  jm._nd_chi(f, jm.time) * f.xi, f.vy,
+                                  rt.path_length_cm(f.ff, f.area, jm.csize),
+                                  f.inside)
+        assert _rel(kn.rrl_tiles(*k4, *walk),
+                    kn.rrl_tiles_plain(*k4, *walk)) < 1e-5
+        assert _rel(kn.rrl_cube(*k5), kn.rrl_cube_plain(*k5)) < 1e-5
     torch.cuda.synchronize()
-    assert kn.LAUNCHES['rrl_tiles_pallas'] == 1
-    assert kn.LAUNCHES['rrl_cube_pallas'] == 1
+    assert kn.LAUNCHES['rrl_tiles_pallas'] == len(bands)
+    assert kn.LAUNCHES['rrl_cube_pallas'] == len(bands)
+    # every cell of tile 0 a jet cell: a wholly jet chunk is staged whole
+    amp_t = k4[1].clone()
+    amp_t[0] = amp_t.max()
+    k4 = (k4[0], amp_t) + k4[2:]
+    assert _rel(kn.rrl_tiles(*k4, *walk),
+                kn.rrl_tiles_plain(*k4, *walk)) < 1e-5
+    assert _rel(kn.rrl_tile_partials(*k4),
+                kn.rrl_tile_partials_plain(*k4)) < 1e-5
+    assert torch.equal(kn.rrl_row_activity(k5[1]),
+                       kn.rrl_row_activity_plain(k5[1]))
     with pytest.raises(TypeError, match='float32'):
         kn.rrl_cube(k5[0], *(a.double() for a in k5[1:6]), k5[6])
+    with pytest.raises(ValueError, match='int32'):
+        kn.rrl_tiles(*k4, order.long(), *walk[1:])
 
 
 def test_f32_card_rrl_products_match_f64_cpu(card):

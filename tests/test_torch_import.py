@@ -103,6 +103,28 @@ def test_library_hash_covers_the_shared_headers(tmp_path):
         sorted(n for n in os.listdir(csrc) if n.endswith('.cu'))
 
 
+def test_library_hash_covers_each_sources_own_flags(monkeypatch):
+    """Each source is compiled with its own flags (the RRL kernels alone
+    contract multiply-adds), every source has an entry, and a change to
+    one source's flags names a new library."""
+    from rajepy_tpu_torch.ops import kernels
+    names = [os.path.basename(p) for p in kernels.sources()]
+    assert sorted(kernels.SOURCE_FLAGS) == names
+    for src in kernels.sources():
+        flags = kernels.nvcc_flags(src)
+        assert flags[:len(kernels.NVCC_FLAGS)] == kernels.NVCC_FLAGS
+        assert ('-fmad=false' in flags) == \
+            (os.path.basename(src) != 'rrl_maps.cu')
+    before = kernels.library_path()
+    monkeypatch.setitem(kernels.SOURCE_FLAGS, 'rrl_maps.cu',
+                        ('-fmad=false',))
+    assert kernels.library_path() != before
+    monkeypatch.undo()
+    assert kernels.library_path() == before
+    with pytest.raises(KeyError, match='SOURCE_FLAGS'):
+        kernels.nvcc_flags('new_kernel.cu')
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_fails_without_a_gpu_or_the_checkout(tmp_path, alone):
     if alone:

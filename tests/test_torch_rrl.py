@@ -354,6 +354,12 @@ def test_rrl_wrappers_reject_other_devices():
         kn.rrl_cube(torch.zeros(2, device='meta'),
                     *(torch.zeros((2, 3, 4), device='meta')
                       for _ in range(5)), 1e10)
+    idx = torch.zeros(2, dtype=torch.int32, device='meta')
+    with pytest.raises(ValueError, match='unsupported device'):
+        kn.rrl_tiles(torch.zeros(2, device='meta'), *f, 1e10, idx[:1], idx,
+                     8, 128)
+    with pytest.raises(ValueError, match='unsupported device'):
+        kn.rrl_row_activity(torch.zeros((2, 3, 4), device='meta'))
 
 
 # --------------------------------------------------------------------------- #
