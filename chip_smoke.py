@@ -18,7 +18,12 @@ Phases (any failure exits non-zero; nothing is caught):
    with fully empty tiles, segments of one and of several tiles, negative
    travel times, a ragged grid, zero-opacity y ranges and both observer
    orientations (1e-5 of the plain map's maximum), and the emergent tile
-   and full-grid kernels against the float64 host oracle (1e-5);
+   and full-grid kernels against the float64 host oracle (1e-5); the two
+   full-grid kernels that stream base through a shared-memory ring (epoch
+   and emergent) also on a grid with nz % 4 != 0, a wholly jet cube, a cube
+   whose only jet cells lie in the last y row and the last z column, an
+   all-zero cube with launch times that are not finite (exact zeros),
+   a view that is not 16-byte aligned, and 1, 17 and 64 channels;
 2. main paths, each counted: the launch counters are reset just before a
    path and read just after, and each of its kernels must have been
    launched.
@@ -57,7 +62,12 @@ Phases (any failure exits non-zero; nothing is caught):
    kernels are timed at 16 and 1000 channels: the tile kernel as the maps
    call beside the fold it replaced, the full-grid kernel on the
    flagship's factors and on the jet-free grid; ptxas's registers and
-   spills of both are printed (no spill allowed).
+   spills of both are printed (no spill allowed).  The full-grid epoch and
+   emergent kernels are timed on the flagship's cubes, on the jet-free
+   grid (their main path's case), on a wholly jet cube (epoch) and at 64
+   channels (emergent), with the epoch kernel's two bounds (both cubes
+   whole; launch times only where base != 0) and ptxas's report of both
+   (no spill allowed).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Needs the repository
@@ -291,15 +301,16 @@ def rrl_ops(freqs_off, amp, rest, scale, yv, chunk=32):
             n_far * RRL_OPS_FAR), n_core, n_far
 
 
-def print_rrl_ptxas(log):
-    """ptxas's registers, shared memory and spills of the RRL kernels (each
-    block size the maps kernels are built for), from the build's report;
-    raises if one spills or is missing."""
+def print_ptxas(log, pattern, want):
+    """ptxas's registers, shared memory and spills of the kernels whose
+    name matches ``pattern`` (every instance a kernel is built in), from
+    the build's report; raises if one spills or the kernels found are not
+    ``want``."""
     import re
     found = set()
     for entry in log.split("Compiling entry function '")[1:]:
         name = entry.split("'", 1)[0]
-        kernel = re.search(r'rrl_\w+?_kernel', name)
+        kernel = re.search(pattern, name)
         if kernel is None:
             continue
         found.add(kernel.group(0))
@@ -310,9 +321,8 @@ def print_rrl_ptxas(log):
               f"{spill.group(0) if spill else '?'}")
         if spill is None or int(spill.group(1)) or int(spill.group(2)):
             raise AssertionError(f"{name}: spills, or no ptxas report")
-    want = {'rrl_tiles_kernel', 'rrl_activity_kernel', 'rrl_cube_kernel'}
     if found != want:
-        raise AssertionError(f"ptxas reported the RRL kernels {found}, not "
+        raise AssertionError(f"ptxas reported the kernels {found}, not "
                              f"{want}")
 
 
@@ -487,6 +497,95 @@ def check_emergent_kernels(bursts, dev):
           torch.as_tensor(oracle, device=dev), KERNEL_RTOL)
 
 
+def full_grid_cubes(rng, dev):
+    """Small cubes for the two full-grid kernels, as (label, base, tss,
+    temp, pack offset): base >= 0 with zeros, packed launch times with
+    negative travel times, temperature 1 where base is 0.  A grid with
+    nz % 4 != 0 (4-byte copies throughout), a wholly jet cube, a cube
+    whose only jet cells lie in the last y row and the last z column, an
+    all-zero cube whose launch times are not finite, and a view one float
+    off a 16-byte boundary."""
+    import torch
+    from rajepy_tpu_torch.ops import kernels as kn
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    def cube(shape, inside):
+        ts = rng.uniform(-0.05 * YEAR, 2.5 * YEAR, shape)
+        off = kn.pack_offset_for(ts.min())
+        tss = np.where(rng.random(shape) < 0.5, -(ts + off), ts + off)
+        base = np.where(inside, 0.05 * (0.1 + rng.random(shape)), 0.0)
+        temp = np.where(inside, rng.uniform(5e3, 2e4, shape), 1.0)
+        return as_t(base), as_t(tss), as_t(temp), off
+
+    out = []
+    shape = (10, 70, 130)
+    out.append(('nz % 4 != 0', *cube(shape, rng.random(shape) < 0.3)))
+    shape = (9, 150, 128)
+    out.append(('wholly jet', *cube(shape, np.ones(shape, bool))))
+    shape = (11, 133, 200)
+    edge = np.zeros(shape, bool)
+    edge[:, -1, :] = True
+    edge[:, :, -1] = True
+    out.append(('last y row and z column only', *cube(shape, edge)))
+    shape = (6, 40, 64)
+    base, tss, temp, off = cube(shape, np.zeros(shape, bool))
+    tss[::2] = float('nan')
+    tss[1::2] = float('inf')
+    out.append(('all zero, launch times not finite', base, tss, temp, off))
+    shape = (8, 64, 128)
+    base, tss, temp, off = cube(shape, rng.random(shape) < 0.3)
+    n = base.numel()
+    shifted = []
+    for c in (base, tss, temp):
+        buf = torch.empty(n + 1, dtype=torch.float32, device=dev)
+        buf[1:] = c.reshape(-1)
+        shifted.append(buf[1:].view(shape))
+    if shifted[0].data_ptr() % 16 == 0 or not shifted[0].is_contiguous():
+        raise AssertionError("the shifted view is aligned")
+    out.append(('view off a 16-byte boundary', *shifted, off))
+    return out
+
+
+def check_full_grid_kernels(bursts, dev):
+    """Phase 1 for the two kernels that stream base through the
+    shared-memory ring, each against its plain version on the cubes of
+    :func:`full_grid_cubes`; the emergent one at 1, 17 and 64 channels and
+    both observer orientations."""
+    import torch
+    from rajepy_tpu_torch.ops import kernels as kn
+    rng = np.random.default_rng(5)
+    t = 2.0 * YEAR
+    for label, base, tss, temp, off in full_grid_cubes(rng, dev):
+        got = kn.epoch_base_map_full(base, tss, t, bursts, off)
+        want = kn.epoch_base_map_full_plain(base, tss, t, bursts, off)
+        check(f'epoch_base_map_full, {label} {tuple(base.shape)}', got, want,
+              KERNEL_RTOL)
+        maps = [got, want]
+        worst = 0.0
+        for n_chan in (1, 17, 64):
+            freqs = np.geomspace(1e9, 3e11, n_chan)
+            cnu, hnuk = chan_consts(freqs, dev)
+            scale = torch.as_tensor(np.geomspace(0.02, 5.0, n_chan),
+                                    dtype=torch.float32, device=dev)
+            for near in (False, True):
+                args = (cnu, hnuk, scale, temp, base, near)
+                got = kn.emergent_ff_full(*args)
+                want = kn.emergent_ff_full_plain(*args)
+                worst = max([worst] + [rel_err(g, w)[0]
+                                       for g, w in zip(got, want)])
+                maps += [*got, *want]
+        print(f"  emergent_ff_pallas I and tau, {label}, 1, 17 and 64 ch, "
+              f"both near_y0: max rel err {worst:.3e} (tolerance "
+              f"{KERNEL_RTOL:g})")
+        if not worst <= KERNEL_RTOL:
+            raise AssertionError(f"emergent_ff_pallas, {label}: rel err "
+                                 f"{worst:.3e} > {KERNEL_RTOL:g}")
+        if not bool(base.any()) and any(int(torch.count_nonzero(m))
+                                        for m in maps):
+            raise AssertionError(f"{label}: an all-zero base gave non-zero "
+                                 f"or non-finite maps")
+
+
 # channel offsets from nu0 [Hz] that put every cell of rrl_factors in the
 # wings, every cell in the core, and a mix
 RRL_CHANNEL_SETS = {'all-far': (1e7, 5e7, 9), 'all-near': (-2e5, 2e5, 7),
@@ -539,6 +638,7 @@ def phase_kernels(bursts):
 
     check_rrl_kernels(rng, shape, dev)
     check_emergent_kernels(bursts, dev)
+    check_full_grid_kernels(bursts, dev)
     torch.cuda.synchronize()
 
 
@@ -935,8 +1035,10 @@ def check_emergent(jm, em):
 
 def emergent_numbers(jm, scan_c):
     """Phase 3 for the emergent path: the per-call time of the maps, the
-    compaction, and each kernel against its plain version (plain, kernel,
-    kernel, plain) and its bound; returns the kernels' summary rows."""
+    compaction, and the tile kernel and the scan op against their plain
+    versions (plain, kernel, kernel, plain) and their bounds; returns the
+    kernels' summary rows (the full-grid kernel's is
+    :func:`full_grid_numbers`)."""
     import torch
     from rajepy_tpu_torch.ops import kernels as kn
     rows = []
@@ -960,12 +1062,10 @@ def emergent_numbers(jm, scan_c):
     print_busy('emergent_intensity_ff calls',
                lambda: jm._emergent_maps(FREQS), 10)
     k6, _, _ = emergent_tile_args(jm)
-    k7 = emergent_full_args(jm)
     k8 = scan_channel_args(jm, scan_c)
     n_chan = len(FREQS)
-    a_t, base = k6[4], k7[4]
+    a_t = k6[4]
     live6 = int(torch.count_nonzero(a_t))
-    live7 = int(torch.count_nonzero(base))
     em_work = {   # kernel, plain, kernel batch, plain samples, B, ops
         'emergent_ff_tiles': (
             lambda: kn.emergent_tile_partials(*k6),
@@ -975,12 +1075,6 @@ def emergent_numbers(jm, scan_c):
             (a_t.numel() - live6) + live6 * (
                 EMERGENT_OPS_CHI + EMERGENT_OPS_BURST * len(k6[8]) +
                 EMERGENT_OPS_CHAN * n_chan)),
-        'emergent_ff_pallas': (
-            lambda: kn.emergent_ff_full(*k7),
-            lambda: kn.emergent_ff_full_plain(*k7), 5, 3,
-            nbytes(base, *k7[:3]) + 4 * live7 +
-            2 * 4 * n_chan * jm.nx * jm.nz,
-            base.numel() + live7 * EMERGENT_OPS_CHAN * n_chan),
         'transfer_scan_pallas': (
             lambda: kn.transfer_scan_maps(*k8),
             lambda: kn.transfer_scan_maps_plain(*k8), 10, 5,
@@ -988,7 +1082,7 @@ def emergent_numbers(jm, scan_c):
             k8[0].numel() * SCAN_OPS),
     }
     print(f"  emergent kernels at the main path's shapes: {live6} jet "
-          f"cells in the tiles, {live7} in the full grid")
+          f"cells in the tiles")
     for name, (kfn, pfn, k_batch, p_rep, n_b, n_ops) in em_work.items():
         p1 = cuda_ms(pfn, n_rep=p_rep, n_warm=1)
         k1 = cuda_ms(kfn, batch=k_batch)
@@ -1001,6 +1095,96 @@ def emergent_numbers(jm, scan_c):
               f"({n_b} B, {n_ops} ops), {b_ms / k1:.3f} of it")
         rows.append((name, k1, p1, b_ms, b_by))
     return rows
+
+
+def epoch_full_work(base, n_bursts):
+    """((bytes, operations) the full-grid epoch kernel must spend on this
+    base cube, the same with both cubes read whole): base once, the map
+    once, a packed launch time and a chi (5 + 6 per burst operations) only
+    where base != 0, a test per cell; against a launch time and a chi at
+    every cell."""
+    import torch
+    live = int(torch.count_nonzero(base))
+    n_map = base.shape[0] * base.shape[2]
+    per_cell = 5 + 6 * n_bursts
+    return ((4 * (base.numel() + live + n_map),
+             base.numel() + live * per_cell),
+            (4 * (2 * base.numel() + n_map), base.numel() * per_cell))
+
+
+def full_grid_numbers(jm, empty, bursts):
+    """Phase 3 for the two kernels that stream base through the
+    shared-memory ring: ptxas's report (no spill allowed), and each kernel
+    on the flagship's cubes, on the jet-free grid (exact zeros), on a
+    wholly jet cube (epoch) and at 64 channels (emergent): kernel, plain
+    (one call), kernel, the device time by the profiler, and the bound.
+    Returns the two kernels' summary rows (the flagship's cubes at 16
+    channels) and each kernel's largest (rel, abs) error against its plain
+    version over these cases."""
+    import torch
+    from rajepy_tpu_torch.ops import kernels as kn
+    print_ptxas(kn.build_log(), r'(?:epoch|emergent)_full_kernel',
+                {'epoch_full_kernel', 'emergent_full_kernel'})
+    jm.time = empty.time = EMERGENT_EPOCH_YR * YEAR
+    errs, rows = {}, []
+
+    def run(name, what, kfn, pfn, n_b, n_ops, zero, note=''):
+        got = kfn()
+        want, p_ms = timed_once(pfn)
+        parts = ('I', 'tau') if len(got) == 2 else ('map',)
+        err = [check(f'{name} {part} ({what})', g, w, KERNEL_RTOL)
+               for part, g, w in zip(parts, got, want)]
+        if zero and any(int(torch.count_nonzero(m)) for m in (*got, *want)):
+            raise AssertionError(f"{name}: the jet-free grid gave non-zero "
+                                 f"maps")
+        del got, want
+        errs[name] = max(err + [errs.get(name, (0.0, 0.0))])
+        k1 = cuda_ms(kfn, batch=20)
+        dev = kernel_ms(kfn)
+        k2 = cuda_ms(kfn, batch=20)
+        b_ms, b_by = bound(n_b, n_ops)
+        print(f"  {name} ({what}): kernel {k1:.4f} / {k2:.4f} ms (median of "
+              f"30 batches of 20), device {dev:.4f} ms (profiler, mean of "
+              f"10), plain {p_ms:.4f} ms (one call); bound {b_ms:.4f} ms by "
+              f"{b_by} ({n_b} B, {n_ops} ops), {b_ms / k1:.3f} of it{note}")
+        if what.startswith('flagship cubes') and '64' not in what:
+            rows.append((name, k1, p_ms, b_ms, b_by))
+
+    t = jm.time
+    st, st0 = jm._rt_static(), empty._rt_static()
+    gen = torch.Generator(device=st.a.device).manual_seed(0)
+    dense = (0.5 + torch.rand(st.a.shape, generator=gen,
+                              device=st.a.device)) * st.a.max()
+    for what, a, tss, off in (
+            ('flagship cubes', st.a, st.ts_signed, jm._ts_pack_offset),
+            ('jet-free grid', st0.a, st0.ts_signed, empty._ts_pack_offset),
+            ('wholly jet cube', dense, st.ts_signed, jm._ts_pack_offset)):
+        (n_b, n_ops), whole = epoch_full_work(a, len(bursts))
+        w_ms, w_by = bound(*whole)
+        run('epoch_base_map_full', what,
+            lambda: (kn.epoch_base_map_full(a, tss, t, bursts, off),),
+            lambda: (kn.epoch_base_map_full_plain(a, tss, t, bursts, off),),
+            n_b, n_ops, what == 'jet-free grid',
+            f"; with both cubes read whole the bound is {w_ms:.4f} ms by "
+            f"{w_by} ({whole[0]} B, {whole[1]} ops)")
+    del dense
+
+    cnu, hnuk, scale, safe_t, base = emergent_full_args(jm)
+    free_t, free_base = emergent_full_args(empty)[3:]
+    chan64 = jm._emergent_channels(jm._freqs(np.geomspace(3e8, 3e11, 64)))
+    for what, chan, temp, b in (
+            ('flagship cubes, 16 ch', (cnu, hnuk, scale), safe_t, base),
+            ('jet-free grid, 16 ch', (cnu, hnuk, scale), free_t, free_base),
+            ('flagship cubes, 64 ch', chan64, safe_t, base)):
+        n_chan = chan[0].numel()
+        live = int(torch.count_nonzero(b))
+        run('emergent_ff_pallas', what,
+            lambda: kn.emergent_ff_full(*chan, temp, b),
+            lambda: kn.emergent_ff_full_plain(*chan, temp, b),
+            nbytes(b, *chan) + 4 * live + 2 * 4 * n_chan * jm.nx * jm.nz,
+            b.numel() + live * EMERGENT_OPS_CHAN * n_chan,
+            what.startswith('jet-free'))
+    return rows, errs
 
 
 def main() -> int:
@@ -1205,7 +1389,8 @@ def main() -> int:
                                               as_numpy=False), 3)
 
         rows = []
-        # continuum kernels: plain, kernel, kernel, plain; batches of 20
+        # continuum tile kernels: plain, kernel, kernel, plain; batches of
+        # 20
         cont_work = {
             'epoch_base_map_tiles': (
                 lambda: kn.epoch_tile_partials(st.a_t, st.tss_t, t, bursts,
@@ -1221,14 +1406,7 @@ def main() -> int:
                     st.a_t, st.em_t, st.tss_t, t, bursts, off),
                 nbytes(st.a_t, st.em_t, st.tss_t, g1, g1),
                 st.a_t.numel() * (7 + 6 * len(bursts))),
-            'epoch_base_map_full': (
-                lambda: kn.epoch_base_map_full(st.a, st.ts_signed, t,
-                                               bursts, off),
-                lambda: kn.epoch_base_map_full_plain(st.a, st.ts_signed, t,
-                                                     bursts, off),
-                nbytes(st.a, st.ts_signed, g3),
-                st.a.numel() * (5 + 6 * len(bursts))),
-        }
+        }   # the full-grid kernel is timed by full_grid_numbers
         for name, (kfn, pfn, n_b, n_ops) in cont_work.items():
             p1, k1 = cuda_ms(pfn, batch=20), cuda_ms(kfn, batch=20)
             k2, p2 = cuda_ms(kfn, batch=20), cuda_ms(pfn, batch=20)
@@ -1243,7 +1421,9 @@ def main() -> int:
         # call at 16 and RRL_NCHAN channels; the cube kernel on the
         # flagship's factors at both, and on the jet-free grid (its main
         # path's case, the row of the summary line)
-        print_rrl_ptxas(kn.build_log())
+        print_ptxas(kn.build_log(), r'rrl_\w+?_kernel',
+                    {'rrl_tiles_kernel', 'rrl_activity_kernel',
+                     'rrl_cube_kernel'})
         k4_in16, _ = rrl_tile_inputs(jm, core16)
         maps4 = lambda *a: kn.rrl_tiles(*a, *walk)
         maps4_plain = lambda *a: kn.rrl_tiles_plain(*a, *walk)
@@ -1314,6 +1494,10 @@ def main() -> int:
         del parts_p
 
         rows += emergent_numbers(jm, scan_c)
+        full_rows, full_errs = full_grid_numbers(jm, empty, bursts)
+        rows += full_rows
+        for name, err in full_errs.items():
+            errs[name] = max(errs[name], err)
 
         print(f"  script time before the summary "
               f"{time.perf_counter() - t_script:.1f} s")

@@ -7,7 +7,9 @@ The per-epoch half of the free-free/EM products is the LOS sum
 
 with chi the burst factor (models.ejection.chi_field) evaluated per cell
 from a static list of bursts.  Three hand-written CUDA kernels for Hopper
-(``csrc/epoch_maps.cu``) compute it:
+(``csrc/epoch_maps.cu``) compute it, two over compacted tiles and one over
+the full grid (it streams base through a shared-memory ring and reads the
+launch times only where base != 0, see ``csrc/stream.cuh``):
 
 ==========================  ===================================  ========
 wrapper                     TPU kernel replaced                  route
@@ -43,7 +45,9 @@ The ordered emergent scan (see ``csrc/emergent_maps.cu``)
 
     I(x, z) = sum_y S e^{-tau_acc} (1 - e^{-dtau}),  tau_acc = dtau in front,
 
-has three more, walking each (x, z) column from the observer's end:
+has three more, walking each (x, z) column from the observer's end (the
+full-grid one streams its opacity base through the same ring, once for up
+to ``EMERGENT_GROUP_FULL`` channels, and reads temp only where base != 0):
 
 ==========================  ===================================  ========
 wrapper                     TPU kernel replaced                  route
@@ -55,8 +59,10 @@ wrapper                     TPU kernel replaced                  route
 
 Each wrapper takes CUDA tensors to its kernel and CPU tensors to the plain
 PyTorch version beside it (same formula, ``torch.sum`` over y; the ordered
-scans by an exclusive cumsum); any other device raises.  ``LAUNCHES``
-counts kernel launches per wrapper, under the TPU kernel's name.
+scans by an exclusive cumsum; the full-grid epoch version, like its
+kernel, gives a cell with base = 0 no part in the sum even where its launch
+time is not finite); any other device raises.  ``LAUNCHES`` counts kernel
+launches per wrapper, under the TPU kernel's name.
 
 The kernels are compiled at first use with ``nvcc`` (one process per
 ``csrc/*.cu`` source, all started together, each with the common
@@ -118,9 +124,16 @@ RRL_MAX_GROUP = 64
 # (1, y, z) extent of the full-grid RRL kernel's row blocks (ROW_Y, ROW_Z)
 RRL_ROW = (1, 64, 128)
 # channels per thread of the emergent kernels (CPT_FULL and CPT_TILES in
-# csrc/emergent_maps.cu)
-EMERGENT_CPT_FULL = 16
+# csrc/emergent_maps.cu); a block of the full-grid kernel takes up to
+# EMERGENT_GROUP_FULL channels (GROUP_FULL), one warp per CPT_FULL of them,
+# from one read of the opacity base
+EMERGENT_CPT_FULL = 4
+EMERGENT_GROUP_FULL = 64
 EMERGENT_CPT_TILES = 4
+# z columns of a strip of the full-grid kernels (STRIP_W in csrc/stream.cuh)
+# and strips per block of the epoch one (EPOCH_WARPS in csrc/epoch_maps.cu)
+STRIP_W = 32
+EPOCH_FULL_WARPS = 4
 _MAX_GRID_YZ = 65535
 _MAX_GRID_X = 2 ** 31 - 1
 _SQRT_PI = 1.7724538509055159
@@ -375,9 +388,12 @@ def epoch_base_maps2_tiles_plain(a_t, b_t, tss_t, seg, t, bursts, nx: int,
 
 def epoch_base_map_full_plain(a, ts_signed, t, bursts,
                               pack_offset: float = 1.0):
-    """Plain version of :func:`epoch_base_map_full`."""
+    """Plain version of :func:`epoch_base_map_full`.  As in the kernel, a
+    cell with a = 0 adds exactly 0 even where its launch time is not
+    finite."""
     chi = _chi_plain(ts_signed, t, bursts, pack_offset)
-    return torch.sum(a * chi * chi, dim=1)
+    return torch.sum(torch.where(a != 0, a * chi * chi, torch.zeros_like(a)),
+                     dim=1)
 
 
 def segment_tile_maps(parts: torch.Tensor, seg: torch.Tensor, nx: int,
@@ -844,7 +860,10 @@ def epoch_base_map_full(a, ts_signed, t: float, bursts: Sequence,
                         pack_offset: float = 1.0) -> torch.Tensor:
     """(nx, nz) map sum_y a * chi(t - ts)^2 over the FULL (nx, ny, nz) grid
     (counterpart of pallas_kernels.epoch_base_map_pallas): the model's
-    branch when the grid holds no jet cell, so no tile is active."""
+    branch when the grid holds no jet cell, so no tile is active.  The
+    kernel reads ``a`` whole and ``ts_signed`` only where a != 0 (a cell
+    with a = 0 adds exactly 0); it takes any grid shape and any contiguous
+    view, 16-byte aligned or not."""
     name = 'epoch_base_map_full'
     if _device_kind(a, name) == 'cpu':
         return epoch_base_map_full_plain(a, ts_signed, t, bursts,
@@ -854,8 +873,13 @@ def epoch_base_map_full(a, ts_signed, t: float, bursts: Sequence,
                          f"shape {tuple(a.shape)}")
     nx, ny, nz = a.shape
     _check_cuda(name, (a, ts_signed), (nx, ny, nz))
+    if nx * _tile_grid(nz, STRIP_W * EPOCH_FULL_WARPS) > _MAX_GRID_X:
+        raise ValueError(f"{name}: {nx} x {nz} columns exceed the launch "
+                         f"grid")
     b = _bursts_struct(bursts)
     out = torch.empty((nx, nz), dtype=torch.float32, device=a.device)
+    if out.numel() == 0:
+        return out
     with torch.cuda.device(a.device):
         err = _lib().epoch_full(a.data_ptr(), ts_signed.data_ptr(),
                                 out.data_ptr(), nx, ny, nz, float(t),
@@ -1060,7 +1084,8 @@ def transfer_scan_maps(source, dtau, observer_near_y0: bool = False):
 
 
 def _check_channels(name: str, consts, dev, cpt: int) -> int:
-    """(n_chan,) float32 channel constants on the fields' device."""
+    """(n_chan,) float32 channel constants on the fields' device; ``cpt``
+    channels go to one step of the launch grid's channel axis."""
     if consts[0].dim() != 1 or consts[0].device != dev:
         raise ValueError(f"{name}: channel constants must be 1-D on {dev}")
     n_chan = consts[0].shape[0]
@@ -1078,7 +1103,10 @@ def emergent_ff_full(cnu, hnuk, tau_scale, temp, dtau_base,
     pallas_kernels.emergent_ff_pallas): dtau = tau_scale[c] * dtau_base and
     S = cnu[c] / expm1(hnuk[c] / temp) per cell and channel, so no
     per-channel cube exists.  The model's branch when the grid holds no jet
-    cell, so no tile is active.
+    cell, so no tile is active.  The kernel reads ``dtau_base`` once per
+    ``EMERGENT_GROUP_FULL`` channels and ``temp`` only where dtau_base != 0;
+    it takes any grid shape and any contiguous view, 16-byte aligned or
+    not.
 
     Args:
       cnu:       (n_chan,) blackbody prefactor 2 h nu^3 / c^2 [cgs]
@@ -1097,9 +1125,10 @@ def emergent_ff_full(cnu, hnuk, tau_scale, temp, dtau_base,
     nx, ny, nz = temp.shape
     _check_cuda(name, (temp, dtau_base), (nx, ny, nz))
     n_chan = _check_channels(name, (cnu, hnuk, tau_scale), temp.device,
-                             EMERGENT_CPT_FULL)
-    if -(-nx // 2) > _MAX_GRID_YZ:      # two x rows per block
-        raise ValueError(f"{name}: nx = {nx} exceeds the launch grid")
+                             EMERGENT_GROUP_FULL)
+    if nx * _tile_grid(nz, STRIP_W) > _MAX_GRID_X:
+        raise ValueError(f"{name}: {nx} x {nz} columns exceed the launch "
+                         f"grid")
     out_i = torch.empty((n_chan, nx, nz), dtype=torch.float32,
                         device=temp.device)
     out_tau = torch.empty_like(out_i)

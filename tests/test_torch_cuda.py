@@ -185,6 +185,66 @@ def test_emergent_kernels_match_plain_versions(card):
         kn.emergent_tile_partials(*k6[:6], seg_start.long(), *k6[7:])
 
 
+def test_full_grid_kernels_on_ragged_grids_and_64_channels(card):
+    """The two kernels that stream base through the shared-memory ring
+    (epoch and emergent, full grid) against their plain versions: a grid
+    with nz % 4 != 0 (4-byte copies), a wholly jet cube, an all-zero cube
+    (exact zeros even where the launch times are not finite), a view off a
+    16-byte boundary, and 1, 17 and 64 channels."""
+    rng = np.random.default_rng(0)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=card)
+    bursts = ((0.5 * YEAR, 1.0 / (2.0 * (0.13 * YEAR) ** 2), 4.0, True),
+              (2.0 * YEAR, 1.0 / (2.0 * (0.42 * YEAR) ** 2), 9.0, False))
+    t = 2.0 * YEAR
+    kn.reset_launches()
+    n_cases = 0
+    for shape, frac, shift in (((10, 70, 130), 0.3, False),
+                               ((9, 150, 128), 1.0, False),
+                               ((6, 40, 64), 0.0, False),
+                               ((8, 64, 128), 0.3, True)):
+        inside = rng.random(shape) < frac
+        ts = rng.uniform(-0.05 * YEAR, 2.5 * YEAR, shape)
+        off = kn.pack_offset_for(ts.min())
+        tss = np.where(rng.random(shape) < 0.5, -(ts + off), ts + off)
+        if frac == 0.0:
+            tss[::2] = np.nan
+        cubes = [as_t(np.where(inside, 0.05 * (0.1 + rng.random(shape)), 0)),
+                 as_t(tss),
+                 as_t(np.where(inside, rng.uniform(5e3, 2e4, shape), 1.0))]
+        if shift:
+            bufs = [torch.empty(c.numel() + 1, device=card) for c in cubes]
+            for buf, c in zip(bufs, cubes):
+                buf[1:] = c.reshape(-1)
+            cubes = [buf[1:].view(shape) for buf in bufs]
+            assert cubes[0].data_ptr() % 16 != 0
+        base, tss, temp = cubes
+        got = kn.epoch_base_map_full(base, tss, t, bursts, off)
+        want = kn.epoch_base_map_full_plain(base, tss, t, bursts, off)
+        if frac == 0.0:
+            assert not got.any() and not want.any()
+        else:
+            assert _rel(got, want) < 1e-5
+        for n_chan in (1, 17, 64):
+            freqs = torch.as_tensor(np.geomspace(1e9, 3e11, n_chan),
+                                    device=card)
+            cnu = (2.0 * 6.62607015e-27 * freqs ** 3 / 2.99792458e10 ** 2) \
+                .to(torch.float32)
+            hnuk = (6.62607015e-27 * freqs / 1.380649e-16).to(torch.float32)
+            scale = as_t(np.geomspace(0.02, 5.0, n_chan))
+            for near in (False, True):
+                args = (cnu, hnuk, scale, temp, base, near)
+                for g, w in zip(kn.emergent_ff_full(*args),
+                                kn.emergent_ff_full_plain(*args)):
+                    if frac == 0.0:
+                        assert not g.any() and not w.any()
+                    else:
+                        assert _rel(g, w) < 1e-5
+                n_cases += 1
+    torch.cuda.synchronize()
+    assert kn.LAUNCHES['epoch_base_map_full'] == 4
+    assert kn.LAUNCHES['emergent_ff_pallas'] == n_cases == 24
+
+
 def test_f32_card_emergent_matches_f64_cpu(card):
     freqs = np.geomspace(3e8, 3e11, 4)
     for inc, pa in ((90.0, 0.0), (55.0, 30.0)):

@@ -103,6 +103,24 @@ def test_library_hash_covers_the_shared_headers(tmp_path):
         sorted(n for n in os.listdir(csrc) if n.endswith('.cu'))
 
 
+def test_library_hash_covers_the_stream_header(tmp_path):
+    """csrc/stream.cuh holds the ring that both full-grid kernels stream
+    their base cube through: both sources include it, the build reads it,
+    and a change to it alone names a new library."""
+    from rajepy_tpu_torch.ops import kernels
+    csrc = str(tmp_path / 'csrc')
+    shutil.copytree(kernels._CSRC, csrc)
+    header = os.path.join(csrc, 'stream.cuh')
+    assert header in kernels.build_inputs(csrc)
+    for name in ('epoch_maps.cu', 'emergent_maps.cu'):
+        with open(os.path.join(csrc, name)) as f:
+            assert '#include "stream.cuh"' in f.read()
+    before = kernels.library_path(csrc)
+    with open(header, 'a') as f:
+        f.write('\n// edited\n')
+    assert kernels.library_path(csrc) != before
+
+
 def test_library_hash_covers_each_sources_own_flags(monkeypatch):
     """Each source is compiled with its own flags (the RRL kernels alone
     contract multiply-adds), every source has an entry, and a change to
