@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's continuum, RRL and emergent main paths once
-on one NVIDIA GPU.
+"""Run the PyTorch/CUDA port's continuum, RRL, emergent and pipeline main
+paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -41,7 +41,21 @@ Phases (any failure exits non-zero; nothing is caught):
       continuum channels (the compacted tile kernel), the jet-free 512^3
       grid (the full-grid kernel), and the ordered-scan op
       ``transfer_scan_maps`` on one channel's 512^3 source and opacity
-      cubes, the channel chosen so that tau reaches 1 on the map.
+      cubes, the channel chosen so that tau reaches 1 on the map;
+   d. pipeline: ``Pipeline(jm, params).execute(simobserve=False,
+      plot=False)`` on the same 512^3 float32 model with the bundled
+      ``example-pipeline-params.py`` (``rrls.times`` set to [2.0]: the file
+      ships with no RRL epoch): six continuum runs (0-5 yr at 6 GHz) and
+      one H58a run of 1000 channels.  The dual-base epoch kernel must have
+      been launched once per run and the RRL tile kernel once; every run's
+      three FITS files under ``Day<d>/<freq|line>/`` must equal the direct
+      ``continuum_rt_products``/``rrl_rt_products`` call to 1e-6 of the
+      map's maximum (the same code, but the fold of the epoch kernel's
+      per-tile maps adds with atomics, whose order varies between calls); a
+      second ``execute`` must launch nothing and rewrite no file,
+      ``Pipeline.load_pipeline`` must give the same run table, and
+      ``clobber=True`` on one run must recompute it.  Prints every run's
+      device-compute, copy-out, FITS-write and checkpoint times.
    Outputs must be finite, non-zero where the jet is (all-zero on the
    jet-free grid), equal to the plain versions on the same card tensors
    (2e-4), and a small model at float32 must agree with the float64 plain
@@ -97,6 +111,7 @@ RRL_EPOCH_YR = 2.0
 KERNEL_RTOL = 1e-5
 MAP_RTOL = 2e-4
 RRL_F32_RTOL = 1e-3
+PIPELINE_RTOL = 1e-6      # a FITS product against the direct call
 # H100 SXM data sheet: HBM bandwidth and float32 (non-tensor) peak
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -146,6 +161,12 @@ CONTINUUM_KERNELS = ('epoch_base_map_tiles', 'epoch_base_maps2_tiles',
 RRL_KERNELS = ('rrl_tiles_pallas', 'rrl_cube_pallas')
 EMERGENT_KERNELS = ('emergent_ff_tiles', 'emergent_ff_pallas',
                     'transfer_scan_pallas')
+PIPELINE_KERNELS = ('epoch_base_maps2_tiles', 'rrl_tiles_pallas')
+# Pipeline.execute's stages, as utils.profiling records them
+STAGE_COMPUTE = 'rt stage: device compute'
+STAGE_COPY = 'rt stage: product transfer'
+STAGE_COPY_WRITE = 'rt stage: product transfer + FITS write'
+STAGE_CKPT = 'checkpoint write'
 
 
 def rel_err(got, want):
@@ -978,6 +999,190 @@ def run_emergent(jm, empty):
     return launches, dict(c=c, scan=scan, scan_args=scan_args)
 
 
+def run_pipeline(jm, log, tmp, smi):
+    """The pipeline main path, counted (phase 2d): the bundled campaign
+    through ``Pipeline.execute`` on the flagship model, its FITS products
+    against the direct calls, then resume, reload and clobber."""
+    import shutil
+    import torch
+    from rajepy_tpu_torch import Pipeline
+    from rajepy_tpu_torch.io import fits as fitsio
+    from rajepy_tpu_torch.ops import kernels as kn
+    from rajepy_tpu_torch.utils import profiling
+    from rajepy_tpu_torch.utils.misc import freq_str
+    params = Pipeline.py_to_dict(os.path.join(
+        HERE, 'rajepy_tpu_torch', 'data', 'example-pipeline-params.py'))
+    dcy = os.path.join(tmp, 'campaign')
+    params['dcys']['model_dcy'] = dcy
+    params['rrls']['times'] = np.array([RRL_EPOCH_YR])
+    pline = Pipeline(jm, params, log=log)
+    runs = pline.runs
+    kinds = [r.obs_type for r in runs]
+    n_rrl = kinds.count('rrl')
+    print(f"phase 2d: pipeline, {N_GRID}^3 float32, {len(runs)} runs: "
+          f"{kinds.count('continuum')} continuum ("
+          f"{len(runs[0].chan_freqs)} ch at {runs[0].freq:.1e} Hz, "
+          f"{runs[0].year:g}-{runs[kinds.count('continuum') - 1].year:g} "
+          f"yr), {n_rrl} {RRL_LINE} ({len(runs[-1].chan_freqs)} ch, "
+          f"{runs[-1].year:g} yr)")
+    if kinds != ['continuum'] * 6 + ['rrl'] or \
+            len(runs[-1].chan_freqs) != RRL_NCHAN:
+        raise AssertionError(f"unexpected run matrix: {kinds}")
+    quiet = dict(simobserve=False, verbose=False, plot=False)
+
+    # every stage the pipeline records, in order, beside the totals
+    events = []
+    record = profiling.record_stage
+
+    def recording(name, seconds):
+        events.append((name, seconds))
+        record(name, seconds)
+
+    profiling.record_stage = recording
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        profiling.collect_stage_times(True)
+        kn.reset_launches()
+        t_wall = time.perf_counter()
+        pline.execute(**quiet)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t_wall
+    finally:
+        profiling.record_stage = record
+    launches = read_launches('pipeline')
+    totals = profiling.stage_times()
+    profiling.collect_stage_times(False)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches['epoch_base_maps2_tiles'] != len(runs) or \
+            launches['rrl_tiles_pallas'] != n_rrl:
+        raise AssertionError(
+            f"Pipeline.execute must launch the dual-base epoch kernel once "
+            f"per run ({len(runs)}) and the RRL tile kernel once per RRL run "
+            f"({n_rrl}): {launches}")
+    if pline.model is not jm:
+        raise AssertionError("a first execute replaced the model")
+
+    # one line per run: the stages between two device-compute records
+    per_run = []
+    for name, seconds in events:
+        if name == STAGE_COMPUTE:
+            per_run.append({})
+        if per_run:
+            per_run[-1].setdefault(name, []).append(seconds)
+    if len(per_run) != len(runs):
+        raise AssertionError(f"{len(per_run)} runs recorded their stages")
+    for i, (run, st) in enumerate(zip(runs, per_run)):
+        copy_s = st[STAGE_COPY][0]
+        print(f"  run {i + 1} ({run.obs_type}, {run.year:g} yr, "
+              f"{len(run.chan_freqs)} ch): device compute "
+              f"{st[STAGE_COMPUTE][0] * 1e3:.4f} ms, copy-out "
+              f"{copy_s * 1e3:.4f} ms, FITS writes and flux sums "
+              f"{(st[STAGE_COPY_WRITE][0] - copy_s) * 1e3:.4f} ms, "
+              f"checkpoint {st[STAGE_CKPT][0] * 1e3:.4f} ms [{smi}]")
+    final_ckpt = per_run[-1][STAGE_CKPT][1]
+    print(f"  execute {wall_s:.4f} s in all; stage totals (stage_times): "
+          f"device compute {totals[STAGE_COMPUTE]:.4f} s, copy-out "
+          f"{totals[STAGE_COPY]:.4f} s, copy-out with FITS writes "
+          f"{totals[STAGE_COPY_WRITE]:.4f} s, checkpoints "
+          f"{totals[STAGE_CKPT]:.4f} s (the closing one "
+          f"{final_ckpt:.4f} s); peak device memory {peak_gb:.3f} GB "
+          f"[{smi}]")
+
+    # names, flags and results; then every product against the direct call
+    n_bytes, worst = 0, 0.0
+    for run in runs:
+        what = freq_str(run.freq) if run.obs_type == 'continuum' \
+            else run.line
+        day = f'Day{int(run.year * 365.0)}'
+        for prefix, path in (('EM', run.fits_em), ('Tau', run.fits_tau),
+                             ('Flux', run.fits_flux)):
+            want = os.path.join(dcy, day, what, f'{prefix}_{day}_{what}.fits')
+            if path != want or not os.path.isfile(path):
+                raise AssertionError(f"{path} is not the product {want}")
+            n_bytes += os.path.getsize(path)
+        # the bundled runs are configured for synthetic observations too,
+        # so an execute without them leaves them open for a later resume
+        if run.completed != (not run.simobserve):
+            raise AssertionError(f"run.completed = {run.completed} with "
+                                 f"run.simobserve = {run.simobserve}")
+        flux = np.asarray(run.results['flux'])
+        if flux.shape != (() if run.obs_type == 'continuum' else
+                          (RRL_NCHAN,)) or \
+                not (np.all(np.isfinite(flux)) and np.all(flux > 0)):
+            raise AssertionError(f"results['flux'] of {day}/{what}: {flux}")
+        jm.time = run.year * YEAR
+        if run.obs_type == 'continuum':
+            direct = jm.continuum_rt_products(run.chan_freqs)
+        else:
+            direct = jm.rrl_rt_products(run.line, run.chan_freqs,
+                                        contsub=False)
+        finite_nonzero(direct, f"direct call for {day}/{what}")
+        for path, arr in zip((run.fits_em, run.fits_tau, run.fits_flux),
+                             direct):
+            data, hdr = fitsio.read_fits(path)
+            want = np.swapaxes(arr, -1, -2)
+            if hdr['BITPIX'] != -32 or data.shape != want.shape:
+                raise AssertionError(f"{path}: BITPIX {hdr['BITPIX']}, "
+                                     f"shape {data.shape}")
+            data -= want
+            err = float(np.abs(data).max() / np.abs(want).max())
+            worst = max(worst, err)
+            if not err <= PIPELINE_RTOL:
+                raise AssertionError(f"{path} differs from the direct call: "
+                                     f"rel err {err:.3e} > {PIPELINE_RTOL:g}")
+            del data, want
+        del direct
+    print(f"  {3 * len(runs)} FITS products ({n_bytes} bytes) under "
+          f"Day<d>/<freq|line>/ against the direct calls: max rel err "
+          f"{worst:.3e} (tolerance {PIPELINE_RTOL:g}); "
+          f"results['flux'] finite and positive; completed = "
+          f"{[r.completed for r in runs]} (runs configured for synthetic "
+          f"observations stay open without them)")
+
+    # resume: nothing launched, nothing rewritten; the saved state reloads
+    def stamps():
+        return {p: os.stat(p).st_mtime_ns for r in runs
+                for p in (r.fits_em, r.fits_tau, r.fits_flux)}
+
+    before = stamps()
+    table = str(pline)
+    kn.reset_launches()
+    t0 = time.perf_counter()
+    pline.execute(**quiet)
+    resume_s = time.perf_counter() - t0
+    if any(kn.LAUNCHES.values()) or stamps() != before:
+        raise AssertionError(f"the second execute launched kernels or "
+                             f"rewrote products: {dict(kn.LAUNCHES)}")
+    if pline.model is jm or pline.model.device != jm.device or \
+            pline.model.dtype != jm.dtype:
+        raise AssertionError("resume did not reload the model on its "
+                             "device at its precision")
+    loaded = Pipeline.load_pipeline(pline.save_file)
+    if str(loaded) != table or len(loaded.runs) != len(runs):
+        raise AssertionError("load_pipeline gave another run table")
+    del pline
+    # clobber on one run: recomputed and rewritten, the others untouched
+    loaded.runs = loaded.runs[:1]
+    kn.reset_launches()
+    loaded.execute(resume=False, clobber=True, **quiet)
+    after = stamps()
+    first = (runs[0].fits_em, runs[0].fits_tau, runs[0].fits_flux)
+    if kn.LAUNCHES['epoch_base_maps2_tiles'] != 1 or \
+            not all(after[p] > before[p] for p in first) or \
+            any(after[p] != before[p] for p in before if p not in first):
+        raise AssertionError("clobber=True on one run must recompute and "
+                             "rewrite that run alone")
+    print(f"  second execute {resume_s:.4f} s: no launch, no product "
+          f"rewritten (model reloaded from jetmodel.save on "
+          f"{loaded.model.device}); load_pipeline gives the same run "
+          f"table; clobber=True on run 1 recomputed it alone [{smi}]")
+    del loaded
+    shutil.rmtree(dcy)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def check_emergent(jm, em):
     """Phase 2c's comparisons on the card: the main path against the plain
     versions, each kernel against its plain version at the main path's
@@ -1214,11 +1419,18 @@ def main() -> int:
         # ---------------- phase 2: the main paths, counted -------------- #
         empty = JetModel(example_params((N_GRID,) * 3, csize=1e-3),
                          log=log, dtype='auto', device='cuda')
-        launches, cont = run_continuum(jm, empty, tmp)
+        cont_launches, cont = run_continuum(jm, empty, tmp)
+        launches = dict(cont_launches)
         rrl_launches, rrl = run_rrl(jm, empty, tmp)
         launches.update({k: rrl_launches[k] for k in RRL_KERNELS})
         em_launches, em = run_emergent(jm, empty)
         launches.update({k: em_launches[k] for k in EMERGENT_KERNELS})
+        by_path = {'continuum': cont_launches, 'rrl': rrl_launches,
+                   'emergent': em_launches,
+                   'pipeline': run_pipeline(jm, log, tmp, smi)}
+        # the pipeline is what a user runs: its counts stand for the two
+        # kernels it launches
+        launches.update({k: by_path['pipeline'][k] for k in PIPELINE_KERNELS})
         band, core16 = rrl['band'], rrl['core16']
 
         # continuum: the same card tensors through the plain versions
@@ -1508,6 +1720,8 @@ def main() -> int:
             source, replaces = KERNELS[name]
             out.append({'name': name, 'route': 'cuda', 'source': source,
                         'replaces': replaces, 'launches': launches[name],
+                        'launches_by_path': {p: c[name]
+                                             for p, c in by_path.items()},
                         'max_abs_err': abs_err, 'max_rel_err': rel,
                         'ms': k_ms, 'plain_ms': p_ms, 'bound_ms': b_ms,
                         'bound_by': b_by, 'library_ms': None})

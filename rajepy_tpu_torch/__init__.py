@@ -3,24 +3,39 @@ through ionised jets from young stellar objects, run on an NVIDIA GPU.
 
 The package mirrors rajepy_tpu's module paths and names.  It imports
 ``torch`` and never ``jax`` or ``rajepy_tpu``, so it runs where JAX is not
-installed.  Ported so far: the continuum radiative-transfer main path
-(``JetModel`` construction, the grid fill, the per-epoch burst maps through
-hand-written CUDA kernels, the free-free tau/intensity/flux and EM maps,
-FITS products and checkpoints).
+installed.  Ported so far: ``JetModel`` (construction, the grid fill, the
+free-free continuum products, the radio-recombination-line products in LTE
+and non-LTE, the ordered emergent intensity, FITS products and
+checkpoints), the run descriptors, and ``Pipeline`` with
+``execute(simobserve=False, plot=False)``: the run matrix, per-run FITS
+products under ``Day<d>/<freq|line>/``, resume, clobber and dryrun.  Every
+Pallas kernel of rajepy_tpu has a hand-written CUDA counterpart under
+``csrc/``.  Not ported yet: synthetic observations, plotting, fitting, the
+multi-device fan-out and the CLI.
 
 Package layout
 --------------
-- ``ops``     tensor code: geometry, Reynolds physics, Gauss 2F1, van Hoof
-              gaunt factors, continuum RT, the epoch kernels (``csrc/``)
-- ``models``  grid construction, field evaluation, ejection bursts,
-              the ``JetModel`` API
-- ``io``      FITS writer/reader
-- ``utils``   logging, validation, profiling, misc helpers
+- ``ops``       tensor code: geometry, Reynolds physics, Gauss 2F1, van
+                Hoof gaunt factors, Faddeeva/Voigt, RRL line physics,
+                departure coefficients, radiative-transfer reductions and
+                scans, and the kernels' wrappers beside their plain
+                versions (``ops/kernels.py``)
+- ``csrc``      the CUDA kernels: epoch maps, RRL maps, emergent maps
+- ``models``    grid construction, field evaluation, ejection bursts,
+                the ``JetModel`` API, run descriptors
+- ``pipeline``  the multi-epoch, multi-frequency orchestrator
+- ``io``        FITS writer/reader, npz/JSON checkpoints
+- ``utils``     logging, validation, profiling, misc helpers
 """
 from . import constants as cnsts
+from . import _config as cfg
 from .utils.logger import Log
+from .utils import logger
 from .models.jetmodel import JetModel
+from .models.runs import ContinuumRun, Pointing, RRLRun
+from .pipeline import Pipeline
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
-__all__ = ["JetModel", "Log", "cnsts", "__version__"]
+__all__ = ["JetModel", "Pipeline", "ContinuumRun", "RRLRun", "Pointing",
+           "Log", "logger", "cnsts", "cfg", "__version__"]

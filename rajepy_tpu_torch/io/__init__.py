@@ -1,2 +1,2 @@
-"""I/O: FITS images."""
+"""I/O: FITS images and checkpoints."""
 from . import fits  # noqa: F401

@@ -30,6 +30,24 @@ class EjectionSpec(NamedTuple):
         # classes.py:446: sigma = half_life * 2 / (2 sqrt(2 ln 2))
         return self.half_life * 2.0 / (2.0 * np.sqrt(2.0 * np.log(2.0)))
 
+    def jml(self, t):
+        """Mass-loss rate [kg/s] at time(s) ``t`` [s] (classes.py:442-448):
+        a tensor for a tensor, else a float64 numpy array."""
+        if isinstance(t, torch.Tensor):
+            xp = torch
+        else:
+            t, xp = np.asarray(t, dtype=np.float64), np
+        exp = xp.exp
+        out = xp.zeros_like(t) + self.ss_jml
+        for t0, peak, sig in zip(self.t_0, self.peak_jml, self.sigma):
+            out = out + (peak - self.ss_jml) * exp(-(t - t0) ** 2 /
+                                                   (2.0 * sig ** 2))
+        return out
+
+    def chi(self, t):
+        """Burst factor jml(t)/jml_ss (classes.py:861-870)."""
+        return self.jml(t) / self.ss_jml
+
 
 def build_ejection_specs(params: Dict, ss_jml_bj: float,
                          ss_jml_rj: float) -> Tuple[EjectionSpec,

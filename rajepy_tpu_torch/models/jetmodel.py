@@ -37,6 +37,7 @@ The diagnostic and velocity members of the JAX model are not ported yet.
 """
 from __future__ import annotations
 
+import hashlib
 import os
 import pickle
 import runpy
@@ -229,15 +230,22 @@ class JetModel:
 
         self._time = 0.0
         self._fields: Optional[StaticFields] = None
+        self._host_ff_cache = None  # (areas, ffs) host copies for save()
+        self._reset_derived_caches()
+        self._ts_pack_offset = 1.0  # finalised by _rt_static (ts can go
+        #                             negative off-axis)
+        self._has_bursts = (len(spec_r.t_0) + len(spec_b.t_0)) > 0
+
+    def _reset_derived_caches(self):
+        """Drop everything derived from the fields or the burst set: the
+        RT statics and their tile compactions, and the memoised
+        characteristic conditions and departure coefficients."""
         self._rt_static_cache: Optional[RTStatic] = None
         self._tile_ids_cache = None
         self._rrl_tiles_cache = None
         self._emergent_tiles_cache = None
         self._char_cond_cache: Dict[float, tuple] = {}
         self._departure_cache: Dict[tuple, tuple] = {}
-        self._ts_pack_offset = 1.0  # finalised by _rt_static (ts can go
-        #                             negative off-axis)
-        self._has_bursts = (len(spec_r.t_0) + len(spec_b.t_0)) > 0
 
     # ------------------------------------------------------------------ #
     # Core field computation (lazy, cached on the model's device)
@@ -293,16 +301,18 @@ class JetModel:
 
         self._fields = fields._replace(ff=load(ffs), area=load(areas),
                                        inside=inside)
-        self._rt_static_cache = None  # derived from ff/area: recompute
-        self._tile_ids_cache = None
-        self._rrl_tiles_cache = None
-        self._emergent_tiles_cache = None
-        self._char_cond_cache = {}
-        self._departure_cache = {}
+        self._host_ff_cache = None
+        self._reset_derived_caches()  # derived from ff/area: recompute
 
     # ------------------------------------------------------------------ #
     # Simple properties (classes.py:363-381, 1654-1702)
     # ------------------------------------------------------------------ #
+    @property
+    def los_axis(self) -> int:
+        """Axis of the (nx, ny, nz) cubes that runs along the line of
+        sight."""
+        return rt.LOS_AXIS
+
     @property
     def time(self) -> float:
         """Model time in seconds."""
@@ -355,6 +365,58 @@ class JetModel:
     @property
     def ejections(self) -> Dict:
         return self._ejections
+
+    def ss_jml(self, which: str) -> float:
+        """Steady-state jet mass-loss rate [kg/s] (classes.py:1694-1702)."""
+        if which == 'R':
+            return self._ss_jml_rj
+        if which == 'B':
+            return self._ss_jml_bj
+        if 'R' in which and 'B' in which:
+            return self._ss_jml_rj + self._ss_jml_bj
+        raise ValueError("which must be one of 'R', 'B', or 'RB'")
+
+    def jml_t(self, which: str):
+        """Time-dependent mass-loss rate callable [kg/s]
+        (classes.py:383-397)."""
+        def func(t):
+            jml = 0.0
+            if 'R' in which:
+                jml = jml + self._spec_r.jml(t)
+            if 'B' in which:
+                jml = jml + self._spec_b.jml(t)
+            return jml
+        return func
+
+    def add_ejection_event(self, t_0: float, peak_jml: float,
+                           half_life: float, which: str):
+        """Register a Gaussian ejection burst (classes.py:399-463).
+        Args in SI seconds / kg/s, as the reference."""
+        assert which in ('R', 'B')
+        spec = self._spec_r if which == 'R' else self._spec_b
+        new = ej.EjectionSpec(
+            ss_jml=spec.ss_jml,
+            t_0=np.append(spec.t_0, t_0),
+            peak_jml=np.append(spec.peak_jml, peak_jml),
+            half_life=np.append(spec.half_life, half_life))
+        if which == 'R':
+            self._spec_r = new
+        else:
+            self._spec_b = new
+        self._ejections[str(len(self._ejections) + 1)] = {
+            't_0': t_0, 'peak_jml': peak_jml, 'half_life': half_life,
+            'which': which}
+        was_burst_free = not self._has_bursts
+        self._has_bursts = True
+        # The statics hold tiles only on the burst path, and the memoised
+        # EM-weighted conditions saw the old burst set's n_e.  A model built
+        # burst-free filled its fields with with_time=False (ts = zeros:
+        # every cell would burst at once), so those are made again with
+        # travel times; the fill factors do not change.
+        self._reset_derived_caches()
+        if was_burst_free:
+            self._fields = None
+            self._host_ff_cache = None
 
     def _nan_view(self, arr, mask) -> np.ndarray:
         nan = torch.full((), float('nan'), dtype=arr.dtype,
@@ -1147,15 +1209,62 @@ class JetModel:
     # ------------------------------------------------------------------ #
     # Persistence (classes.py:1704-1713)
     # ------------------------------------------------------------------ #
+    def _save_signature(self, with_fields: bool) -> str:
+        """Fingerprint of everything :meth:`save` would write: the params
+        tree (array bytes included — repr truncates), model time, and
+        whether the fill-factor/area caches are part of the payload."""
+        h = hashlib.blake2b(digest_size=16)
+
+        def feed(obj):
+            if isinstance(obj, dict):
+                for k in sorted(obj, key=str):
+                    h.update(repr(k).encode())
+                    feed(obj[k])
+            elif isinstance(obj, (list, tuple)):
+                h.update(b'[')
+                for v in obj:
+                    feed(v)
+            elif isinstance(obj, np.ndarray):
+                h.update(repr((obj.shape, str(obj.dtype))).encode())
+                h.update(np.ascontiguousarray(obj).tobytes())
+            else:
+                h.update(repr(obj).encode())
+
+        feed(self._params)
+        h.update(repr((float(self.time), bool(with_fields),
+                       str(self._dtype))).encode())
+        return h.hexdigest()
+
     def save(self, filename: str):
         """Pickle params + fill-factor/area caches + model time
         (classes.py:1704-1713), in the JAX package's layout
         ``{params, areas, ffs, time, log: None}`` so either package loads
-        the other's checkpoints.  Written atomically."""
-        if self._fields is not None:
-            areas, ffs = self.areas, self.fill_factor
-        else:
-            areas = ffs = None
+        the other's checkpoints.  Written atomically.
+
+        The fill-factor/area host copies do not change once the fields
+        exist and are kept after the first pull.  An up-to-date checkpoint
+        (same content signature, recorded in a ``<filename>.sig`` sidecar
+        beside the pickle's byte size) is left untouched: a pipeline saves
+        after every run, and the two cubes are seconds of disk at 512^3."""
+        f = self._fields
+        sig = self._save_signature(with_fields=f is not None)
+        sig_file = filename + '.sig'
+        if os.path.exists(filename) and os.path.exists(sig_file):
+            try:
+                with open(sig_file, 'rt') as fh:
+                    old_sig, old_size = fh.read().split()
+                unchanged = (old_sig == sig and
+                             int(old_size) == os.path.getsize(filename))
+            except (ValueError, OSError):
+                unchanged = False
+            if unchanged:
+                self.log.add_entry(
+                    "INFO", f"Model checkpoint {filename} is up to date, "
+                            "not rewriting")
+                return
+        if f is not None and self._host_ff_cache is None:
+            self._host_ff_cache = (self.areas, self.fill_factor)
+        areas, ffs = self._host_ff_cache if f is not None else (None, None)
         ps = {'params': self._params,
               'areas': areas,
               'ffs': ffs,
@@ -1164,6 +1273,8 @@ class JetModel:
         self.log.add_entry("INFO", f"Saving physical model to {filename}")
         with miscf.atomic_write(filename) as fh:
             pickle.dump(ps, fh)
+        with miscf.atomic_write(sig_file, mode='wt') as fh:
+            fh.write(f"{sig} {os.path.getsize(filename)}")
 
     # ------------------------------------------------------------------ #
     def __str__(self) -> str:

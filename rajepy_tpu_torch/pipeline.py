@@ -1,0 +1,533 @@
+"""Pipeline — the multi-epoch, multi-frequency orchestrator (PyTorch port of
+rajepy_tpu.pipeline).
+
+API-compatible rebuild of the reference's ``Pipeline``
+(classes.py:1970-2868): builds the run matrix (epochs x frequencies for the
+continuum, epochs x lines for RRLs) and executes radiative transfer per run
+with resume/clobber semantics and the reference's directory layout
+(``<model_dcy>/Day<day>/<freq|line>/``).  State is checkpointed with pickle
+exactly like the reference (save/load at classes.py:2215-2258, 1976-2017)
+so pipelines resume across processes; the files interchange with the JAX
+package's.
+
+Not ported yet, and refused before any work is done: the synthetic
+observations (``execute(simobserve=True)``), the diagnostic figures
+(``plot=True``, ``radio_plot``) and the multi-device fan-out
+(``device_fanout=True``).
+
+The products of a run leave the device in one copy: on a CUDA model the
+three tensors go into pinned host buffers that the pipeline keeps from run
+to run, and the FITS writers take numpy views of them.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import time as _time
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from . import constants as cnsts
+from .io.fits import read_fits
+from .models.jetmodel import JetModel
+from .models.runs import ContinuumRun, RRLRun, _HDR, _UNITS, _fmt_row, \
+    _tabulate
+from .utils import misc as miscf
+from .utils import profiling
+from .utils.logger import Log
+from .utils.validation import check_pline_params
+
+
+def _relativise_home(path: str, home: str) -> str:
+    """home -> '~' only as a path PREFIX: a bare str.replace corrupts
+    paths that merely contain the home string as a substring
+    ('/home/annex/...' with home '/home/ann')."""
+    if path == home or path.startswith(home + os.sep):
+        return '~' + path[len(home):]
+    return path
+
+
+def _expand_home(path: str, home: str) -> str:
+    """'~' -> home only as a path PREFIX (inverse of _relativise_home);
+    a literal '~' elsewhere in a path must survive a save/load round
+    trip untouched."""
+    if path == '~' or path.startswith('~' + os.sep):
+        return home + path[1:]
+    return path
+
+
+_PORT = __name__.split('.')[0]
+_JAX_PACKAGE_PREFIX = 'rajepy_tpu.'
+_SAFE_BUILTINS = frozenset((
+    'bool', 'bytearray', 'bytes', 'complex', 'dict', 'float', 'frozenset',
+    'int', 'list', 'object', 'range', 'set', 'slice', 'str', 'tuple'))
+
+
+class _PipelineUnpickler(pickle.Unpickler):
+    """Reads a ``pipeline.save`` of either package.  The pickle names the
+    run classes by module: a file written by the JAX package says
+    ``rajepy_tpu.models.runs.ContinuumRun``, and importing that would pull
+    in JAX.  Its module paths are mapped onto this package's; beyond that
+    only numpy and a few builtin types are resolved."""
+
+    def find_class(self, module: str, name: str):
+        if module.startswith(_JAX_PACKAGE_PREFIX):
+            module = _PORT + '.' + module[len(_JAX_PACKAGE_PREFIX):]
+        top = module.split('.')[0]
+        if top in (_PORT, 'numpy') or \
+                (module == 'builtins' and name in _SAFE_BUILTINS):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"pipeline state names {module}.{name}, which is neither a "
+            f"{_PORT} class, numpy nor a plain builtin type")
+
+
+class Pipeline:
+    """Creation of a physical jet model and FITS sky models
+    (classes.py:1970-2868)."""
+
+    @classmethod
+    def load_pipeline(cls, load_file: str, dtype='auto',
+                      device='cuda') -> "Pipeline":
+        """Resume from a previously saved state (classes.py:1976-2017),
+        written by this package or by the JAX package; the model is
+        rebuilt on ``device`` at ``dtype`` (defaults as ``JetModel``'s)."""
+        home = os.path.expanduser('~')
+        load_file = os.path.expanduser(load_file)
+        with open(load_file, 'rb') as f:
+            loaded = _PipelineUnpickler(f).load()
+
+        for run in loaded['runs']:
+            run.dcy = _expand_home(run.dcy, home)
+        loaded['model_file'] = _expand_home(loaded['model_file'], home)
+        full_dcy = _expand_home(loaded['params']['dcys']['model_dcy'],
+                                home)
+        loaded['params']['dcys']['model_dcy'] = full_dcy
+
+        jm = JetModel.load_model(loaded['model_file'], dtype=dtype,
+                                 device=device)
+        log = loaded.get('log')
+        if log is None:
+            dcy = os.path.dirname(loaded['model_file'])
+            log = Log(os.sep.join(
+                [dcy, os.path.basename(load_file).split('.')[0] + '.log']))
+        new_pipeline = cls(jm, loaded['params'], log=log)
+        new_pipeline.runs = loaded['runs']
+        return new_pipeline
+
+    @staticmethod
+    def py_to_dict(py_file: str) -> Dict:
+        """Import an executable-python pipeline params file and validate
+        (classes.py:2019-2048)."""
+        if not os.path.exists(py_file):
+            raise FileNotFoundError(py_file + " does not exist")
+        # execute by PATH, not by module import: __import__ caches on
+        # the bare filename, so two different 'pipeline-params.py'
+        # files loaded in one process would silently alias the first
+        import runpy
+        params = runpy.run_path(os.path.abspath(py_file))['params']
+        err = check_pline_params(params)
+        if err:
+            raise err
+        return params
+
+    def __init__(self, jetmodel: JetModel, params: Union[dict, str],
+                 log: Optional[Log] = None):
+        if isinstance(jetmodel, JetModel):
+            self.model = jetmodel
+        else:
+            raise TypeError("Supplied arg jetmodel must be JetModel instance"
+                            " not {}".format(type(jetmodel)))
+
+        if isinstance(params, dict):
+            err = check_pline_params(params)
+            if err:
+                raise err
+            self._params = params
+        elif isinstance(params, str):
+            self._params = Pipeline.py_to_dict(params)
+        else:
+            raise TypeError("Supplied arg params must be dict or full path "
+                            "(str)")
+
+        self.dcy = self.params['dcys']['model_dcy'].rstrip(os.sep)
+        self.model_file = self.dcy + os.sep + "jetmodel.save"
+        self.save_file = self.dcy + os.sep + "pipeline.save"
+        self.ptgfile = self.dcy + os.sep + 'pointings.ptg'
+        # pinned host buffers of the last run's products, by product name
+        self._host_buffers: Dict[str, torch.Tensor] = {}
+
+        log_name = "Pipeline_{}.log".format(
+            _time.strftime("%Y%m%d%H-%M-%S", _time.localtime()))
+        if not os.path.exists(self.dcy):
+            os.makedirs(self.dcy)
+        self._log = log if log is not None else Log(
+            fname=os.sep.join([self.dcy, log_name]))
+        self.log.add_entry("INFO",
+                           f"Pipeline directory is {self.dcy}")
+
+        if self.model.log is None:
+            self.model.log = self.log
+        elif self.model.log is not self.log:
+            new_log = Log.combine_logs(self.log, self.model.log,
+                                       self.log.filename,
+                                       delete_old_logs=True)
+            self.log = self.model.log = new_log
+
+        # Sort runs into time order (classes.py:2116-2125)
+        for band in ('continuum', 'rrls'):
+            if self.params[band]['times'] is not None:
+                self.params[band]['times'] = np.sort(
+                    np.asarray(self.params[band]['times']))
+            else:
+                self.params[band]['times'] = np.array([])
+
+        # Run matrix (classes.py:2127-2178)
+        runs = []
+        cp = self.params['continuum']
+        self.log.add_entry("INFO", "Reading continuum runs into pipeline")
+        made_any = False
+        for t in cp['times']:
+            for idx2, freq in enumerate(np.atleast_1d(
+                    np.asarray(cp['freqs'] if cp['freqs'] is not None
+                               else []))):
+                def pick(arr):
+                    return (arr[idx2] if miscf.is_iter(arr) else arr)
+                runs.append(ContinuumRun(
+                    self.dcy, t, freq, pick(cp['bws']), pick(cp['chanws']),
+                    pick(cp['t_obs']), pick(cp['t_ints']),
+                    pick(cp['tscps'])))
+                made_any = True
+        if not made_any:
+            self.log.add_entry("WARNING", "No continuum runs found")
+
+        rp = self.params['rrls']
+        self.log.add_entry(
+            "INFO", "Reading radio recombination line runs into pipeline")
+        made_any = False
+        for t in rp['times']:
+            for idx2, line in enumerate(np.atleast_1d(
+                    np.asarray(rp['lines'] if rp['lines'] is not None
+                               else []))):
+                def pick(arr):
+                    return (arr[idx2] if miscf.is_iter(arr) else arr)
+                lte_arr = rp.get('lte')
+                runs.append(RRLRun(
+                    self.dcy, t, str(line), pick(rp['bws']),
+                    pick(rp['chanws']), pick(rp['t_obs']),
+                    pick(rp['t_ints']), pick(rp['tscps']),
+                    lte=(bool(pick(lte_arr)) if lte_arr is not None
+                         else True)))
+                made_any = True
+        if not made_any:
+            self.log.add_entry("WARNING", "No RRL runs found")
+
+        self._runs = runs
+        self.log.add_entry("INFO", self.__str__())
+
+    # ------------------------------------------------------------------ #
+    def __str__(self):
+        rows = []
+        for run in self.runs:
+            rows.append(_fmt_row([
+                run.year, run.obs_type.capitalize(), run.tscop, run.t_obs,
+                run.t_int,
+                None if run.obs_type == 'continuum' else run.line,
+                run.freq, run.bandwidth, run.chanwidth,
+                run.radiative_transfer, run.simobserve, run.completed]))
+        return _tabulate(rows, _HDR, _UNITS)
+
+    # ------------------------------------------------------------------ #
+    def save(self, save_file: str, absolute_directories: bool = False):
+        """Pickle runs/params/model-file with ~-relativised paths
+        (classes.py:2215-2258).
+
+        Unlike the reference, the live object's paths are RESTORED after
+        the dump: classes.py mutates ``run.dcy`` / ``params`` in place,
+        so any further in-process use after ``execute()`` (which saves)
+        saw literal '~'-prefixed paths — recomputing completed products
+        and mkdir-ing a directory named '~'.
+        """
+        home = os.path.expanduser('~')
+        rs = self.runs
+        ps = self._params
+        mf = self.model_file
+        saved = None
+        if not absolute_directories:
+            saved = ([run.dcy for run in rs], ps['dcys']['model_dcy'])
+            for run in rs:
+                run.dcy = _relativise_home(run.dcy, home)
+            ps['dcys']['model_dcy'] = _relativise_home(
+                ps['dcys']['model_dcy'], home)
+            mf = _relativise_home(mf, home)
+        p = {"runs": rs, "params": ps, "model_file": mf, 'log': None}
+        self.log.add_entry("INFO", "Saving pipeline to " + save_file)
+        try:
+            with miscf.atomic_write(save_file) as f:
+                pickle.dump(p, f)
+        finally:
+            if saved is not None:
+                for run, dcy in zip(rs, saved[0]):
+                    run.dcy = dcy
+                ps['dcys']['model_dcy'] = saved[1]
+
+    # ------------------------------------------------------------------ #
+    @property
+    def params(self):
+        return self._params
+
+    @property
+    def dcy(self):
+        return self._dcy
+
+    @dcy.setter
+    def dcy(self, path):
+        self._dcy = path
+
+    @property
+    def model(self):
+        return self._model
+
+    @model.setter
+    def model(self, new_model):
+        self._model = new_model
+
+    @property
+    def runs(self):
+        return self._runs
+
+    @runs.setter
+    def runs(self, new_runs):
+        self._runs = new_runs
+
+    @property
+    def log(self):
+        return self._log
+
+    @log.setter
+    def log(self, new_log):
+        self._log = new_log
+
+    # ------------------------------------------------------------------ #
+    def _prefan_rt_products(self, resume: bool, clobber: bool,
+                            dryrun: bool, device_fanout) -> Dict[int, Dict]:
+        """RT products of pending runs computed ahead of the per-run loop
+        by a multi-device fan-out, as {run_idx: {'em', 'tau', 'flux'}}.
+        The fan-out is not ported: asking for it raises, and without it
+        every run computes its products inside the loop."""
+        if device_fanout:
+            raise NotImplementedError(
+                "device_fanout: the multi-device fan-out (parallel.fanout) "
+                "is not ported yet; runs execute one after another")
+        return {}
+
+    def _products_to_host(self, products: Dict[str, torch.Tensor]
+                          ) -> Dict[str, np.ndarray]:
+        """One copy-out of a run's products, as numpy arrays.
+
+        CUDA tensors are copied asynchronously into pinned host buffers,
+        followed by one synchronisation; the buffers are kept and reused
+        while a product's shape and dtype stay the same, so the returned
+        arrays are views that the NEXT call overwrites: a run's products
+        must be consumed before the next run's copy.  CPU tensors are
+        viewed in place."""
+        device = products['flux'].device    # the model's: one for all
+        if device.type != 'cuda':
+            return {k: t.numpy() for k, t in products.items()}
+        for name, t in products.items():
+            buf = self._host_buffers.get(name)
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                self._host_buffers[name] = buf
+            buf.copy_(t, non_blocking=True)
+        torch.cuda.synchronize(device)
+        return {name: self._host_buffers[name].numpy() for name in products}
+
+    def execute(self, simobserve=True, verbose=True, dryrun=False,
+                resume=True, clobber=False, plot=True, device_fanout=None):
+        """Execute all runs: radiative transfer and FITS products
+        (classes.py:2296-2868).
+
+        The signature is the JAX package's.  The synthetic observations
+        and the diagnostic figures are not ported yet, so ``simobserve``
+        and ``plot`` must be passed as False, and ``device_fanout`` as
+        None or False: anything else raises ``NotImplementedError`` before
+        any work is done."""
+        if simobserve:
+            raise NotImplementedError(
+                "execute(simobserve=True): synthobs is not ported yet; "
+                "pass simobserve=False for the radiative-transfer products")
+        if plot:
+            raise NotImplementedError(
+                "execute(plot=True): plotting is not ported yet; pass "
+                "plot=False")
+        fanned = self._prefan_rt_products(resume, clobber, dryrun,
+                                          device_fanout)
+
+        self.log.add_entry("INFO", "Beginning pipeline execution")
+        if verbose != self.log.verbose:
+            self.log.verbose = verbose
+
+        if resume and os.path.exists(self.model_file):
+            # on the device and at the precision of the model it replaces
+            self.model = JetModel.load_model(self.model_file,
+                                             dtype=self.model.dtype,
+                                             device=self.model.device)
+
+        for idx, run in enumerate(self.runs):
+            self.model.time = run.year * cnsts.YEAR
+            self.log.add_entry(
+                "INFO", "Executing run #{} -> Details:\n{}".format(
+                    idx + 1, str(run)))
+            if run.completed and resume and not clobber:
+                self.log.add_entry(
+                    "INFO", f"Run #{idx + 1} previously completed, skipping",
+                    timestamp=False)
+                continue
+            try:
+                if run.rt_dcy and not os.path.exists(run.rt_dcy):
+                    self.log.add_entry(
+                        "INFO", f"{run.rt_dcy} doesn't exist, creating",
+                        timestamp=False)
+                    os.makedirs(run.rt_dcy)
+
+                if not dryrun and run.radiative_transfer:
+                    self.log.add_entry(
+                        "INFO",
+                        "Conducting radiative transfer at "
+                        f"{run.freq / 1e9:.1f}GHz for a model time of "
+                        f"{run.year:.1f}yr")
+                    rt_t0 = _time.perf_counter()
+                    fan = fanned.pop(idx, None)
+                    write_t0 = _time.perf_counter()
+                    if fan is None and (clobber or not (
+                            os.path.exists(run.fits_em) and
+                            os.path.exists(run.fits_tau) and
+                            os.path.exists(run.fits_flux))):
+                        # all products fresh: ONE pass computes EM + tau +
+                        # flux together (JetModel.continuum_rt_products /
+                        # rrl_rt_products), then the writes below consume
+                        # the host copies.  as_numpy=False keeps the
+                        # device->host copy OUT of the device-compute
+                        # timer
+                        with profiling.KernelTimer(
+                                "rt stage: device compute", self.log) as kt:
+                            if run.obs_type == 'continuum':
+                                em_c, tau_c, flux_c = \
+                                    self.model.continuum_rt_products(
+                                        run.chan_freqs, as_numpy=False)
+                            else:
+                                em_c, tau_c, flux_c = \
+                                    self.model.rrl_rt_products(
+                                        run.line, run.chan_freqs,
+                                        contsub=False,
+                                        lte=getattr(run, 'lte', True),
+                                        as_numpy=False)
+                            kt.set_result(flux_c)
+                        write_t0 = _time.perf_counter()
+                        # one copy-out for all three products
+                        fan = self._products_to_host(
+                            {'em': em_c, 'tau': tau_c, 'flux': flux_c})
+                        del em_c, tau_c, flux_c
+                        # a part of the "product transfer + FITS write"
+                        # stage below, recorded on its own as well
+                        profiling.record_stage(
+                            "rt stage: product transfer",
+                            _time.perf_counter() - write_t0)
+
+                    # NB within every write guard below fan is non-None:
+                    # fan skips computing only when all three products
+                    # exist and clobber is False, which falsifies the
+                    # guards
+                    if not os.path.exists(run.fits_em) or clobber:
+                        self.log.add_entry(
+                            "INFO",
+                            f"Emission measures saved to {run.fits_em}")
+                        self.model.save_fits(
+                            miscf.reorder_axes(fan['em'], ra_axis=0,
+                                               dec_axis=1),
+                            run.fits_em, 'em')
+                    else:
+                        self.log.add_entry(
+                            "INFO", "Emission measures already exist -> "
+                                    f"{run.fits_em}", timestamp=False)
+
+                    if not os.path.exists(run.fits_tau) or clobber:
+                        self.log.add_entry(
+                            "INFO", "Computing optical depths and "
+                                    f"saving to {run.fits_tau}")
+                        self.model._save_rt_fits(
+                            fan['tau'], run.fits_tau, 'tau',
+                            run.chan_freqs, False, True)
+                    if not os.path.exists(run.fits_flux) or clobber:
+                        self.log.add_entry(
+                            "INFO", "Calculating fluxes and saving to "
+                                    f"{run.fits_flux}")
+                        fluxes = fan['flux']
+                        self.model._save_rt_fits(
+                            fluxes, run.fits_flux, 'flux',
+                            run.chan_freqs, False, True)
+                    else:
+                        fluxes = read_fits(run.fits_flux)[0]
+
+                    fluxes = np.asarray(fluxes)
+                    if run.obs_type == 'continuum':
+                        # average over channels, sum over pixels
+                        # (classes.py:2461-2467)
+                        flux = float(np.nansum(np.nanmean(fluxes, axis=0)))
+                        self.log.add_entry(
+                            "INFO", "Total, average, channel flux of "
+                                    f"{flux:.2e}Jy calculated")
+                    else:
+                        # per-channel summed fluxes (classes.py:2468-2471)
+                        flux = np.nansum(np.nansum(fluxes, axis=1), axis=1)
+                    self.runs[idx].results['flux'] = flux
+                    # the host buffers are free for the next run from here
+                    del fan, fluxes
+                    profiling.record_stage(
+                        "rt stage: product transfer + FITS write",
+                        _time.perf_counter() - write_t0)
+                    self.log.add_entry(
+                        "INFO", "[timing] rt stage (compute + FITS): "
+                        f"{_time.perf_counter() - rt_t0:.3f}s",
+                        timestamp=False)
+
+                    ckpt_t0 = _time.perf_counter()
+                    if not os.path.exists(self.model_file):
+                        self.model.save(self.model_file)
+                    self.save(self.save_file, absolute_directories=True)
+                    profiling.record_stage("checkpoint write",
+                                           _time.perf_counter() - ckpt_t0)
+
+            except KeyboardInterrupt:
+                self.log.add_entry(
+                    "ERROR", "Pipeline interrupted by user, saving state")
+                self.save(self.save_file)
+                self.model.save(self.model_file)
+                raise KeyboardInterrupt("Pipeline interrupted by user")
+
+            # A run is complete only when every stage it is configured
+            # for has actually run this call (or was found on disk): the
+            # reference marks completed=True even under dryrun=True or
+            # simobserve=False (classes.py:2853), which poisons a later
+            # resume=True execute into skipping all real work — a
+            # deliberate fidelity deviation (PARITY.md).
+            rt_done = (not run.radiative_transfer) or not dryrun
+            so_done = (not run.simobserve) or (simobserve and not dryrun)
+            if rt_done and so_done:
+                self.runs[idx].completed = True
+
+        ckpt_t0 = _time.perf_counter()
+        self.save(self.save_file)
+        self.model.save(self.model_file)
+        profiling.record_stage("checkpoint write",
+                               _time.perf_counter() - ckpt_t0)
+        return None
+
+    def radio_plot(self, run, percentile: float = 5.0, savefig: str = ''):
+        """Plot flux/tau/EM from a run's FITS products
+        (classes.py:3015-3183).  Not ported yet."""
+        raise NotImplementedError(
+            "radio_plot: plotting is not ported yet")

@@ -1,5 +1,5 @@
 """The CUDA kernels (epoch, RRL and emergent) against their plain
-versions, on the card.
+versions, and the pipeline's copy-out, on the card.
 
 Needs an NVIDIA GPU with ``nvcc``; skipped elsewhere.  This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
@@ -258,3 +258,65 @@ def test_f32_card_emergent_matches_f64_cpu(card):
         want = cpu.emergent_intensity_ff(freqs)
         assert kn.LAUNCHES['emergent_ff_tiles'] == 1
         assert np.max(np.abs(got - want)) / np.abs(want).max() < 3e-3
+
+
+def test_pipeline_on_the_card_reuses_its_pinned_buffers(card, tmp_path):
+    """``Pipeline.execute`` on a CUDA model: one launch of the dual-base
+    epoch kernel per run, the products copied out through pinned host
+    buffers that are kept while shape and dtype stay the same, FITS
+    products equal to the direct calls, and a resume that reloads the
+    model on the card at float32."""
+    from rajepy_tpu_torch import Pipeline
+    from rajepy_tpu_torch.io.fits import read_fits
+    none = {'t_obs': None, 'tscps': None, 't_ints': None}
+    params = {
+        'min_el': 20., 'dcys': {'model_dcy': str(tmp_path / 'out')},
+        'continuum': dict(none, times=np.array([0.6, 2.2]),
+                          freqs=np.array([6e9]), bws=np.array([4e8]),
+                          chanws=np.array([2e8])),
+        'rrls': dict(none, times=np.array([2.2]), lines=np.array(['H58a']),
+                     bws=np.array([2e6]), chanws=np.array([2.5e5])),
+    }
+    jm = JetModel(_params((64, 160, 64)), device=card)
+    pline = Pipeline(jm, params)
+    seen = []
+    to_host = pline._products_to_host
+
+    def spy(products):
+        out = to_host(products)
+        seen.append({k: (pline._host_buffers[k].data_ptr(),
+                         pline._host_buffers[k].is_pinned(),
+                         out[k].ctypes.data) for k in out})
+        return out
+
+    pline._products_to_host = spy
+    kn.reset_launches()
+    pline.execute(simobserve=False, verbose=False, plot=False)
+    assert kn.LAUNCHES['epoch_base_maps2_tiles'] == 3
+    assert kn.LAUNCHES['rrl_tiles_pallas'] == 1
+    assert len(seen) == 3 and all(r.completed for r in pline.runs)
+    for entry in seen:
+        assert all(pinned and view == ptr
+                   for ptr, pinned, view in entry.values())
+    assert seen[0] == seen[1]                    # same shapes: reused
+    assert seen[2]['em'] == seen[1]['em']        # the EM map keeps its shape
+    assert seen[2]['flux'][0] != seen[1]['flux'][0]     # 8 channels, not 2
+    for run in pline.runs:
+        jm.time = run.year * YEAR
+        if run.obs_type == 'continuum':
+            direct = jm.continuum_rt_products(run.chan_freqs)
+        else:
+            direct = jm.rrl_rt_products(run.line, run.chan_freqs,
+                                        contsub=False)
+        for path, arr in zip((run.fits_em, run.fits_tau, run.fits_flux),
+                             direct):
+            want = np.swapaxes(arr, -1, -2)
+            np.testing.assert_allclose(read_fits(path)[0], want, rtol=0,
+                                       atol=1e-6 * np.abs(want).max())
+    kn.reset_launches()
+    pline.execute(simobserve=False, verbose=False, plot=False)
+    assert not any(kn.LAUNCHES.values())
+    assert pline.model is not jm and pline.model.device.type == 'cuda'
+    assert pline.model.dtype == torch.float32
+    loaded = Pipeline.load_pipeline(pline.save_file)
+    assert loaded.model.device.type == 'cuda' and str(loaded) == str(pline)

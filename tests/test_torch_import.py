@@ -28,6 +28,12 @@ def test_port_imports_without_jax():
         "import rajepy_tpu_torch\n"
         "from rajepy_tpu_torch.ops import kernels\n"
         "from rajepy_tpu_torch import JetModel, Log, cnsts\n"
+        "from rajepy_tpu_torch import Pipeline, ContinuumRun, RRLRun\n"
+        "from rajepy_tpu_torch import Pointing, logger, cfg\n"
+        "from rajepy_tpu_torch.io import checkpoint\n"
+        "for name in ('_config', 'pipeline', 'models.runs',\n"
+        "             'io.checkpoint'):\n"
+        "    assert 'rajepy_tpu_torch.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'rajepy_tpu' or m.startswith('rajepy_tpu.')\n"
         "       or m == 'jax' and sys.modules[m] is not None]\n"
@@ -70,11 +76,38 @@ def test_no_port_source_builds_a_path_into_the_jax_package():
 
 
 @pytest.mark.parametrize("name", ["vanHoofetal2014.data", "departure_bn.npz",
-                                  "example-model-params.py"])
+                                  "example-model-params.py",
+                                  "example-pipeline-params.py"])
 def test_port_data_files_equal_the_jax_packages(name):
     port = os.path.join(ROOT, 'rajepy_tpu_torch', 'data', name)
     assert filecmp.cmp(port, os.path.join(ROOT, 'rajepy_tpu', 'data', name),
                        shallow=False)
+
+
+def test_package_data_covers_the_kernel_sources_and_the_data_files():
+    """An installed package carries every file the kernels' build reads
+    (sources and shared headers) and every bundled data file: each matches
+    a package-data pattern of pyproject.toml."""
+    import fnmatch
+    import tomllib
+    from rajepy_tpu_torch.ops import kernels
+    with open(os.path.join(ROOT, 'pyproject.toml'), 'rb') as f:
+        patterns = tomllib.load(f)['tool']['setuptools']['package-data'][
+            'rajepy_tpu_torch']
+    pkg = os.path.join(ROOT, 'rajepy_tpu_torch')
+    data = os.path.join(pkg, 'data')
+    needed = list(kernels.build_inputs()) + [
+        os.path.join(dirpath, n) for dirpath, _, names in os.walk(data)
+        for n in names if not n.endswith('.pyc')]
+    assert any(p.endswith('.cuh') for p in needed)
+    assert os.path.join(data, 'example-pipeline-params.py') in needed
+    for path in needed:
+        rel = os.path.relpath(path, pkg)
+        assert not rel.startswith('..'), path
+        # setuptools globs do not cross a directory separator
+        assert any(fnmatch.fnmatch(rel, pat) and
+                   rel.count(os.sep) == pat.count('/')
+                   for pat in patterns), rel
 
 
 def test_port_reads_its_own_data_files():
