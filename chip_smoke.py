@@ -8,17 +8,22 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. kernels: build every kernel of ``rajepy_tpu_torch/csrc/`` and hold each
    against its plain PyTorch version on the card, on small random inputs:
-   the epoch kernels with fully empty tiles and negative travel times, the
-   RRL kernels (maps on tiles, per-tile partials, the full grid and its
-   activity pass) with an empty tile, a wholly jet tile, segments of
-   several tiles out of segment order, tile positions with no tile, a
-   ragged grid with an amp = 0 slab and wholly jet x rows, channel sets
-   that are all-far, all-near and mixed, and 1, 33 and 1000 channels
-   (exact zeros where no jet cell lies); the emergent kernels
+   the epoch kernels with fully empty tiles and negative travel times (the
+   dual-base one also on segments of 1 to 3 tiles out of segment order and
+   tile positions with no tile, which must hold exact zeros, two calls
+   bit-identical, and its per-tile partials), burst_chi alone against its
+   plain version, the RRL kernels (maps on tiles, per-tile partials, the
+   full grid and its activity pass) with an empty tile, a wholly jet
+   tile, segments of several tiles out of segment order, tile positions
+   with no tile, a ragged grid with an amp = 0 slab and wholly jet x rows,
+   channel sets that are all-far, all-near and mixed, and 1, 33 and 1000
+   channels (exact zeros where no jet cell lies); the emergent kernels
    with fully empty tiles, segments of one and of several tiles, negative
    travel times, a ragged grid, zero-opacity y ranges and both observer
-   orientations (1e-5 of the plain map's maximum), and the emergent tile
-   and full-grid kernels against the float64 host oracle (1e-5); the two
+   orientations (1e-5 of the plain map's maximum; the tile kernel at 1, 5,
+   6, 16, 64 and 70 channels, tau up to ~1e5), and the emergent
+   tile and full-grid kernels against the float64 host oracle (1e-5); the
+   two
    full-grid kernels that stream base through a shared-memory ring (epoch
    and emergent) also on a grid with nz % 4 != 0, a wholly jet cube, a cube
    whose only jet cells lie in the last y row and the last z column, an
@@ -50,8 +55,8 @@ Phases (any failure exits non-zero; nothing is caught):
       been launched once per run and the RRL tile kernel once; every run's
       three FITS files under ``Day<d>/<freq|line>/`` must equal the direct
       ``continuum_rt_products``/``rrl_rt_products`` call to 1e-6 of the
-      map's maximum (the same code, but the fold of the epoch kernel's
-      per-tile maps adds with atomics, whose order varies between calls); a
+      map's maximum (the same code and, since the epoch kernel sums in a
+      fixed order, the same bits; the largest difference is printed); a
       second ``execute`` must launch nothing and rewrite no file,
       ``Pipeline.load_pipeline`` must give the same run table, and
       ``clobber=True`` on one run must recompute it.  Prints every run's
@@ -69,10 +74,19 @@ Phases (any failure exits non-zero; nothing is caught):
    memory, the warm per-epoch time of ``continuum_rt_products``, per-run
    time of ``rrl_rt_products`` and per-call time of the emergent maps
    (CUDA events), the emergent compaction's tiles and segments, device
-   busy time under
-   ``torch.profiler``, and each kernel's time beside its plain version's
-   and its bound (the larger of bytes over 3.35 TB/s and float32
-   operations over 67 TFLOP/s, the H100 SXM data sheet's peaks).  The RRL
+   busy time and device operations per call under ``torch.profiler``, and
+   each kernel's time beside its plain version's and its bound (the larger
+   of bytes over 3.35 TB/s and float32 operations over 67 TFLOP/s, the
+   H100 SXM data sheet's peaks; for the emergent tile kernel also its
+   special-function work at 16 a clock per SM).  A kernel's time in the
+   summary line is its device time by the profiler; CUDA events around
+   back-to-back calls are printed beside it (they hold the wrapper's host
+   time where that exceeds the kernel's).  The dual-base epoch kernel:
+   ptxas's report (no spill), two flagship calls bit-identical, its device
+   operations against those of the per-tile partials and two folds it
+   replaced, and the SASS instructions of burst_chi per cell.  The
+   emergent tile kernel at 1, 5, 16 and 64 channels, with ptxas's report
+   (no spill) and the MUFU of its per-cell loop.  The RRL
    kernels are timed at 16 and 1000 channels: the tile kernel as the maps
    call beside the fold it replaced, the full-grid kernel on the
    flagship's factors and on the jet-free grid; ptxas's registers and
@@ -84,7 +98,12 @@ Phases (any failure exits non-zero; nothing is caught):
    (no spill allowed).
 
 The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Needs the repository
+last line is ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --time-paths DIR
+
+times the flagship's three calls with the package of the checkout DIR
+(:func:`time_paths`), to compare two commits on one card.  Needs the repository
 checkout beside this file and a CUDA device: without either it exits
 non-zero and prints no result.
 """
@@ -224,8 +243,8 @@ def timed_once(fn):
 
 def device_busy(fn, n=10, n_top=8):
     """Per-call device busy time and wall time (ms) of ``n`` warm calls of
-    ``fn`` under ``torch.profiler``, and the busiest kernels as
-    (name, launches per call, ms per call)."""
+    ``fn`` under ``torch.profiler``, device operations per call, and the
+    busiest kernels as (name, launches per call, ms per call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -246,8 +265,9 @@ def device_busy(fn, n=10, n_top=8):
     if busy_ms <= 0:
         raise AssertionError("the profiler recorded no device time")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:n_top]
-    return busy_ms, wall_ms, [(k, c // n, us / 1e3 / n)
-                              for k, (c, us) in top]
+    n_ops = sum(c for c, _ in kernels.values()) / n
+    return busy_ms, wall_ms, n_ops, [(k, c // n, us / 1e3 / n)
+                                     for k, (c, us) in top]
 
 
 def kernel_ms(fn, n=10):
@@ -260,25 +280,32 @@ def kernel_ms(fn, n=10):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            calls, us = kernels.get(e.name, (0, 0.0))
-            kernels[e.name] = (calls + 1, us + e.time_range.elapsed_us())
-    if not kernels:
-        raise AssertionError("the profiler recorded no device time")
-    return sum(us / calls for calls, us in kernels.values()) / 1e3
+    # a session now and then records no device event at all (seen after
+    # many sessions in one process): take another, then time by CUDA events
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                calls, us = kernels.get(e.name, (0, 0.0))
+                kernels[e.name] = (calls + 1, us + e.time_range.elapsed_us())
+        if kernels:
+            return sum(us / calls for calls, us in kernels.values()) / 1e3
+    ms = cuda_ms(fn, batch=20)
+    print(f"  (the profiler recorded no device time in three sessions: "
+          f"{ms:.4f} ms by CUDA events, median of 30 batches of 20)")
+    return ms
 
 
 def print_busy(label, fn, n):
-    busy_ms, wall_ms, top = device_busy(fn, n=n)
+    busy_ms, wall_ms, n_ops, top = device_busy(fn, n=n)
     print(f"  torch.profiler, {n} warm {label}: device busy {busy_ms:.4f} ms "
           f"of {wall_ms:.4f} ms per call (idle share "
-          f"{1.0 - busy_ms / wall_ms:.3f}); busiest kernels per call:")
+          f"{1.0 - busy_ms / wall_ms:.3f}), {n_ops:g} device operations per "
+          f"call; busiest kernels per call:")
     for kname, n_calls, ms in top:
         print(f"    {ms:.4f} ms  {n_calls:3d}x  {kname[:90]}")
 
@@ -345,6 +372,78 @@ def print_ptxas(log, pattern, want):
     if found != want:
         raise AssertionError(f"ptxas reported the kernels {found}, not "
                              f"{want}")
+
+
+def sass_functions(lib_path):
+    """{mangled kernel name: [(address, instruction)]} of a shared library,
+    from ``cuobjdump -sass`` (NOPs left out)."""
+    import re
+    import shutil
+    tool = shutil.which('cuobjdump') or os.path.join(
+        os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin', 'cuobjdump')
+    text = subprocess.run([tool, '-sass', lib_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r'\s*Function : (\S+)', line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r'\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;', line)
+        if m and cur is not None and not m.group(2).startswith('NOP'):
+            cur.append((int(m.group(1), 16), m.group(2)))
+    return funcs
+
+
+def sass_opcode(ins):
+    """The opcode of one SASS instruction, its predicate left out."""
+    words = ins.split()
+    return words[1] if words[0].startswith('@') else words[0]
+
+
+def sass_loops(code):
+    """The loops of one kernel's SASS, innermost first: (first address,
+    last address, instructions, MUFU instructions) of every backward
+    branch's range."""
+    import re
+    loops = []
+    for addr, ins in code:
+        m = re.search(r'\bBRA\b.*?0x([0-9a-f]+)', ins)
+        if m and int(m.group(1), 16) < addr:
+            lo = int(m.group(1), 16)
+            body = [i for a, i in code if lo <= a <= addr]
+            loops.append((lo, addr, len(body),
+                          sum(sass_opcode(i).startswith('MUFU')
+                              for i in body)))
+    return sorted(loops, key=lambda lp: lp[1] - lp[0])
+
+
+def sass_kernel(funcs, fragment):
+    """The SASS of the one kernel whose mangled name holds ``fragment``."""
+    found = [k for k in funcs if fragment in k]
+    if len(found) != 1:
+        raise AssertionError(f"SASS: kernels matching {fragment}: {found}")
+    return funcs[found[0]]
+
+
+def chi_instructions(funcs, bursts):
+    """Instructions that burst_chi issues per cell, from the SASS of
+    burst_chi_probe_kernel (chi alone, one cell a thread): those between
+    the probe's load of the launch time and its store of chi, the burst
+    loop's body counted once per burst of the cell's side.  Returns
+    (fixed, loop body, {side: per cell})."""
+    code = sass_kernel(funcs, 'burst_chi_probe_kernel')
+    ops = [sass_opcode(i) for _, i in code]
+    lo = next(k for k, op in enumerate(ops) if op.startswith('LDG'))
+    hi = next(k for k, op in enumerate(ops) if op.startswith('STG'))
+    loops = sass_loops(code)
+    if len(loops) != 1:
+        raise AssertionError(f"burst_chi_probe_kernel: {len(loops)} loops")
+    body = loops[0][2]
+    fixed = hi - lo - 1 - body
+    n_red = sum(1 for b in bursts if b[3])
+    sides = {'red': n_red, 'blue': len(bursts) - n_red}
+    return fixed, body, {k: fixed + n * body for k, n in sides.items()}
 
 
 def example_params(n=None, csize=None):
@@ -471,6 +570,25 @@ def check_emergent_kernels(bursts, dev):
                                    starts, t, bursts, off)
     check('emergent_ff_tiles vs float64 oracle', got[0],
           torch.as_tensor(oracle, device=dev), KERNEL_RTOL)
+    # every block shape of the kernel (channel groups x chunks: 1 x 16 ..
+    # 16 x 1, and two channel blocks at 70), tau from ~1e-3 to the
+    # thousands
+    for n_chan in (1, 5, 16, 64, 70):
+        cnu, hnuk = chan_consts(np.geomspace(3e8, 3e11, n_chan), dev)
+        scale = as_t(np.geomspace(3e2, 1e-3, n_chan))
+        args = (cnu, hnuk, scale, temp_t, a_t, tss_t, seg_start, t, bursts,
+                off)
+        got = kn.emergent_tile_partials(*args)
+        want = kn.emergent_tile_partials_plain(*args)
+        check(f'emergent_ff_tiles I, {n_chan} ch', got[0], want[0],
+              KERNEL_RTOL)
+        check(f'emergent_ff_tiles tau, {n_chan} ch (max '
+              f'{float(want[1].max()):.4g})', got[1], want[1], KERNEL_RTOL)
+        if n_chan == 16:
+            oracle = emergent_tiles_oracle(cnu, hnuk, scale, temp_t, a_t,
+                                           tss_t, starts, t, bursts, off)
+            check('emergent_ff_tiles vs float64 oracle, 16 ch', got[0],
+                  torch.as_tensor(oracle, device=dev), KERNEL_RTOL)
 
     # full grid and scan op: ragged in every axis, an empty x slab and a
     # zero-opacity y range; 20 channels (two channel blocks of 16)
@@ -637,12 +755,12 @@ def phase_kernels(bursts):
     want = kn.epoch_base_map_tiles_plain(a_t, tss_t, seg, t, bursts, nx,
                                          nz, off)
     check('epoch_base_map_tiles', got, want, KERNEL_RTOL)
-    ga, gb = kn.epoch_base_maps2_tiles(a_t, b_t, tss_t, seg, t, bursts, nx,
-                                       nz, off)
-    wa, wb = kn.epoch_base_maps2_tiles_plain(a_t, b_t, tss_t, seg, t,
-                                             bursts, nx, nz, off)
-    check('epoch_base_maps2_tiles (a)', ga, wa, KERNEL_RTOL)
-    check('epoch_base_maps2_tiles (b)', gb, wb, KERNEL_RTOL)
+    check_epoch_maps2(a_t, b_t, tss_t, bursts, off, dev)
+    chi = kn.burst_chi_probe(tss_t, t, bursts, off)
+    check('burst_chi (the kernels\' chi alone) vs its plain version', chi,
+          kn._chi_plain(tss_t, t, bursts, off), KERNEL_RTOL)
+    print(f"  burst_chi bit for bit equal to the plain version: "
+          f"{bool(torch.equal(chi, kn._chi_plain(tss_t, t, bursts, off)))}")
     # full grid, ragged in every axis, an empty x slab, negative ts
     shape = (37, 70, 150)
     a = rng.random(shape)
@@ -661,6 +779,52 @@ def phase_kernels(bursts):
     check_emergent_kernels(bursts, dev)
     check_full_grid_kernels(bursts, dev)
     torch.cuda.synchronize()
+
+
+# K2's random-tile cases: (tile positions' segment ids, nx, nz): segments
+# of 1 to 3 tiles out of segment order, positions with no tile, ragged x
+# and z
+EPOCH2_CASES = (([0, 0, 3, 1, 3, 2, 0], 16, 200),
+                ([0, 0, 3, 1, 3, 2, 0], 24, 200),
+                ([5, 5, 5, 0, 1, 2, 2], 21, 300))
+
+
+def check_epoch_maps2(a_t, b_t, tss_t, bursts, off, dev):
+    """Phase 1 for the dual-base epoch kernel: the maps against their plain
+    version on :data:`EPOCH2_CASES` (the random tiles hold fully empty
+    tiles and negative travel times), two calls bit-identical, exact zeros
+    where no tile lies, and the per-tile partials."""
+    import torch
+    from rajepy_tpu_torch.ops import kernels as kn
+    t = 2.0 * YEAR
+    for seg_l, nx, nz in EPOCH2_CASES:
+        seg = torch.as_tensor(seg_l, dtype=torch.int64, device=dev)
+        got = kn.epoch_base_maps2_tiles(a_t, b_t, tss_t, seg, t, bursts, nx,
+                                        nz, off)
+        again = kn.epoch_base_maps2_tiles(a_t, b_t, tss_t, seg, t, bursts,
+                                          nx, nz, off)
+        want = kn.epoch_base_maps2_tiles_plain(a_t, b_t, tss_t, seg, t,
+                                               bursts, nx, nz, off)
+        for part, g, w in zip('ab', got, want):
+            check(f'epoch_base_maps2_tiles ({part}), {nx}x{nz}, segments '
+                  f'{seg_l}', g, w, KERNEL_RTOL)
+        if not all(torch.equal(g, h) for g, h in zip(got, again)):
+            raise AssertionError("two calls of epoch_base_maps2_tiles gave "
+                                 "different bits")
+        n_zt = -(-nz // kn.TILE[2])
+        for p in set(range(-(-nx // 8) * n_zt)) - set(seg_l):
+            x0, z0 = (p // n_zt) * 8, (p % n_zt) * kn.TILE[2]
+            if any(int(torch.count_nonzero(g[x0:x0 + 8, z0:z0 + 128]))
+                   for g in got):
+                raise AssertionError("a tile position with no tile gave "
+                                     "non-zero maps")
+    print("  epoch_base_maps2_tiles: two calls bit-identical, exact zeros "
+          "where no tile lies")
+    got = kn.epoch_tile_partials2(a_t, b_t, tss_t, t, bursts, off)
+    want = kn.epoch_tile_partials2_plain(a_t, b_t, tss_t, t, bursts, off)
+    for part, g, w in zip('ab', got, want):
+        check(f'epoch_base_maps2_tiles per-tile partials ({part})', g, w,
+              KERNEL_RTOL)
 
 
 def check_rrl_kernels(rng, shape, dev):
@@ -1268,38 +1432,193 @@ def emergent_numbers(jm, scan_c):
                lambda: jm._emergent_maps(FREQS), 10)
     k6, _, _ = emergent_tile_args(jm)
     k8 = scan_channel_args(jm, scan_c)
-    n_chan = len(FREQS)
-    a_t = k6[4]
-    live6 = int(torch.count_nonzero(a_t))
-    em_work = {   # kernel, plain, kernel batch, plain samples, B, ops
-        'emergent_ff_tiles': (
-            lambda: kn.emergent_tile_partials(*k6),
-            lambda: kn.emergent_tile_partials_plain(*k6), 20, 5,
-            nbytes(a_t, *k6[:3], k6[6]) + 2 * 4 * live6 +
-            2 * 4 * tiles[7] * n_chan * 1024,
-            (a_t.numel() - live6) + live6 * (
-                EMERGENT_OPS_CHI + EMERGENT_OPS_BURST * len(k6[8]) +
-                EMERGENT_OPS_CHAN * n_chan)),
-        'transfer_scan_pallas': (
-            lambda: kn.transfer_scan_maps(*k8),
-            lambda: kn.transfer_scan_maps_plain(*k8), 10, 5,
-            nbytes(*k8) + 2 * 4 * jm.nx * jm.nz,
-            k8[0].numel() * SCAN_OPS),
-    }
-    print(f"  emergent kernels at the main path's shapes: {live6} jet "
-          f"cells in the tiles")
-    for name, (kfn, pfn, k_batch, p_rep, n_b, n_ops) in em_work.items():
-        p1 = cuda_ms(pfn, n_rep=p_rep, n_warm=1)
-        k1 = cuda_ms(kfn, batch=k_batch)
-        k2 = cuda_ms(kfn, batch=k_batch)
-        p2 = cuda_ms(pfn, n_rep=p_rep, n_warm=0)
-        b_ms, b_by = bound(n_b, n_ops)
-        print(f"  {name}: kernel {k1:.4f} / {k2:.4f} ms (median of 30 "
-              f"batches of {k_batch}), plain {p1:.4f} / {p2:.4f} ms "
-              f"(median of {p_rep}); bound {b_ms:.4f} ms by {b_by} "
-              f"({n_b} B, {n_ops} ops), {b_ms / k1:.3f} of it")
-        rows.append((name, k1, p1, b_ms, b_by))
+    rows = emergent_tile_numbers(jm, k6, tiles)
+    kfn = lambda: kn.transfer_scan_maps(*k8)
+    pfn = lambda: kn.transfer_scan_maps_plain(*k8)
+    n_b = nbytes(*k8) + 2 * 4 * jm.nx * jm.nz
+    n_ops = k8[0].numel() * SCAN_OPS
+    p1 = cuda_ms(pfn, n_rep=5, n_warm=1)
+    k1 = cuda_ms(kfn, batch=10)
+    dev = kernel_ms(kfn)
+    k2 = cuda_ms(kfn, batch=10)
+    p2 = cuda_ms(pfn, n_rep=5, n_warm=0)
+    b_ms, b_by = bound(n_b, n_ops)
+    print(f"  transfer_scan_pallas: device {dev:.4f} ms (profiler, mean of "
+          f"10); CUDA events {k1:.4f} / {k2:.4f} ms (median of 30 batches "
+          f"of 10), plain {p1:.4f} / {p2:.4f} ms (median of 5); bound "
+          f"{b_ms:.4f} ms by {b_by} ({n_b} B, {n_ops} ops), "
+          f"{b_ms / dev:.3f} of it")
+    rows.append(('transfer_scan_pallas', dev, p1, b_ms, b_by))
     return rows
+
+
+def epoch_tile_numbers(jm, bursts, smi):
+    """Phase 3 for the two epoch tile kernels at the flagship: ptxas's
+    report of the dual-base kernel (no spill allowed), two of its calls
+    bit-identical, the device operations of its call against those of the
+    per-tile partials and two folds it replaced, and each kernel (plain,
+    kernel, kernel, plain) beside its bound.  The dual-base kernel's bound
+    reads both bases whole and the launch times only where a base is
+    non-zero; the single-base kernel (per-tile partials, chi at every
+    cell) reads both cubes whole.  Returns the summary rows."""
+    import torch
+    from rajepy_tpu_torch.ops import kernels as kn
+    print_ptxas(kn.build_log(), r'epoch_maps2_kernel', {'epoch_maps2_kernel'})
+    fixed, body, per_cell = chi_instructions(
+        sass_functions(kn.library_path()), bursts)
+    print(f"  burst_chi SASS (burst_chi_probe_kernel): {fixed} instructions "
+          f"a cell plus {body} a burst of the cell's side: {per_cell} for "
+          f"the bundled jet's sides (every burst, both sides: "
+          f"{fixed + body * len(bursts)})")
+    st = jm._rt_static()
+    t, off = jm.time, jm._ts_pack_offset
+    k2 = lambda: kn.epoch_base_maps2_tiles(st.a_t, st.em_t, st.tss_t, st.seg,
+                                           t, bursts, jm.nx, jm.nz, off,
+                                           walk=st.walk)
+    first, second = k2(), k2()
+    if not all(torch.equal(g, h) for g, h in zip(first, second)):
+        raise AssertionError("two calls of epoch_base_maps2_tiles at the "
+                             "flagship gave different bits")
+
+    # the per-tile partials (the same kernel, each tile its own position)
+    # and the two folds that K2's call replaced
+    n_act = st.a_t.shape[0]
+    ident = torch.arange(n_act + 1, dtype=torch.int32, device=st.a_t.device)
+
+    def replaced():
+        parts = kn.epoch_base_maps2_tiles(
+            st.a_t, st.em_t, st.tss_t, None, t, bursts, n_act * 8, 128, off,
+            walk=(ident[:-1], ident))
+        return [kn.reassemble_tiles(p.reshape(n_act, 8, 128), st.seg, jm.nx,
+                                    jm.nz) for p in parts]
+
+    n_new, n_old = device_ops(k2), device_ops(replaced)
+    n_epoch = device_ops(lambda: jm.continuum_rt_products(FREQS,
+                                                          as_numpy=False))
+    print(f"  epoch_base_maps2_tiles: two calls bit-identical; {n_new} device "
+          f"operation(s) per call, against {n_old} for the per-tile partials "
+          f"and two index_add_ folds it replaced; a continuum epoch "
+          f"({len(FREQS)} ch) {n_epoch}, {n_old - n_new} fewer than with "
+          f"them (torch.profiler)")
+    live2 = int(torch.count_nonzero((st.a_t != 0) | (st.em_t != 0)))
+    n_map = jm.nx * jm.nz
+    work = {   # kernel, plain, bytes, operations
+        'epoch_base_map_tiles': (
+            lambda: kn.epoch_tile_partials(st.a_t, st.tss_t, t, bursts, off),
+            lambda: kn.epoch_tile_partials_plain(st.a_t, st.tss_t, t, bursts,
+                                                 off),
+            nbytes(st.a_t, st.tss_t) + 4 * st.a_t.shape[0] * 1024,
+            st.a_t.numel() * (5 + 6 * len(bursts))),
+        'epoch_base_maps2_tiles': (
+            k2,
+            lambda: kn.epoch_base_maps2_tiles_plain(
+                st.a_t, st.em_t, st.tss_t, st.seg, t, bursts, jm.nx, jm.nz,
+                off),
+            nbytes(st.a_t, st.em_t) + 4 * live2 + 2 * 4 * n_map,
+            2 * st.a_t.numel() + live2 * (9 + 6 * len(bursts))),
+    }
+    rows = []
+    for name, (kfn, pfn, n_b, n_ops) in work.items():
+        p1, k1 = cuda_ms(pfn, batch=20), cuda_ms(kfn, batch=20)
+        dev = kernel_ms(kfn)
+        k2_, p2 = cuda_ms(kfn, batch=20), cuda_ms(pfn, batch=20)
+        b_ms, b_by = bound(n_b, n_ops)
+        print(f"  {name}: device {dev:.4f} ms (profiler, mean of 10); CUDA "
+              f"events {k1:.4f} / {k2_:.4f} ms per call, plain {p1:.4f} / "
+              f"{p2:.4f} ms (median of 30 batches of 20); bound {b_ms:.4f} "
+              f"ms by {b_by} ({n_b} B, {n_ops} ops), {b_ms / dev:.3f} of it "
+              f"[{smi}]")
+        rows.append((name, dev, p1, b_ms, b_by))
+    print(f"  epoch_base_maps2_tiles reads the launch time at {live2} cells "
+          f"(a or em != 0) of {st.a_t.numel()}")
+    return rows
+
+
+def device_ops(fn, n=10):
+    """Device operations (kernels, copies, memsets) per call of ``fn``, by
+    ``torch.profiler`` over ``n`` warm calls, rounded (the profiler may
+    drop an event)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    count = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                for e in prof.events())
+    return round(count / n)
+
+
+def emergent_tile_numbers(jm, k6, tiles):
+    """Phase 3 for the emergent tile kernel at the flagship: ptxas's report
+    (no spill allowed), its SASS (instructions and MUFU of the per-cell
+    loop), and the kernel at 16 channels (plain, kernel, kernel, plain) and
+    at 1, 5 and 64, each beside its bound: a read whole, tss and temp where
+    a != 0, the maps once; the float32 operations of EMERGENT_OPS_*; and
+    the special-function (MUFU) work of the kernel's cheapest path, one
+    MUFU.EX2 per burst of the cell's side and a reciprocal per jet cell,
+    a reciprocal and an exponential per jet cell and channel, at the SMs'
+    16 a clock.  Returns the summary row (16 channels)."""
+    import torch
+    from rajepy_tpu_torch.ops import kernels as kn
+    print_ptxas(kn.build_log(), r'emergent_tiles_kernel',
+                {'emergent_tiles_kernel'})
+    code = sass_kernel(sass_functions(kn.library_path()),
+                       'emergent_tiles_kernel')
+    loops = sass_loops(code)
+    inner = max(loops[:-1], key=lambda lp: lp[3])
+    print(f"  emergent_tiles_kernel SASS: {len(code)} instructions; its "
+          f"per-cell loop (4 channels; series and expm1f paths both in the "
+          f"count) {inner[2]} instructions, {inner[3]} MUFU")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = float(subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.max.sm',
+         '--format=csv,noheader,nounits'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]) * 1e6
+    a_t, tss_t = k6[4], k6[5]
+    live = a_t != 0
+    n_live = int(torch.count_nonzero(live))
+    n_red = int(torch.count_nonzero(live & (tss_t < 0)))
+    bursts = k6[8]
+    side_bursts = (n_red * sum(1 for b in bursts if b[3]) +
+                   (n_live - n_red) * sum(1 for b in bursts if not b[3]))
+    n_seg = tiles[7]
+    row = None
+    for n_chan in (16, 1, 5, 64):
+        chan = jm._emergent_channels(jm._freqs(np.geomspace(3e8, 3e11,
+                                                            n_chan)))
+        args = (*chan, *k6[3:])
+        kfn = lambda: kn.emergent_tile_partials(*args)
+        pfn = lambda: kn.emergent_tile_partials_plain(*args)
+        n_b = (nbytes(a_t, *chan, k6[6]) + 2 * 4 * n_live +
+               2 * 4 * n_seg * n_chan * 1024)
+        n_ops = (a_t.numel() - n_live) + n_live * (
+            EMERGENT_OPS_CHI + EMERGENT_OPS_BURST * len(bursts) +
+            EMERGENT_OPS_CHAN * n_chan)
+        mufu = side_bursts + n_live * (1 + 2 * n_chan)
+        mufu_ms = mufu / (sms * 16 * clock) * 1e3
+        b_ms, b_by = bound(n_b, n_ops)
+        if mufu_ms > b_ms:
+            b_ms, b_by = mufu_ms, 'operations'
+        plain = ''
+        if n_chan == 16:
+            p1 = cuda_ms(pfn, n_rep=5, n_warm=1)
+        k1 = cuda_ms(kfn, batch=20)
+        dev = kernel_ms(kfn)
+        k2 = cuda_ms(kfn, batch=20)
+        if n_chan == 16:
+            p2 = cuda_ms(pfn, n_rep=5, n_warm=0)
+            plain = f", plain {p1:.4f} / {p2:.4f} ms (median of 5)"
+            row = ('emergent_ff_tiles', dev, p1, b_ms, b_by)
+        print(f"  emergent_ff_tiles, {n_chan} ch: device {dev:.4f} ms "
+              f"(profiler, mean of 10); CUDA events {k1:.4f} / {k2:.4f} ms "
+              f"(median of 30 batches of 20){plain}; bound {b_ms:.4f} ms by "
+              f"{b_by} ({n_b} B, {n_ops} ops; {mufu} MUFU at {sms} SMs x 16 "
+              f"a clock at {clock / 1e6:g} MHz: {mufu_ms:.4f} ms), "
+              f"{b_ms / dev:.3f} of it")
+    return [row]
 
 
 def epoch_full_work(base, n_bursts):
@@ -1353,7 +1672,7 @@ def full_grid_numbers(jm, empty, bursts):
               f"10), plain {p_ms:.4f} ms (one call); bound {b_ms:.4f} ms by "
               f"{b_by} ({n_b} B, {n_ops} ops), {b_ms / k1:.3f} of it{note}")
         if what.startswith('flagship cubes') and '64' not in what:
-            rows.append((name, k1, p_ms, b_ms, b_by))
+            rows.append((name, dev, p_ms, b_ms, b_by))
 
     t = jm.time
     st, st0 = jm._rt_static(), empty._rt_static()
@@ -1601,33 +1920,7 @@ def main() -> int:
                                               as_numpy=False), 3)
 
         rows = []
-        # continuum tile kernels: plain, kernel, kernel, plain; batches of
-        # 20
-        cont_work = {
-            'epoch_base_map_tiles': (
-                lambda: kn.epoch_tile_partials(st.a_t, st.tss_t, t, bursts,
-                                               off),
-                lambda: kn.epoch_tile_partials_plain(st.a_t, st.tss_t, t,
-                                                     bursts, off),
-                nbytes(st.a_t, st.tss_t, g1),
-                st.a_t.numel() * (5 + 6 * len(bursts))),
-            'epoch_base_maps2_tiles': (
-                lambda: kn.epoch_tile_partials2(st.a_t, st.em_t, st.tss_t,
-                                                t, bursts, off),
-                lambda: kn.epoch_tile_partials2_plain(
-                    st.a_t, st.em_t, st.tss_t, t, bursts, off),
-                nbytes(st.a_t, st.em_t, st.tss_t, g1, g1),
-                st.a_t.numel() * (7 + 6 * len(bursts))),
-        }   # the full-grid kernel is timed by full_grid_numbers
-        for name, (kfn, pfn, n_b, n_ops) in cont_work.items():
-            p1, k1 = cuda_ms(pfn, batch=20), cuda_ms(kfn, batch=20)
-            k2, p2 = cuda_ms(kfn, batch=20), cuda_ms(pfn, batch=20)
-            b_ms, b_by = bound(n_b, n_ops)
-            print(f"  {name}: kernel {k1:.4f} / {k2:.4f} ms, plain "
-                  f"{p1:.4f} / {p2:.4f} ms (median of 30 batches of 20); "
-                  f"bound {b_ms:.4f} ms by {b_by} ({n_b} B, {n_ops} ops), "
-                  f"{b_ms / k1:.3f} of it")
-            rows.append((name, k1, p1, b_ms, b_by))
+        rows += epoch_tile_numbers(jm, bursts, smi)
 
         # RRL kernels: kernel, plain, kernel.  The tile kernel as the maps
         # call at 16 and RRL_NCHAN channels; the cube kernel on the
@@ -1679,7 +1972,7 @@ def main() -> int:
                   f"contracted instructions at the issue peak "
                   f"{issue_ms:.4f} ms")
             if n_chan == RRL_NCHAN and what != 'flagship factors':
-                rows.append((name, k1, p1, b_ms, b_by))
+                rows.append((name, dev, p1, b_ms, b_by))
         # where K4's time goes at RRL_NCHAN channels: the same cells with
         # every channel in the wings, with every channel near the line
         # centre, and no cell at all (the maps' zero writes alone)
@@ -1732,5 +2025,56 @@ def main() -> int:
     return 0
 
 
+def time_paths(root) -> int:
+    """``python3 chip_smoke.py --time-paths DIR``: the flagship's three
+    calls timed with the package of the checkout DIR (this one, or an
+    unpacked parent commit, so that two commits are compared on one card,
+    in turns): warm ``continuum_rt_products`` (16 channels),
+    ``_emergent_maps`` (16 channels) and ``rrl_rt_products`` (1,000
+    channels, LTE) by CUDA events; device busy time and device operations
+    per call of the first two and of the dual-base epoch kernel's call; the
+    emergent tile kernel's device time.  Prints one JSON line.  Checks
+    nothing: the main run of this script does."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(root))
+    from rajepy_tpu_torch import JetModel
+    from rajepy_tpu_torch.ops import kernels as kn
+    from rajepy_tpu_torch.ops import radtrans as rt
+    jm = JetModel(example_params((N_GRID,) * 3), dtype='auto', device='cuda')
+    jm.time = EMERGENT_EPOCH_YR * YEAR
+    nu0 = rt.RRLCoeffs(RRL_LINE).nu0
+    band = rrl_band(nu0)[0]
+    st = jm._rt_static()
+    bursts, off = jm._burst_tuple(), jm._ts_pack_offset
+    walk = {'walk': st.walk} if hasattr(st, 'walk') else {}
+    calls = {
+        'epoch': lambda: jm.continuum_rt_products(FREQS, as_numpy=False),
+        'emergent': lambda: jm._emergent_maps(FREQS),
+        'k2_call': lambda: kn.epoch_base_maps2_tiles(
+            st.a_t, st.em_t, st.tss_t, st.seg, jm.time, bursts, jm.nx, jm.nz,
+            off, **walk)}
+    out = {'root': os.path.abspath(root),
+           'device': torch.cuda.get_device_name(0)}
+    for name in ('epoch', 'emergent'):
+        out[f'{name}_ms'] = cuda_ms(calls[name])
+    out['rrl_ms'] = cuda_ms(lambda: jm.rrl_rt_products(
+        RRL_LINE, band, contsub=False, as_numpy=False), n_rep=10, n_warm=1)
+    for name, fn in calls.items():
+        busy_ms, _, n_ops, _ = device_busy(fn)
+        out[f'{name}_busy_ms'], out[f'{name}_ops'] = busy_ms, n_ops
+    k6, _, _ = emergent_tile_args(jm)
+    out['emergent_ff_tiles_ms'] = kernel_ms(
+        lambda: kn.emergent_tile_partials(*k6))
+    for name in ('epoch', 'emergent'):
+        out[f'{name}_ms_again'] = cuda_ms(calls[name])
+    print(json.dumps(out))
+    return 0
+
+
 if __name__ == '__main__':
+    if len(sys.argv) == 3 and sys.argv[1] == '--time-paths':
+        sys.exit(time_paths(sys.argv[2]))
     sys.exit(main())

@@ -69,8 +69,8 @@ class RTStatic(NamedTuple):
 
     ``a``/``em_base`` are the full base cubes; ``a_t``/``em_t``/``tss_t``/
     ``seg`` are their jet-occupied-tile compactions feeding the epoch tile
-    kernels — ``None`` off the float32 burst path or when no tile is
-    active.
+    kernels, and ``walk`` the dual-base kernel's walk over them —
+    ``None`` off the float32 burst path or when no tile is active.
     """
     a: torch.Tensor          # free-free base-opacity cube tau_ff_base
     em_base: torch.Tensor    # per-cell EM contribution (nd xi)^2 ds_pc
@@ -81,6 +81,8 @@ class RTStatic(NamedTuple):
     em_t: Optional[torch.Tensor] = None   # (n_act, 8, 64, 128)
     tss_t: Optional[torch.Tensor] = None  # (n_act, 8, 64, 128)
     seg: Optional[torch.Tensor] = None    # (n_act,) int64 xz-tile segments
+    # kernels.segment_order's (order, seg_start) of seg, int32 on the device
+    walk: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 # Sub-threshold fill factors / areas present as NaN at the public API
@@ -479,7 +481,10 @@ class JetModel:
         - ``tbar``/``any_in``: LOS-mean temperature and jet silhouette
         - ``ts_signed``: launch time + jet side packed into one cube
         - on the float32 burst path, the jet-occupied tiles of ``a``,
-          ``em_base`` and ``ts_signed`` and their segment ids.
+          ``em_base`` and ``ts_signed``, their segment ids and the walk
+          over each (x, z) tile position's tiles
+          (:func:`kernels.segment_order`), so that no epoch does host work
+          for it.
         """
         if self._rt_static_cache is None:
             f = self._ensure_fields()
@@ -498,7 +503,7 @@ class JetModel:
             tbar, any_in = rt.mean_temperature_map(f.temp, f.inside)
             ts_signed = kn.pack_launch_time(f.ts, f.red, self._dtype,
                                             self._ts_pack_offset)
-            a_t = em_t = tss_t = seg_d = None
+            a_t = em_t = tss_t = seg_d = walk = None
             if self._use_tiles():
                 ids, seg = self._active_tile_ids()
                 if ids.size:
@@ -509,10 +514,21 @@ class JetModel:
                     tss_t = kn.gather_tiles(ts_signed, ids, fill=1.0, **tile)
                     seg_d = torch.as_tensor(seg, dtype=torch.int64,
                                             device=self._device)
+                    walk = self._tile_walk(seg)
             self._rt_static_cache = RTStatic(a, em_base, tbar, any_in,
                                              ts_signed, a_t, em_t, tss_t,
-                                             seg_d)
+                                             seg_d, walk)
         return self._rt_static_cache
+
+    def _tile_walk(self, seg):
+        """:func:`kernels.segment_order` of the tiles' segment ids, as int32
+        tensors on the model's device: the walk of the dual-base epoch
+        kernel and of the RRL tile kernel over each (x, z) tile position's
+        tiles."""
+        bx, _, bz = kn.TILE
+        return tuple(torch.as_tensor(w, device=self._device)
+                     for w in kn.segment_order(
+                         seg, -(-self._nx // bx) * -(-self._nz // bz)))
 
     def _burst_tuple(self):
         """Burst parameters for the epoch kernels: (t0 [s], 1/(2 sigma^2),
@@ -557,7 +573,7 @@ class JetModel:
                 return kn.epoch_base_maps2_tiles(
                     st.a_t, st.em_t, st.tss_t, st.seg, t,
                     self._burst_tuple(), self._nx, self._nz,
-                    pack_offset=self._ts_pack_offset)
+                    pack_offset=self._ts_pack_offset, walk=st.walk)
             return (self._epoch_base_map('a', f, st, t),
                     self._epoch_base_map('em', f, st, t))
         chi2 = self._chi2(f, t)
@@ -681,7 +697,8 @@ class JetModel:
         (jetmodel.py:1181-1219).  The tiles keep the epoch compaction's
         order, and its packed launch-time tiles are reused when it made
         them; ``(order, seg_start)`` (int32, :func:`kernels.segment_order`)
-        is the kernel's walk over each (x, z) tile position's tiles."""
+        is the kernel's walk over each (x, z) tile position's tiles, the
+        epoch compaction's own where it made one."""
         if self._rrl_tiles_cache is None:
             f = self._ensure_fields()
             st = self._rt_static()
@@ -696,17 +713,15 @@ class JetModel:
                 tss_t = st.tss_t if st.tss_t is not None else \
                     kn.gather_tiles(st.ts_signed.to(f32), ids, fill=1.0,
                                     **tile)
-                order, seg_start = kn.segment_order(
-                    seg, -(-self._nx // bx) * -(-self._nz // bz))
+                order, seg_start = st.walk if st.walk is not None else \
+                    self._tile_walk(seg)
                 self._rrl_tiles_cache = (
                     kn.gather_tiles(f.temp.to(f32), ids, fill=1.0, **tile),
                     kn.gather_tiles(f.vy.to(f32), ids, **tile),
                     kn.gather_tiles((f.nd * f.xi).to(f32), ids, **tile),
                     kn.gather_tiles(ds.to(f32), ids, **tile),
                     kn.gather_tiles(f.inside, ids, fill=False, **tile),
-                    tss_t,
-                    torch.as_tensor(order, device=self._device),
-                    torch.as_tensor(seg_start, device=self._device))
+                    tss_t, order, seg_start)
         return self._rrl_tiles_cache or None
 
     @staticmethod

@@ -34,12 +34,14 @@ wrapper                     TPU kernel replaced                  route
 ``rrl_cube``                pallas_kernels.rrl_cube_pallas       cuda
 ==========================  ===================================  ========
 
-``rrl_tiles`` sums a segment's tiles itself, walking them through the
-per-model permutation of :func:`segment_order`; ``rrl_tile_partials`` (the
-TPU kernel's per-tile layout) runs the same kernel with each tile its own
-segment.  ``rrl_cube`` is two launches: a pass that reads amp once and
-flags the row blocks holding a jet cell (:func:`rrl_row_activity`), then
-the maps over those blocks only.
+``epoch_base_maps2_tiles`` and ``rrl_tiles`` sum a tile position's tiles
+themselves, walking them through the per-model permutation of
+:func:`segment_order`, and write every map element once;
+``epoch_tile_partials2`` and ``rrl_tile_partials`` (the TPU kernels'
+per-tile layout) run the same kernels with each tile its own position.
+``rrl_cube`` is two launches: a pass that reads amp once and flags the row
+blocks holding a jet cell (:func:`rrl_row_activity`), then the maps over
+those blocks only.
 
 The ordered emergent scan (see ``csrc/emergent_maps.cu``)
 
@@ -74,15 +76,15 @@ imports or builds anything CUDA-specific at import time.
 
 Compaction: the jet silhouette covers a few percent of the cube, so the
 epoch-independent cubes are cut once per model into the jet-occupied
-(8, 64, 128) tiles (:func:`active_tiles`, :func:`gather_tiles`); the epoch
-tile kernels write one (8, 128) partial per tile, and
+(8, 64, 128) tiles (:func:`active_tiles`, :func:`gather_tiles`); the
+single-base epoch tile kernel writes one (8, 128) partial per tile, and
 :func:`reassemble_tiles` folds the partials into the (nx, nz) map with
-``index_add_``; :func:`segment_tile_maps` is the same fold for per-channel
-partials (the plain RRL maps).  The emergent scan compacts the cubes
-flipped into observer order (:func:`active_tiles_scan_order`), so that a
-segment's tiles are consecutive and in LOS order; its kernel writes one
-(n_chan, bx, bz) map per segment and :func:`scatter_tile_maps` places them
-on the image.
+``index_add_`` (so do the plain versions); :func:`segment_tile_maps` is the
+same fold for per-channel partials (the plain RRL maps).  The emergent
+scan compacts the cubes flipped into observer order
+(:func:`active_tiles_scan_order`), so that a segment's tiles are
+consecutive and in LOS order; its kernel writes one (n_chan, bx, bz) map
+per segment and :func:`scatter_tile_maps` places them on the image.
 """
 from __future__ import annotations
 
@@ -126,10 +128,13 @@ RRL_ROW = (1, 64, 128)
 # channels per thread of the emergent kernels (CPT_FULL and CPT_TILES in
 # csrc/emergent_maps.cu); a block of the full-grid kernel takes up to
 # EMERGENT_GROUP_FULL channels (GROUP_FULL), one warp per CPT_FULL of them,
-# from one read of the opacity base
+# from one read of the opacity base; a block of the tile kernel has
+# EMERGENT_TILE_WARPS warps (TWARPS), split into channel groups of
+# EMERGENT_CPT_TILES channels times chunks of the tile's y
 EMERGENT_CPT_FULL = 4
 EMERGENT_GROUP_FULL = 64
 EMERGENT_CPT_TILES = 4
+EMERGENT_TILE_WARPS = 16
 # z columns of a strip of the full-grid kernels (STRIP_W in csrc/stream.cuh)
 # and strips per block of the epoch one (EPOCH_WARPS in csrc/epoch_maps.cu)
 STRIP_W = 32
@@ -583,13 +588,18 @@ def emergent_tile_partials_plain(cnu, hnuk, tau_scale, temp_t, a_t, tss_t,
 # --------------------------------------------------------------------------- #
 # Build and bind the CUDA library
 # --------------------------------------------------------------------------- #
+# side index of struct Bursts (SIDE_BLUE, SIDE_RED in bursts.cuh)
+SIDE_BLUE, SIDE_RED = 0, 1
+
+
 class _Bursts(ctypes.Structure):
-    """By-value burst list; mirrors ``struct Bursts`` in bursts.cuh."""
-    _fields_ = [('n', ctypes.c_int),
-                ('t0', ctypes.c_float * MAX_BURSTS),
-                ('inv2s2', ctypes.c_float * MAX_BURSTS),
-                ('amp', ctypes.c_float * MAX_BURSTS),
-                ('is_red', ctypes.c_int * MAX_BURSTS)]
+    """The epoch and emergent kernels' burst list split by side (index
+    ``SIDE_BLUE`` or ``SIDE_RED``), each side's bursts in their original
+    order as (t0, 1/(2 sigma^2), amplitude, unused); mirrors
+    ``struct Bursts`` in bursts.cuh.  Passed to the C entry points by
+    pointer; the kernels get it by value."""
+    _fields_ = [('n', ctypes.c_int * 2),
+                ('p', ((ctypes.c_float * 4) * MAX_BURSTS) * 2)]
 
 
 class _Weideman(ctypes.Structure):
@@ -615,12 +625,11 @@ def _bursts_struct(bursts: Sequence) -> _Bursts:
         raise ValueError(f"the epoch kernels take at most {MAX_BURSTS} "
                          f"bursts, got {len(bursts)}")
     b = _Bursts()
-    b.n = len(bursts)
-    for i, (t0, inv2s2, amp, is_red) in enumerate(bursts):
-        b.t0[i] = t0
-        b.inv2s2[i] = inv2s2
-        b.amp[i] = amp
-        b.is_red[i] = int(bool(is_red))
+    for t0, inv2s2, amp, is_red in bursts:
+        side = SIDE_RED if is_red else SIDE_BLUE
+        slot = b.p[side][b.n[side]]
+        slot[0], slot[1], slot[2] = t0, inv2s2, amp
+        b.n[side] += 1
     return b
 
 
@@ -721,16 +730,19 @@ def _lib():
     if _LIB is None:
         lib = ctypes.CDLL(build())
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.epoch_tiles.argtypes = [p, p, p, i, f, f, _Bursts, p]
-        lib.epoch_tiles2.argtypes = [p, p, p, p, p, i, f, f, _Bursts, p]
-        lib.epoch_full.argtypes = [p, p, p, i, i, i, f, f, _Bursts, p]
+        bp = ctypes.POINTER(_Bursts)    # a struct instance goes by pointer
+        lib.epoch_tiles.argtypes = [p, p, p, i, f, f, bp, p]
+        lib.epoch_maps2.argtypes = [p] * 7 + [i] * 4 + [f, f, bp, p]
+        lib.burst_chi_probe.argtypes = [p, p, i, f, f, bp, p]
+        lib.epoch_full.argtypes = [p, p, p, i, i, i, f, f, bp, p]
         lib.rrl_tiles.argtypes = [p] * 9 + [i] * 6 + [f, _Weideman, p]
         lib.rrl_activity.argtypes = [p, p, i, i, i, p]
         lib.rrl_cube.argtypes = [p] * 8 + [i] * 5 + [f, _Weideman, p]
         lib.transfer_scan.argtypes = [p] * 4 + [i, i, i, i, p]
         lib.emergent_full.argtypes = [p] * 7 + [i, i, i, i, i, p]
-        lib.emergent_tiles.argtypes = [p] * 9 + [i, i, f, f, _Bursts, p]
-        for fn in (lib.epoch_tiles, lib.epoch_tiles2, lib.epoch_full,
+        lib.emergent_tiles.argtypes = [p] * 9 + [i, i, i, f, f, bp, p]
+        for fn in (lib.epoch_tiles, lib.epoch_maps2, lib.burst_chi_probe,
+                   lib.epoch_full,
                    lib.rrl_tiles, lib.rrl_activity, lib.rrl_cube,
                    lib.transfer_scan, lib.emergent_full,
                    lib.emergent_tiles):
@@ -820,40 +832,91 @@ def epoch_base_map_tiles(base_t, tss_t, seg, t: float, bursts: Sequence,
 def epoch_tile_partials2(a_t, b_t, tss_t, t: float, bursts: Sequence,
                          pack_offset: float = 1.0):
     """Dual-base (n_act, 8, 128) per-tile partials (sum_y a*chi^2,
-    sum_y b*chi^2) of compacted tiles: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
-    name = 'epoch_base_maps2_tiles'
-    if _device_kind(a_t, name) == 'cpu':
+    sum_y b*chi^2) of compacted tiles, the layout of
+    pallas_kernels.epoch_base_maps2_tiles before its fold: for CUDA tensors
+    the :func:`epoch_base_maps2_tiles` kernel with every tile its own tile
+    position (a column of n_act x tiles), for CPU tensors the plain
+    version."""
+    if _device_kind(a_t, 'epoch_base_maps2_tiles') == 'cpu':
         return epoch_tile_partials2_plain(a_t, b_t, tss_t, t, bursts,
                                           pack_offset)
     n_act = a_t.shape[0]
-    _check_cuda(name, (a_t, b_t, tss_t), (n_act,) + TILE)
-    b = _bursts_struct(bursts)
-    out_a = torch.empty((n_act, TILE[0], TILE[2]), dtype=torch.float32,
-                        device=a_t.device)
-    out_b = torch.empty_like(out_a)
-    if n_act == 0:
-        return out_a, out_b
-    with torch.cuda.device(a_t.device):
-        err = _lib().epoch_tiles2(a_t.data_ptr(), b_t.data_ptr(),
-                                  tss_t.data_ptr(), out_a.data_ptr(),
-                                  out_b.data_ptr(), n_act, float(t),
-                                  float(pack_offset), b,
-                                  _stream(a_t.device))
-    _raise_if_error(name, err)
-    LAUNCHES[name] += 1
-    return out_a, out_b
+    ident = torch.arange(n_act + 1, dtype=torch.int32, device=a_t.device)
+    maps = epoch_base_maps2_tiles(a_t, b_t, tss_t, None, t, bursts,
+                                  n_act * TILE[0], TILE[2], pack_offset,
+                                  walk=(ident[:-1], ident))
+    return tuple(m.reshape(n_act, TILE[0], TILE[2]) for m in maps)
 
 
 def epoch_base_maps2_tiles(a_t, b_t, tss_t, seg, t: float,
                            bursts: Sequence, nx: int, nz: int,
-                           pack_offset: float = 1.0):
-    """Both collapsed maps (sum_y a*chi^2, sum_y b*chi^2) in ONE pass over
-    compacted tiles: one tss stream and one chi evaluation serve both
-    bases (counterpart of pallas_kernels.epoch_base_maps2_tiles)."""
-    pa, pb = epoch_tile_partials2(a_t, b_t, tss_t, t, bursts, pack_offset)
-    return (reassemble_tiles(pa, seg, nx, nz),
-            reassemble_tiles(pb, seg, nx, nz))
+                           pack_offset: float = 1.0, walk=None):
+    """Both collapsed (nx, nz) maps (sum_y a*chi^2, sum_y b*chi^2) in ONE
+    pass over compacted (n_act, 8, 64, 128) tiles: one tss stream and one
+    chi evaluation serve both bases (counterpart of
+    pallas_kernels.epoch_base_maps2_tiles and its fold).  The CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors.
+
+    ``seg`` holds the tiles' (x, z)-tile segment ids (from
+    :func:`active_tiles`); ``walk`` is :func:`segment_order`'s
+    ``(order, seg_start)`` of them, as int32 tensors on the tiles' device
+    (``seg_start`` of n_xt * n_zt + 1 entries).  The kernel walks each tile
+    position's tiles itself and writes every map element once (0 where no
+    tile lies on the line of sight), summing in a fixed order, so two calls
+    give the same bits.  A model passes the walk it cached with its tiles;
+    without one, the CUDA path derives it from ``seg`` on the host.  The
+    plain version takes ``seg``."""
+    name = 'epoch_base_maps2_tiles'
+    if _device_kind(a_t, name) == 'cpu':
+        return epoch_base_maps2_tiles_plain(a_t, b_t, tss_t, seg, t, bursts,
+                                            nx, nz, pack_offset)
+    n_act = a_t.shape[0]
+    dev = a_t.device
+    _check_cuda(name, (a_t, b_t, tss_t), (n_act,) + TILE)
+    n_xt, n_zt = _tile_grid(nx, TILE[0]), _tile_grid(nz, TILE[2])
+    if walk is None:
+        walk = tuple(torch.as_tensor(w, device=dev) for w in segment_order(
+            _index(seg, 'cpu').numpy(), n_xt * n_zt))
+    order, seg_start = walk
+    _check_index(name, order, n_act, dev)
+    _check_index(name, seg_start, n_xt * n_zt + 1, dev)
+    if n_xt * n_zt * TILE[0] > _MAX_GRID_X:
+        raise ValueError(f"{name}: {n_xt} x {n_zt} tile positions exceed "
+                         f"the launch grid")
+    out = torch.empty((2, nx, nz), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out[0], out[1]
+    with torch.cuda.device(dev):
+        err = _lib().epoch_maps2(
+            a_t.data_ptr(), b_t.data_ptr(), tss_t.data_ptr(),
+            order.data_ptr(), seg_start.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), n_xt, n_zt, nx, nz, float(t),
+            float(pack_offset), _bursts_struct(bursts), _stream(dev))
+    _raise_if_error(name, err)
+    LAUNCHES[name] += 1
+    return out[0], out[1]
+
+
+def burst_chi_probe(tss, t: float, bursts: Sequence,
+                    pack_offset: float = 1.0) -> torch.Tensor:
+    """The burst factor chi of every element of a float32 CUDA tensor of
+    packed launch times, by ``burst_chi`` of csrc/bursts.cuh alone (the
+    kernels' own evaluation); on a CPU tensor, :func:`_chi_plain`.  A
+    measurement aid: no model path calls it, and it counts no launch."""
+    if _device_kind(tss, 'burst_chi_probe') == 'cpu':
+        return _chi_plain(tss, t, bursts, pack_offset)
+    _check_cuda('burst_chi_probe', (tss,), tss.shape)
+    out = torch.empty_like(tss)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(tss.device):
+        err = _lib().burst_chi_probe(tss.data_ptr(), out.data_ptr(),
+                                     tss.numel(), float(t),
+                                     float(pack_offset),
+                                     _bursts_struct(bursts),
+                                     _stream(tss.device))
+    _raise_if_error('burst_chi_probe', err)
+    return out
 
 
 def epoch_base_map_full(a, ts_signed, t: float, bursts: Sequence,
@@ -1145,6 +1208,18 @@ def emergent_ff_full(cnu, hnuk, tau_scale, temp, dtau_base,
     return out_i, out_tau
 
 
+def emergent_tile_groups_log2(n_chan: int) -> int:
+    """log2 of the channel groups G of a block of the emergent tile kernel:
+    the power of two that covers n_chan / EMERGENT_CPT_TILES, at most
+    EMERGENT_TILE_WARPS.  The block's warps are G channel groups times
+    EMERGENT_TILE_WARPS / G chunks of a tile's 64 y cells."""
+    groups = 1
+    while groups * EMERGENT_CPT_TILES < n_chan and \
+            groups < EMERGENT_TILE_WARPS:
+        groups *= 2
+    return groups.bit_length() - 1
+
+
 def emergent_tile_partials(cnu, hnuk, tau_scale, temp_t, a_t, tss_t,
                            seg_start, t: float, bursts: Sequence,
                            pack_offset: float = 1.0):
@@ -1166,14 +1241,17 @@ def emergent_tile_partials(cnu, hnuk, tau_scale, temp_t, a_t, tss_t,
                                             pack_offset)
     n_act = a_t.shape[0]
     _check_cuda(name, (temp_t, a_t, tss_t), (n_act,) + TILE)
+    groups_log2 = emergent_tile_groups_log2(cnu.numel())
     n_chan = _check_channels(name, (cnu, hnuk, tau_scale), a_t.device,
-                             EMERGENT_CPT_TILES)
+                             EMERGENT_CPT_TILES << groups_log2)
     if seg_start.device != a_t.device or seg_start.dtype != torch.int32 \
             or seg_start.dim() != 1 or seg_start.numel() < 1 \
             or not seg_start.is_contiguous():
         raise ValueError(f"{name}: seg_start must be a contiguous 1-D int32 "
                          f"tensor on {a_t.device}")
     n_seg = seg_start.numel() - 1
+    if n_seg * TILE[0] * (TILE[2] // STRIP_W) > _MAX_GRID_X:
+        raise ValueError(f"{name}: {n_seg} segments exceed the launch grid")
     b = _bursts_struct(bursts)
     out_i = torch.empty((n_seg, n_chan, TILE[0], TILE[2]),
                         dtype=torch.float32, device=a_t.device)
@@ -1185,7 +1263,7 @@ def emergent_tile_partials(cnu, hnuk, tau_scale, temp_t, a_t, tss_t,
             cnu.data_ptr(), hnuk.data_ptr(), tau_scale.data_ptr(),
             temp_t.data_ptr(), a_t.data_ptr(), tss_t.data_ptr(),
             seg_start.data_ptr(), out_i.data_ptr(), out_tau.data_ptr(),
-            n_seg, n_chan, float(t), float(pack_offset), b,
+            n_seg, n_chan, groups_log2, float(t), float(pack_offset), b,
             _stream(a_t.device))
     _raise_if_error(name, err)
     LAUNCHES[name] += 1

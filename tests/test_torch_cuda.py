@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from rajepy_tpu_torch import JetModel
+from rajepy_tpu_torch import constants as cnsts
 from rajepy_tpu_torch.ops import kernels as kn
 from rajepy_tpu_torch.ops import physics
 from rajepy_tpu_torch.ops import radtrans as rt
@@ -73,6 +74,59 @@ def test_kernels_match_plain_versions(card):
     with pytest.raises(TypeError, match='float32'):
         kn.epoch_base_map_full(st.a.double(), st.ts_signed.double(), t,
                                bursts, off)
+
+
+def test_redesigned_tile_kernels_on_random_tiles(card):
+    """The dual-base epoch kernel (segments of 1 to 3 tiles out of order,
+    positions with no tile: exact zeros; two calls bit-identical; the walk
+    cached by the model) and the emergent tile kernel at every block shape
+    (1, 5, 16, 64 and 70 channels) against their plain versions."""
+    rng = np.random.default_rng(11)
+    f = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                  device=card)
+    shape = (7,) + kn.TILE
+    a, b = (rng.random(shape) * (rng.random(shape) < 0.4) for _ in range(2))
+    a[::3] = 0.0
+    ts = rng.uniform(-0.05 * YEAR, 2.5 * YEAR, shape)
+    off = kn.pack_offset_for(ts.min())
+    tss = np.where(rng.random(shape) < 0.5, -(ts + off), ts + off)
+    jm = JetModel(_params((64, 160, 64)), device=card)
+    bursts, t = jm._burst_tuple(), 2.0 * YEAR
+    a_t, b_t, tss_t = f(a), f(b), f(tss)
+    for seg_l, nx, nz in (([0, 0, 3, 1, 3, 2, 0], 24, 200),
+                          ([5, 5, 5, 0, 1, 2, 2], 21, 300)):
+        seg = torch.as_tensor(seg_l, device=card)
+        got = kn.epoch_base_maps2_tiles(a_t, b_t, tss_t, seg, t, bursts, nx,
+                                        nz, off)
+        again = kn.epoch_base_maps2_tiles(a_t, b_t, tss_t, seg, t, bursts,
+                                          nx, nz, off)
+        want = kn.epoch_base_maps2_tiles_plain(a_t, b_t, tss_t, seg, t,
+                                               bursts, nx, nz, off)
+        n_zt = -(-nz // 128)
+        for g, h, w in zip(got, again, want):
+            assert torch.equal(g, h) and _rel(g, w) < 1e-5
+            for p in set(range(-(-nx // 8) * n_zt)) - set(seg_l):
+                x0, z0 = (p // n_zt) * 8, (p % n_zt) * 128
+                assert not g[x0:x0 + 8, z0:z0 + 128].any()
+    temp = np.where(a > 0, rng.uniform(5e3, 2e4, shape), 1.0)
+    starts = f(kn.segment_starts(np.array([0, 0, 1, 2, 2, 2, 3]), 4)).int()
+    for n_chan in (1, 5, 16, 64, 70):
+        freqs = np.geomspace(3e8, 3e11, n_chan)
+        cnu = f(2.0 * cnsts.H_CGS * freqs ** 3 / cnsts.C_CGS ** 2)
+        hnuk = f(cnsts.H_CGS * freqs / cnsts.K_CGS)
+        args = (cnu, hnuk, f(np.geomspace(300.0, 1e-3, n_chan)), f(temp),
+                a_t, tss_t, starts, t, bursts, off)
+        for g, w in zip(kn.emergent_tile_partials(*args),
+                        kn.emergent_tile_partials_plain(*args)):
+            assert _rel(g, w) < 1e-5
+    st = jm._rt_static()
+    got = kn.epoch_base_maps2_tiles(st.a_t, st.em_t, st.tss_t, st.seg,
+                                    jm.time, bursts, jm.nx, jm.nz,
+                                    jm._ts_pack_offset, walk=st.walk)
+    want = kn.epoch_base_maps2_tiles_plain(st.a_t, st.em_t, st.tss_t,
+                                           st.seg, jm.time, bursts, jm.nx,
+                                           jm.nz, jm._ts_pack_offset)
+    assert all(_rel(g, w) < 1e-5 for g, w in zip(got, want))
 
 
 def test_f32_card_products_match_f64_cpu(card):
