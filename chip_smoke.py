@@ -9,9 +9,11 @@ Phases (any failure exits non-zero; nothing is caught):
 1. kernels: build every kernel of ``rajepy_tpu_torch/csrc/`` and hold each
    against its plain PyTorch version on the card, on small random inputs:
    the epoch kernels with fully empty tiles and negative travel times (the
-   dual-base one also on segments of 1 to 3 tiles out of segment order and
-   tile positions with no tile, which must hold exact zeros, two calls
-   bit-identical, and its per-tile partials), burst_chi alone against its
+   tile kernel, with one base and with two, on segments of 1 to 3 tiles
+   out of segment order and tile positions with no tile, which must hold
+   exact zeros, two calls bit-identical, the one-base map of each base bit
+   for bit the two-base kernel's, and the per-tile partials), burst_chi
+   alone against its
    plain version, the RRL kernels (maps on tiles, per-tile partials, the
    full grid and its activity pass) with an empty tile, a wholly jet
    tile, segments of several tiles out of segment order, tile positions
@@ -34,7 +36,8 @@ Phases (any failure exits non-zero; nothing is caught):
    launched.
    a. continuum: the bundled example jet at 512^3 cells, float32
       (``dtype='auto'``), 16 channels: ``continuum_rt_products`` at three
-      epochs, ``flux_ff`` with a FITS product and ``emission_measure``;
+      epochs, ``flux_ff`` with a FITS product and ``emission_measure``
+      (equal to the last epoch's flux and EM bit for bit);
       then a 512^3 grid that holds no jet cell (the full-grid branch);
    b. RRL: the same jet at 2.0 yr, H58a over the pipeline's band (nu0 +-
       5e7 Hz, 1000 channels): ``rrl_rt_products`` LTE and non-LTE (table
@@ -81,10 +84,12 @@ Phases (any failure exits non-zero; nothing is caught):
    special-function work at 16 a clock per SM).  A kernel's time in the
    summary line is its device time by the profiler; CUDA events around
    back-to-back calls are printed beside it (they hold the wrapper's host
-   time where that exceeds the kernel's).  The dual-base epoch kernel:
-   ptxas's report (no spill), two flagship calls bit-identical, its device
-   operations against those of the per-tile partials and two folds it
-   replaced, and the SASS instructions of burst_chi per cell.  The
+   time where that exceeds the kernel's).  The epoch tile kernel with one
+   base and with two: ptxas's report of both instantiations (no spill),
+   two flagship calls of each bit-identical, each map call's device
+   operations against those of the per-tile partials and folds it
+   replaced (one for a single-base map), and the SASS instructions of
+   burst_chi per cell.  The
    emergent tile kernel at 1, 5, 16 and 64 channels, with ptxas's report
    (no spill) and the MUFU of its per-cell loop.  The RRL
    kernels are timed at 16 and 1000 channels: the tile kernel as the maps
@@ -748,14 +753,7 @@ def phase_kernels(bursts):
     t = 2.0 * YEAR
     n_act = 7
     a_t, b_t, tss_t, off = random_tiles(rng, n_act, dev)
-    seg = torch.as_tensor([0, 0, 3, 1, 3, 2, 0], dtype=torch.int64,
-                          device=dev)
-    nx, nz = 16, 200          # 2 x 2 (8, 128) tiles, ragged in z
-    got = kn.epoch_base_map_tiles(a_t, tss_t, seg, t, bursts, nx, nz, off)
-    want = kn.epoch_base_map_tiles_plain(a_t, tss_t, seg, t, bursts, nx,
-                                         nz, off)
-    check('epoch_base_map_tiles', got, want, KERNEL_RTOL)
-    check_epoch_maps2(a_t, b_t, tss_t, bursts, off, dev)
+    check_epoch_tile_maps(a_t, b_t, tss_t, bursts, off, dev)
     chi = kn.burst_chi_probe(tss_t, t, bursts, off)
     check('burst_chi (the kernels\' chi alone) vs its plain version', chi,
           kn._chi_plain(tss_t, t, bursts, off), KERNEL_RTOL)
@@ -781,24 +779,26 @@ def phase_kernels(bursts):
     torch.cuda.synchronize()
 
 
-# K2's random-tile cases: (tile positions' segment ids, nx, nz): segments
-# of 1 to 3 tiles out of segment order, positions with no tile, ragged x
-# and z
+# the epoch tile kernel's random-tile cases: (tile positions' segment ids,
+# nx, nz): segments of 1 to 3 tiles out of segment order, positions with no
+# tile, ragged x and z
 EPOCH2_CASES = (([0, 0, 3, 1, 3, 2, 0], 16, 200),
                 ([0, 0, 3, 1, 3, 2, 0], 24, 200),
                 ([5, 5, 5, 0, 1, 2, 2], 21, 300))
 
 
-def check_epoch_maps2(a_t, b_t, tss_t, bursts, off, dev):
-    """Phase 1 for the dual-base epoch kernel: the maps against their plain
-    version on :data:`EPOCH2_CASES` (the random tiles hold fully empty
-    tiles and negative travel times), two calls bit-identical, exact zeros
-    where no tile lies, and the per-tile partials."""
+def check_epoch_tile_maps(a_t, b_t, tss_t, bursts, off, dev):
+    """Phase 1 for the epoch tile kernel with one base (K1) and with two
+    (K2): the maps against their plain versions on :data:`EPOCH2_CASES`
+    (the random tiles hold fully empty tiles and negative travel times),
+    two calls bit-identical, exact zeros where no tile lies, K1's map of
+    each base bit for bit K2's map of it, and the per-tile partials."""
     import torch
     from rajepy_tpu_torch.ops import kernels as kn
     t = 2.0 * YEAR
     for seg_l, nx, nz in EPOCH2_CASES:
         seg = torch.as_tensor(seg_l, dtype=torch.int64, device=dev)
+        what = f'{nx}x{nz}, segments {seg_l}'
         got = kn.epoch_base_maps2_tiles(a_t, b_t, tss_t, seg, t, bursts, nx,
                                         nz, off)
         again = kn.epoch_base_maps2_tiles(a_t, b_t, tss_t, seg, t, bursts,
@@ -806,20 +806,37 @@ def check_epoch_maps2(a_t, b_t, tss_t, bursts, off, dev):
         want = kn.epoch_base_maps2_tiles_plain(a_t, b_t, tss_t, seg, t,
                                                bursts, nx, nz, off)
         for part, g, w in zip('ab', got, want):
-            check(f'epoch_base_maps2_tiles ({part}), {nx}x{nz}, segments '
-                  f'{seg_l}', g, w, KERNEL_RTOL)
-        if not all(torch.equal(g, h) for g, h in zip(got, again)):
-            raise AssertionError("two calls of epoch_base_maps2_tiles gave "
+            check(f'epoch_base_maps2_tiles ({part}), {what}', g, w,
+                  KERNEL_RTOL)
+        one = [kn.epoch_base_map_tiles(x, tss_t, seg, t, bursts, nx, nz, off)
+               for x in (a_t, b_t)]
+        one_again = kn.epoch_base_map_tiles(a_t, tss_t, seg, t, bursts, nx,
+                                            nz, off)
+        check(f'epoch_base_map_tiles, {what}', one[0],
+              kn.epoch_base_map_tiles_plain(a_t, tss_t, seg, t, bursts, nx,
+                                            nz, off), KERNEL_RTOL)
+        if not (all(torch.equal(g, h) for g, h in zip(got, again)) and
+                torch.equal(one[0], one_again)):
+            raise AssertionError("two calls of an epoch tile kernel gave "
                                  "different bits")
+        if not all(torch.equal(g, k1) for g, k1 in zip(got, one)):
+            raise AssertionError("epoch_base_map_tiles of a base is not "
+                                 "epoch_base_maps2_tiles' map of it bit for "
+                                 "bit")
         n_zt = -(-nz // kn.TILE[2])
         for p in set(range(-(-nx // 8) * n_zt)) - set(seg_l):
             x0, z0 = (p // n_zt) * 8, (p % n_zt) * kn.TILE[2]
             if any(int(torch.count_nonzero(g[x0:x0 + 8, z0:z0 + 128]))
-                   for g in got):
+                   for g in (*got, *one)):
                 raise AssertionError("a tile position with no tile gave "
                                      "non-zero maps")
-    print("  epoch_base_maps2_tiles: two calls bit-identical, exact zeros "
-          "where no tile lies")
+    print("  epoch_base_map_tiles and epoch_base_maps2_tiles: two calls "
+          "bit-identical, exact zeros where no tile lies, the one-base map "
+          "of each base bit for bit the two-base kernel's")
+    check('epoch_base_map_tiles per-tile partials',
+          kn.epoch_tile_partials(a_t, tss_t, t, bursts, off),
+          kn.epoch_tile_partials_plain(a_t, tss_t, t, bursts, off),
+          KERNEL_RTOL)
     got = kn.epoch_tile_partials2(a_t, b_t, tss_t, t, bursts, off)
     want = kn.epoch_tile_partials2_plain(a_t, b_t, tss_t, t, bursts, off)
     for part, g, w in zip('ab', got, want):
@@ -967,9 +984,10 @@ def run_continuum(jm, empty, tmp):
                 fl.shape != ta.shape:
             raise AssertionError(f"bad product shapes at {t_yr} yr")
         finite_nonzero((e, ta, fl), f"continuum at {t_yr} yr")
-    if not np.allclose(flux, runs[-1][2], rtol=1e-6, atol=0) or \
-            not np.allclose(em, runs[-1][0], rtol=1e-6, atol=0):
-        raise AssertionError("flux_ff/emission_measure disagree with "
+    # one summation order for one base and two: the same bits
+    if not np.array_equal(flux, runs[-1][2]) or \
+            not np.array_equal(em, runs[-1][0]):
+        raise AssertionError("flux_ff/emission_measure differ from "
                              "continuum_rt_products")
     data, hdr = fitsio.read_fits(fits_path)
     if data.shape != (len(FREQS), N_GRID, N_GRID) or \
@@ -977,7 +995,9 @@ def run_continuum(jm, empty, tmp):
                             atol=0):
         raise AssertionError("FITS product does not hold the flux maps")
     all_zero((e_em, e_taus, e_fl, e_em1), 'continuum')
-    print(f"  products finite and non-zero; FITS {hdr['NAXIS1']}x"
+    print(f"  products finite and non-zero; flux_ff and emission_measure "
+          f"equal to continuum_rt_products' flux and EM bit for bit; FITS "
+          f"{hdr['NAXIS1']}x"
           f"{hdr['NAXIS2']}x{hdr['NAXIS3']} {hdr['BUNIT']}")
     return launches, dict(fill_cold_s=fill_cold_s, fill_warm_s=fill_warm_s,
                           wall_s=wall_s, peak_gb=peak_gb)
@@ -1453,17 +1473,17 @@ def emergent_numbers(jm, scan_c):
 
 
 def epoch_tile_numbers(jm, bursts, smi):
-    """Phase 3 for the two epoch tile kernels at the flagship: ptxas's
-    report of the dual-base kernel (no spill allowed), two of its calls
-    bit-identical, the device operations of its call against those of the
-    per-tile partials and two folds it replaced, and each kernel (plain,
-    kernel, kernel, plain) beside its bound.  The dual-base kernel's bound
-    reads both bases whole and the launch times only where a base is
-    non-zero; the single-base kernel (per-tile partials, chi at every
-    cell) reads both cubes whole.  Returns the summary rows."""
+    """Phase 3 for the epoch tile kernel at the flagship: ptxas's report of
+    both instantiations (one base, K1; two, K2; no spill allowed), two
+    calls of each bit-identical, the device operations of each map call
+    against those of the per-tile partials and folds it replaced (K1 must
+    be one), and each (plain, kernel, kernel, plain) beside its bound: the
+    bases read whole, the launch times only where a base is non-zero, the
+    maps written once.  Returns the summary rows."""
     import torch
     from rajepy_tpu_torch.ops import kernels as kn
-    print_ptxas(kn.build_log(), r'epoch_maps2_kernel', {'epoch_maps2_kernel'})
+    print_ptxas(kn.build_log(), r'epoch_maps_kernelILi[12]E',
+                {'epoch_maps_kernelILi1E', 'epoch_maps_kernelILi2E'})
     fixed, body, per_cell = chi_instructions(
         sass_functions(kn.library_path()), bursts)
     print(f"  burst_chi SASS (burst_chi_probe_kernel): {fixed} instructions "
@@ -1472,65 +1492,76 @@ def epoch_tile_numbers(jm, bursts, smi):
           f"{fixed + body * len(bursts)})")
     st = jm._rt_static()
     t, off = jm.time, jm._ts_pack_offset
+    nx, nz = jm.nx, jm.nz
+    k1 = lambda: kn.epoch_base_map_tiles(st.a_t, st.tss_t, st.seg, t, bursts,
+                                         nx, nz, off, walk=st.walk)
     k2 = lambda: kn.epoch_base_maps2_tiles(st.a_t, st.em_t, st.tss_t, st.seg,
-                                           t, bursts, jm.nx, jm.nz, off,
+                                           t, bursts, nx, nz, off,
                                            walk=st.walk)
     first, second = k2(), k2()
-    if not all(torch.equal(g, h) for g, h in zip(first, second)):
-        raise AssertionError("two calls of epoch_base_maps2_tiles at the "
+    if not all(torch.equal(g, h) for g, h in zip(first, second)) or \
+            not torch.equal(k1(), k1()):
+        raise AssertionError("two calls of an epoch tile kernel at the "
                              "flagship gave different bits")
 
     # the per-tile partials (the same kernel, each tile its own position)
-    # and the two folds that K2's call replaced
-    n_act = st.a_t.shape[0]
-    ident = torch.arange(n_act + 1, dtype=torch.int32, device=st.a_t.device)
+    # and the folds that each map call replaced
+    def replaced1():
+        return kn.reassemble_tiles(
+            kn.epoch_tile_partials(st.a_t, st.tss_t, t, bursts, off), st.seg,
+            nx, nz)
 
-    def replaced():
-        parts = kn.epoch_base_maps2_tiles(
-            st.a_t, st.em_t, st.tss_t, None, t, bursts, n_act * 8, 128, off,
-            walk=(ident[:-1], ident))
-        return [kn.reassemble_tiles(p.reshape(n_act, 8, 128), st.seg, jm.nx,
-                                    jm.nz) for p in parts]
+    def replaced2():
+        return [kn.reassemble_tiles(p, st.seg, nx, nz) for p in
+                kn.epoch_tile_partials2(st.a_t, st.em_t, st.tss_t, t, bursts,
+                                        off)]
 
-    n_new, n_old = device_ops(k2), device_ops(replaced)
     n_epoch = device_ops(lambda: jm.continuum_rt_products(FREQS,
                                                           as_numpy=False))
-    print(f"  epoch_base_maps2_tiles: two calls bit-identical; {n_new} device "
-          f"operation(s) per call, against {n_old} for the per-tile partials "
-          f"and two index_add_ folds it replaced; a continuum epoch "
-          f"({len(FREQS)} ch) {n_epoch}, {n_old - n_new} fewer than with "
-          f"them (torch.profiler)")
+    print(f"  epoch tile kernels: two calls bit-identical; a continuum "
+          f"epoch ({len(FREQS)} ch) {n_epoch} device operations")
+    for name, new, old, n_folds in (
+            ('epoch_base_map_tiles', k1, replaced1, 'one index_add_ fold'),
+            ('epoch_base_maps2_tiles', k2, replaced2,
+             'two index_add_ folds')):
+        n_new, n_old = device_ops(new), device_ops(old)
+        print(f"  {name}: {n_new} device operation(s) per call, against "
+              f"{n_old} for the per-tile partials and {n_folds} it "
+              f"replaced (torch.profiler)")
+        if name == 'epoch_base_map_tiles' and n_new != 1:
+            raise AssertionError(f"{name}: {n_new} device operations a map")
+    live1 = int(torch.count_nonzero(st.a_t))
     live2 = int(torch.count_nonzero((st.a_t != 0) | (st.em_t != 0)))
-    n_map = jm.nx * jm.nz
+    n_map = nx * nz
     work = {   # kernel, plain, bytes, operations
         'epoch_base_map_tiles': (
-            lambda: kn.epoch_tile_partials(st.a_t, st.tss_t, t, bursts, off),
-            lambda: kn.epoch_tile_partials_plain(st.a_t, st.tss_t, t, bursts,
-                                                 off),
-            nbytes(st.a_t, st.tss_t) + 4 * st.a_t.shape[0] * 1024,
-            st.a_t.numel() * (5 + 6 * len(bursts))),
+            k1,
+            lambda: kn.epoch_base_map_tiles_plain(st.a_t, st.tss_t, st.seg, t,
+                                                  bursts, nx, nz, off),
+            nbytes(st.a_t) + 4 * live1 + 4 * n_map,
+            st.a_t.numel() + live1 * (7 + 6 * len(bursts))),
         'epoch_base_maps2_tiles': (
             k2,
             lambda: kn.epoch_base_maps2_tiles_plain(
-                st.a_t, st.em_t, st.tss_t, st.seg, t, bursts, jm.nx, jm.nz,
-                off),
+                st.a_t, st.em_t, st.tss_t, st.seg, t, bursts, nx, nz, off),
             nbytes(st.a_t, st.em_t) + 4 * live2 + 2 * 4 * n_map,
             2 * st.a_t.numel() + live2 * (9 + 6 * len(bursts))),
     }
     rows = []
     for name, (kfn, pfn, n_b, n_ops) in work.items():
-        p1, k1 = cuda_ms(pfn, batch=20), cuda_ms(kfn, batch=20)
+        p1, c1 = cuda_ms(pfn, batch=20), cuda_ms(kfn, batch=20)
         dev = kernel_ms(kfn)
-        k2_, p2 = cuda_ms(kfn, batch=20), cuda_ms(pfn, batch=20)
+        c2, p2 = cuda_ms(kfn, batch=20), cuda_ms(pfn, batch=20)
         b_ms, b_by = bound(n_b, n_ops)
         print(f"  {name}: device {dev:.4f} ms (profiler, mean of 10); CUDA "
-              f"events {k1:.4f} / {k2_:.4f} ms per call, plain {p1:.4f} / "
+              f"events {c1:.4f} / {c2:.4f} ms per call, plain {p1:.4f} / "
               f"{p2:.4f} ms (median of 30 batches of 20); bound {b_ms:.4f} "
               f"ms by {b_by} ({n_b} B, {n_ops} ops), {b_ms / dev:.3f} of it "
               f"[{smi}]")
         rows.append((name, dev, p1, b_ms, b_by))
-    print(f"  epoch_base_maps2_tiles reads the launch time at {live2} cells "
-          f"(a or em != 0) of {st.a_t.numel()}")
+    print(f"  the launch time is read at {live1} cells (a != 0) by "
+          f"epoch_base_map_tiles of a, at {live2} (a or em != 0) by "
+          f"epoch_base_maps2_tiles, of {st.a_t.numel()}")
     return rows
 
 
@@ -1768,12 +1799,22 @@ def main() -> int:
         # each continuum kernel against its plain version at the main
         # path's shapes
         errs = {}
-        g1 = kn.epoch_tile_partials(st.a_t, st.tss_t, t, bursts, off)
-        w1 = kn.epoch_tile_partials_plain(st.a_t, st.tss_t, t, bursts, off)
-        errs['epoch_base_map_tiles'] = check(
-            'epoch_base_map_tiles at main-path shape', g1, w1, KERNEL_RTOL)
+        g1 = [kn.epoch_base_map_tiles(x, st.tss_t, st.seg, t, bursts, jm.nx,
+                                      jm.nz, off, walk=st.walk)
+              for x in (st.a_t, st.em_t)]
+        errs['epoch_base_map_tiles'] = max(check(
+            f'epoch_base_map_tiles ({name}) at main-path shape', g,
+            kn.epoch_base_map_tiles_plain(x, st.tss_t, st.seg, t, bursts,
+                                          jm.nx, jm.nz, off), KERNEL_RTOL)
+            for name, g, x in zip(('a', 'em'), g1, (st.a_t, st.em_t)))
         g2 = kn.epoch_base_maps2_tiles(st.a_t, st.em_t, st.tss_t, st.seg, t,
                                        bursts, jm.nx, jm.nz, off)
+        if not all(torch.equal(g, h) for g, h in zip(g1, g2)):
+            raise AssertionError("at the flagship, epoch_base_map_tiles of "
+                                 "a base is not epoch_base_maps2_tiles' map "
+                                 "of it bit for bit")
+        print("  epoch_base_map_tiles of a and of em: bit for bit "
+              "epoch_base_maps2_tiles' maps")
         errs['epoch_base_maps2_tiles'] = max(
             check('epoch_base_maps2_tiles (a) at main-path shape', g2[0],
                   pa, KERNEL_RTOL),
@@ -2026,15 +2067,17 @@ def main() -> int:
 
 
 def time_paths(root) -> int:
-    """``python3 chip_smoke.py --time-paths DIR``: the flagship's three
-    calls timed with the package of the checkout DIR (this one, or an
-    unpacked parent commit, so that two commits are compared on one card,
-    in turns): warm ``continuum_rt_products`` (16 channels),
-    ``_emergent_maps`` (16 channels) and ``rrl_rt_products`` (1,000
-    channels, LTE) by CUDA events; device busy time and device operations
-    per call of the first two and of the dual-base epoch kernel's call; the
-    emergent tile kernel's device time.  Prints one JSON line.  Checks
-    nothing: the main run of this script does."""
+    """``python3 chip_smoke.py --time-paths DIR``: the flagship's calls
+    timed with the package of the checkout DIR (this one, or an unpacked
+    parent commit, so that two commits are compared on one card, in
+    turns): warm ``continuum_rt_products`` (16 channels),
+    ``_emergent_maps`` (16 channels), ``_continuum_product('flux')`` (16
+    channels, the map of ``flux_ff``), ``_epoch_base_map('em')`` (the map
+    of ``emission_measure``) and ``rrl_rt_products`` (1,000 channels, LTE)
+    by CUDA events; device busy time and device operations per call of all
+    but the last and of the dual-base epoch kernel's call; the emergent
+    tile kernel's device time.  Prints one JSON line.  Checks nothing: the
+    main run of this script does."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2050,15 +2093,19 @@ def time_paths(root) -> int:
     st = jm._rt_static()
     bursts, off = jm._burst_tuple(), jm._ts_pack_offset
     walk = {'walk': st.walk} if hasattr(st, 'walk') else {}
+    f = jm._ensure_fields()
     calls = {
         'epoch': lambda: jm.continuum_rt_products(FREQS, as_numpy=False),
         'emergent': lambda: jm._emergent_maps(FREQS),
+        'flux_ff': lambda: jm._continuum_product('flux', FREQS),
+        'em_map': lambda: jm._epoch_base_map('em', f, st, jm.time),
         'k2_call': lambda: kn.epoch_base_maps2_tiles(
             st.a_t, st.em_t, st.tss_t, st.seg, jm.time, bursts, jm.nx, jm.nz,
             off, **walk)}
+    timed = ('epoch', 'emergent', 'flux_ff', 'em_map')
     out = {'root': os.path.abspath(root),
            'device': torch.cuda.get_device_name(0)}
-    for name in ('epoch', 'emergent'):
+    for name in timed:
         out[f'{name}_ms'] = cuda_ms(calls[name])
     out['rrl_ms'] = cuda_ms(lambda: jm.rrl_rt_products(
         RRL_LINE, band, contsub=False, as_numpy=False), n_rep=10, n_warm=1)
@@ -2068,7 +2115,7 @@ def time_paths(root) -> int:
     k6, _, _ = emergent_tile_args(jm)
     out['emergent_ff_tiles_ms'] = kernel_ms(
         lambda: kn.emergent_tile_partials(*k6))
-    for name in ('epoch', 'emergent'):
+    for name in timed:
         out[f'{name}_ms_again'] = cuda_ms(calls[name])
     print(json.dumps(out))
     return 0

@@ -4,40 +4,38 @@
 //
 // Replaces the three Pallas TPU kernels of rajepy_tpu/ops/pallas_kernels.py
 // on the continuum main path:
-//   epoch_tiles_kernel   <- epoch_base_map_tiles   (_epoch_tiles_kernel)
-//   epoch_maps2_kernel   <- epoch_base_maps2_tiles (_epoch_tiles2_kernel)
-//                           and the fold of its per-tile partials
+//   epoch_maps_kernel<1> <- epoch_base_map_tiles   (_epoch_tiles_kernel)
+//   epoch_maps_kernel<2> <- epoch_base_maps2_tiles (_epoch_tiles2_kernel)
+//                           and the fold of their per-tile partials
 //   epoch_full_kernel    <- epoch_base_map_pallas  (_epoch_base_kernel)
 //
-// The single-base tile kernel (epoch_tiles_kernel).  One thread owns one
-// (tile, x, z) column and loops over the tile's 64 y cells, summing
-// base * chi^2 in a register; a block is (128 z, 8 x) threads, one block per
-// tile, and the host folds the (8, 128) partials into the map.
-//
-// The dual-base tile kernel (epoch_maps2_kernel), the one the pipeline runs.
-// What bounds it: bytes.  Both bases are read whole (8 bytes a cell), the
-// packed launch time only where a base is non-zero (the jet fills ~18% of
-// the flagship's tiles), the two maps written once; chi costs one expf per
-// burst of the cell's side at those cells only, far under the bytes' time.
-// The design:
+// The tile kernel, templated on the number of bases NB (1: the single-base
+// map of flux_ff, emission_measure and the RRL continuum; 2: both maps of
+// continuum_rt_products, the one the pipeline runs).  What bounds it:
+// bytes.  The bases are read whole (4 NB bytes a cell), the packed launch
+// time only where a base is non-zero (the jet fills ~18% of the flagship's
+// tiles), the maps written once; chi costs one expf per burst of the
+// cell's side at those cells only, far under the bytes' time.  The design:
 //   * work item = one x row of one (x, z) tile position: a block walks the
 //     position's tiles itself, through the host-made permutation
 //     (order, seg_start) of ops/kernels.py:segment_order, so no per-tile
 //     partials, no zero-filled buffer, no index_add_ and no permute copy
-//     exist, and the block writes its row of both maps once (zeros where the
-//     position holds no tile);
+//     exist, and the block writes its row of each map once (zeros where
+//     the position holds no tile);
 //   * a block is (128 z lanes, 4 y groups): a warp reads 128 contiguous
 //     bytes per row, thread (z, g) takes y = 16 g .. 16 g + 15 of every tile
-//     of the position, tile after tile, eight rows of both bases loaded
-//     together (16 loads in flight a thread), then the launch times of the
-//     rows that hold a non-zero base, then chi;
+//     of the position, tile after tile, a batch of rows of every base
+//     loaded together, then the launch times of the rows that hold a
+//     non-zero base, then chi;
 //   * the four y groups' sums meet in shared memory and group 0 adds them in
 //     a fixed order: no atomics, the same bits on every run;
 //   * the flagship's 64 tiles give ~256 busy rows among 2,048, so the grid is
 //     persistent (two blocks an SM, each taking every gridDim-th row): an
 //     empty row costs a few instructions, not a block.
-// A cell with both bases 0 adds exactly 0 whatever its launch time (tss is
-// finite), so skipping it is exact.
+// A cell whose bases are all 0 adds exactly 0 whatever its launch time (tss
+// is finite), so skipping it is exact; a zero base beside a non-zero one
+// adds +0.  So each map of NB = 2 equals the NB = 1 map of its base bit for
+// bit: one summation order serves both.
 //
 // The full-grid kernel.  It runs when no tile is active, so its base cube
 // is zero everywhere or nearly so, and a cell with base = 0 adds exactly 0
@@ -77,45 +75,32 @@
 #define EPOCH_WARPS 4
 #define EPOCH_CY 16
 #define EPOCH_STAGES 4
-// epoch_maps2_kernel: y groups of a block, y rows of a tile per group, rows
-// whose loads are started together
-#define K2_GROUPS 4
-#define K2_ROWS (TILE_Y / K2_GROUPS)
-#define K2_BATCH 8
+// epoch_maps_kernel: y groups of a block, y rows of a tile per group, rows
+// whose loads are started together (per number of bases; 16 rows for one
+// base measured no faster than 8 on an H100)
+#define MAPS_GROUPS 4
+#define MAPS_ROWS (TILE_Y / MAPS_GROUPS)
+#define MAPS_BATCH1 8
+#define MAPS_BATCH2 8
 
-// One block per active tile; out[tile, x, z] = sum_y base * chi * chi.
-__global__ void __launch_bounds__(TILE_X * TILE_Z)
-epoch_tiles_kernel(const float* __restrict__ base,
-                   const float* __restrict__ tss,
-                   float* __restrict__ out, float t, float off, Bursts b) {
-    const int z = threadIdx.x;
-    const int x = threadIdx.y;
-    const size_t col = (size_t)blockIdx.x * (TILE_X * TILE_Y * TILE_Z) +
-                       (size_t)x * (TILE_Y * TILE_Z) + z;
-    float acc = 0.0f;
-#pragma unroll 4
-    for (int y = 0; y < TILE_Y; ++y) {
-        const size_t i = col + (size_t)y * TILE_Z;
-        const float chi = burst_chi(tss[i], t, off, b);
-        acc = acc + base[i] * chi * chi;
-    }
-    out[(size_t)blockIdx.x * (TILE_X * TILE_Z) + x * TILE_Z + z] = acc;
-}
-
-// Dual-base maps: out_a = sum_y a * chi^2, out_b = sum_y b * chi^2, both
-// (nx, nz).  Item = (tile position s, x row xr), position s = (x tile,
-// z tile) = (s / n_zt, s % n_zt) holding tiles order[seg_start[s]] ..
-// order[seg_start[s + 1] - 1]; block b takes items b, b + gridDim.x, ...
-__global__ void __launch_bounds__(TILE_Z * K2_GROUPS, 2)
-epoch_maps2_kernel(const float* __restrict__ base_a,
-                   const float* __restrict__ base_b,
-                   const float* __restrict__ tss,
-                   const int* __restrict__ order,
-                   const int* __restrict__ seg_start,
-                   float* __restrict__ out_a, float* __restrict__ out_b,
-                   int n_zt, int nx, int nz, int n_items, float t, float off,
-                   Bursts b) {
-    __shared__ float part[2][K2_GROUPS][TILE_Z];
+// NB maps out[j] = sum_y base[j] * chi^2, each (nx, nz).  Item = (tile
+// position s, x row xr), position s = (x tile, z tile) = (s / n_zt,
+// s % n_zt) holding tiles order[seg_start[s]] .. order[seg_start[s + 1] - 1];
+// block b takes items b, b + gridDim.x, ...
+template <int NB>
+__global__ void __launch_bounds__(TILE_Z * MAPS_GROUPS, 2)
+epoch_maps_kernel(const float* __restrict__ base_a,
+                  const float* __restrict__ base_b,
+                  const float* __restrict__ tss,
+                  const int* __restrict__ order,
+                  const int* __restrict__ seg_start,
+                  float* __restrict__ out_a, float* __restrict__ out_b,
+                  int n_zt, int nx, int nz, int n_items, float t, float off,
+                  Bursts b) {
+    constexpr int BATCH = NB == 1 ? MAPS_BATCH1 : MAPS_BATCH2;
+    const float* const base[2] = {base_a, base_b};
+    float* const out[2] = {out_a, out_b};
+    __shared__ float part[NB][MAPS_GROUPS][TILE_Z];
     const int z = threadIdx.x;
     const int g = threadIdx.y;
     for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
@@ -129,59 +114,71 @@ epoch_maps2_kernel(const float* __restrict__ base_a,
         const int last = seg_start[s + 1];
         if (first == last) {              // no tile: exact zeros
             if (g == 0 && zo < nz) {
-                out_a[o] = 0.0f;
-                out_b[o] = 0.0f;
+#pragma unroll
+                for (int j = 0; j < NB; ++j) out[j][o] = 0.0f;
             }
             continue;
         }
-        float acc_a = 0.0f;
-        float acc_b = 0.0f;
+        float acc[NB];
+#pragma unroll
+        for (int j = 0; j < NB; ++j) acc[j] = 0.0f;
         for (int k = first; k < last; ++k) {
             const size_t col = (size_t)order[k] * (TILE_X * TILE_Y * TILE_Z) +
                                (size_t)xr * (TILE_Y * TILE_Z) +
-                               (size_t)(g * K2_ROWS) * TILE_Z + z;
-            for (int y0 = 0; y0 < K2_ROWS; y0 += K2_BATCH) {
-                float av[K2_BATCH], bv[K2_BATCH], tv[K2_BATCH];
+                               (size_t)(g * MAPS_ROWS) * TILE_Z + z;
+            for (int y0 = 0; y0 < MAPS_ROWS; y0 += BATCH) {
+                float bv[BATCH][NB], tv[BATCH];
+                bool live[BATCH];
 #pragma unroll
-                for (int j = 0; j < K2_BATCH; ++j) {
-                    const size_t i = col + (size_t)(y0 + j) * TILE_Z;
-                    av[j] = base_a[i];
-                    bv[j] = base_b[i];
+                for (int r = 0; r < BATCH; ++r) {
+                    const size_t i = col + (size_t)(y0 + r) * TILE_Z;
+#pragma unroll
+                    for (int j = 0; j < NB; ++j) bv[r][j] = base[j][i];
                 }
 #pragma unroll
-                for (int j = 0; j < K2_BATCH; ++j) {
-                    tv[j] = 1.0f;
-                    if (av[j] != 0.0f || bv[j] != 0.0f)
-                        tv[j] = tss[col + (size_t)(y0 + j) * TILE_Z];
+                for (int r = 0; r < BATCH; ++r) {
+                    live[r] = false;
+#pragma unroll
+                    for (int j = 0; j < NB; ++j)
+                        live[r] = live[r] || bv[r][j] != 0.0f;
+                    tv[r] = 1.0f;
+                    if (live[r]) tv[r] = tss[col + (size_t)(y0 + r) * TILE_Z];
                 }
 #pragma unroll
-                for (int j = 0; j < K2_BATCH; ++j) {
-                    if (av[j] != 0.0f || bv[j] != 0.0f) {
-                        const float chi = burst_chi(tv[j], t, off, b);
+                for (int r = 0; r < BATCH; ++r) {
+                    if (live[r]) {
+                        const float chi = burst_chi(tv[r], t, off, b);
                         const float chi2 = chi * chi;
-                        acc_a = acc_a + av[j] * chi2;
-                        acc_b = acc_b + bv[j] * chi2;
+#pragma unroll
+                        for (int j = 0; j < NB; ++j)
+                            acc[j] = acc[j] + bv[r][j] * chi2;
                     }
                 }
             }
         }
-        part[0][g][z] = acc_a;
-        part[1][g][z] = acc_b;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) part[j][g][z] = acc[j];
         __syncthreads();
         if (g == 0 && zo < nz) {
-            float sa = part[0][0][z];
-            float sb = part[1][0][z];
 #pragma unroll
-            for (int h = 1; h < K2_GROUPS; ++h) {
-                sa = sa + part[0][h][z];
-                sb = sb + part[1][h][z];
+            for (int j = 0; j < NB; ++j) {
+                float sum = part[j][0][z];
+#pragma unroll
+                for (int h = 1; h < MAPS_GROUPS; ++h) sum = sum + part[j][h][z];
+                out[j][o] = sum;
             }
-            out_a[o] = sa;
-            out_b[o] = sb;
         }
         __syncthreads();                  // part is reused by the next item
     }
 }
+
+// Both instantiations, each its own entry in ptxas's report.
+template __global__ void epoch_maps_kernel<1>(
+    const float*, const float*, const float*, const int*, const int*, float*,
+    float*, int, int, int, int, float, float, Bursts);
+template __global__ void epoch_maps_kernel<2>(
+    const float*, const float*, const float*, const int*, const int*, float*,
+    float*, int, int, int, int, float, float, Bursts);
 
 // burst_chi alone, one cell a thread: out[i] = chi(tss[i]).  Built so that
 // the instructions chi issues per cell can be read from the library's SASS
@@ -240,34 +237,47 @@ epoch_full_kernel(const float* __restrict__ base,
     if (z0 + lane < nz) out[(size_t)x * nz + z0 + lane] = acc;
 }
 
+// One launch of epoch_maps_kernel<NB> over every x row of every tile
+// position: a persistent grid of at most two blocks an SM.
+template <int NB>
+static int launch_epoch_maps(const float* base_a, const float* base_b,
+                             const float* tss, const int* order,
+                             const int* seg_start, float* out_a,
+                             float* out_b, int n_xt, int n_zt, int nx, int nz,
+                             float t, float off, const Bursts* b,
+                             void* stream) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int n_items = n_xt * n_zt * TILE_X;
+    const int blocks = n_items < 2 * sms ? n_items : 2 * sms;
+    const dim3 block(TILE_Z, MAPS_GROUPS);
+    epoch_maps_kernel<NB><<<blocks, block, 0, (cudaStream_t)stream>>>(
+        base_a, base_b, tss, order, seg_start, out_a, out_b, n_zt, nx, nz,
+        n_items, t, off, *b);
+    return (int)cudaGetLastError();
+}
+
 // Host entry points.  Each launches on the caller's stream, does not
 // synchronise, and returns cudaGetLastError() (0 on success).  The burst
 // list comes by pointer (a host struct, copied into the launch's parameters)
 // because passing 1 KB by value through ctypes costs host time per call.
 extern "C" {
 
-int epoch_tiles(const float* base, const float* tss, float* out, int n_act,
-                float t, float off, const Bursts* b, void* stream) {
-    const dim3 block(TILE_Z, TILE_X);
-    epoch_tiles_kernel<<<n_act, block, 0, (cudaStream_t)stream>>>(
-        base, tss, out, t, off, *b);
-    return (int)cudaGetLastError();
+int epoch_maps1(const float* base, const float* tss, const int* order,
+                const int* seg_start, float* out, int n_xt, int n_zt, int nx,
+                int nz, float t, float off, const Bursts* b, void* stream) {
+    return launch_epoch_maps<1>(base, nullptr, tss, order, seg_start, out,
+                                nullptr, n_xt, n_zt, nx, nz, t, off, b,
+                                stream);
 }
 
 int epoch_maps2(const float* base_a, const float* base_b, const float* tss,
                 const int* order, const int* seg_start, float* out_a,
                 float* out_b, int n_xt, int n_zt, int nx, int nz, float t,
                 float off, const Bursts* b, void* stream) {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    const int n_items = n_xt * n_zt * TILE_X;
-    const int blocks = n_items < 2 * sms ? n_items : 2 * sms;
-    const dim3 block(TILE_Z, K2_GROUPS);
-    epoch_maps2_kernel<<<blocks, block, 0, (cudaStream_t)stream>>>(
-        base_a, base_b, tss, order, seg_start, out_a, out_b, n_zt, nx, nz,
-        n_items, t, off, *b);
-    return (int)cudaGetLastError();
+    return launch_epoch_maps<2>(base_a, base_b, tss, order, seg_start, out_a,
+                                out_b, n_xt, n_zt, nx, nz, t, off, b, stream);
 }
 
 int burst_chi_probe(const float* tss, float* out, int n, float t, float off,

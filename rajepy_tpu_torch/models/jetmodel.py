@@ -69,8 +69,9 @@ class RTStatic(NamedTuple):
 
     ``a``/``em_base`` are the full base cubes; ``a_t``/``em_t``/``tss_t``/
     ``seg`` are their jet-occupied-tile compactions feeding the epoch tile
-    kernels, and ``walk`` the dual-base kernel's walk over them —
-    ``None`` off the float32 burst path or when no tile is active.
+    kernels, and ``walk`` the walk of both epoch tile kernels (single- and
+    dual-base) and of the RRL tile kernel over them — ``None`` off the
+    float32 burst path or when no tile is active.
     """
     a: torch.Tensor          # free-free base-opacity cube tau_ff_base
     em_base: torch.Tensor    # per-cell EM contribution (nd xi)^2 ds_pc
@@ -522,8 +523,8 @@ class JetModel:
 
     def _tile_walk(self, seg):
         """:func:`kernels.segment_order` of the tiles' segment ids, as int32
-        tensors on the model's device: the walk of the dual-base epoch
-        kernel and of the RRL tile kernel over each (x, z) tile position's
+        tensors on the model's device: the walk of the epoch tile kernels
+        and of the RRL tile kernel over each (x, z) tile position's
         tiles."""
         bx, _, bz = kn.TILE
         return tuple(torch.as_tensor(w, device=self._device)
@@ -556,7 +557,7 @@ class JetModel:
                 return kn.epoch_base_map_tiles(base_t, st.tss_t, st.seg, t,
                                                self._burst_tuple(),
                                                self._nx, self._nz,
-                                               pack_offset=off)
+                                               pack_offset=off, walk=st.walk)
             return kn.epoch_base_map_full(base, st.ts_signed, t,
                                           self._burst_tuple(),
                                           pack_offset=off)

@@ -34,11 +34,12 @@ wrapper                     TPU kernel replaced                  route
 ``rrl_cube``                pallas_kernels.rrl_cube_pallas       cuda
 ==========================  ===================================  ========
 
-``epoch_base_maps2_tiles`` and ``rrl_tiles`` sum a tile position's tiles
-themselves, walking them through the per-model permutation of
-:func:`segment_order`, and write every map element once;
-``epoch_tile_partials2`` and ``rrl_tile_partials`` (the TPU kernels'
-per-tile layout) run the same kernels with each tile its own position.
+The two tile wrappers are one kernel templated on the number of bases.
+They and ``rrl_tiles`` sum a tile position's tiles themselves, walking
+them through the per-model permutation of :func:`segment_order`, and write
+every map element once; ``epoch_tile_partials``, ``epoch_tile_partials2``
+and ``rrl_tile_partials`` (the TPU kernels' per-tile layout) run the same
+kernels with each tile its own position.
 ``rrl_cube`` is two launches: a pass that reads amp once and flags the row
 blocks holding a jet cell (:func:`rrl_row_activity`), then the maps over
 those blocks only.
@@ -77,10 +78,11 @@ imports or builds anything CUDA-specific at import time.
 Compaction: the jet silhouette covers a few percent of the cube, so the
 epoch-independent cubes are cut once per model into the jet-occupied
 (8, 64, 128) tiles (:func:`active_tiles`, :func:`gather_tiles`); the
-single-base epoch tile kernel writes one (8, 128) partial per tile, and
-:func:`reassemble_tiles` folds the partials into the (nx, nz) map with
-``index_add_`` (so do the plain versions); :func:`segment_tile_maps` is the
-same fold for per-channel partials (the plain RRL maps).  The emergent
+plain versions of the epoch tile maps sum each tile over y and
+:func:`reassemble_tiles` folds the (8, 128) partials into the (nx, nz) map
+with ``index_add_``, as the TPU kernels' ``segment_sum`` does;
+:func:`segment_tile_maps` is the same fold for per-channel partials (the
+plain RRL maps).  The emergent
 scan compacts the cubes flipped into observer order
 (:func:`active_tiles_scan_order`), so that a segment's tiles are
 consecutive and in LOS order; its kernel writes one (n_chan, bx, bz) map
@@ -731,7 +733,7 @@ def _lib():
         lib = ctypes.CDLL(build())
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         bp = ctypes.POINTER(_Bursts)    # a struct instance goes by pointer
-        lib.epoch_tiles.argtypes = [p, p, p, i, f, f, bp, p]
+        lib.epoch_maps1.argtypes = [p] * 5 + [i] * 4 + [f, f, bp, p]
         lib.epoch_maps2.argtypes = [p] * 7 + [i] * 4 + [f, f, bp, p]
         lib.burst_chi_probe.argtypes = [p, p, i, f, f, bp, p]
         lib.epoch_full.argtypes = [p, p, p, i, i, i, f, f, bp, p]
@@ -741,7 +743,7 @@ def _lib():
         lib.transfer_scan.argtypes = [p] * 4 + [i, i, i, i, p]
         lib.emergent_full.argtypes = [p] * 7 + [i, i, i, i, i, p]
         lib.emergent_tiles.argtypes = [p] * 9 + [i, i, i, f, f, bp, p]
-        for fn in (lib.epoch_tiles, lib.epoch_maps2, lib.burst_chi_probe,
+        for fn in (lib.epoch_maps1, lib.epoch_maps2, lib.burst_chi_probe,
                    lib.epoch_full,
                    lib.rrl_tiles, lib.rrl_activity, lib.rrl_cube,
                    lib.transfer_scan, lib.emergent_full,
@@ -785,37 +787,72 @@ def _device_kind(x: torch.Tensor, name: str) -> str:
 # --------------------------------------------------------------------------- #
 # Wrappers
 # --------------------------------------------------------------------------- #
-def epoch_tile_partials(base_t, tss_t, t: float, bursts: Sequence,
-                        pack_offset: float = 1.0) -> torch.Tensor:
-    """(n_act, 8, 128) per-tile partials sum_y base * chi^2 of compacted
-    (n_act, 8, 64, 128) tiles: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    name = 'epoch_base_map_tiles'
-    if _device_kind(base_t, name) == 'cpu':
-        return epoch_tile_partials_plain(base_t, tss_t, t, bursts,
-                                         pack_offset)
-    n_act = base_t.shape[0]
-    _check_cuda(name, (base_t, tss_t), (n_act,) + TILE)
-    b = _bursts_struct(bursts)
-    out = torch.empty((n_act, TILE[0], TILE[2]), dtype=torch.float32,
-                      device=base_t.device)
-    if n_act == 0:
+def _epoch_tile_maps(name, bases, tss_t, seg, t, bursts, nx, nz,
+                     pack_offset, walk) -> torch.Tensor:
+    """(len(bases), nx, nz) maps of the epoch tile kernel for one or two
+    bases on CUDA tensors (``epoch_maps1``/``epoch_maps2``, the two
+    instantiations of one kernel): the walk given, or :func:`segment_order`
+    of ``seg`` made on the host."""
+    n_act = bases[0].shape[0]
+    dev = bases[0].device
+    _check_cuda(name, (*bases, tss_t), (n_act,) + TILE)
+    n_xt, n_zt = _tile_grid(nx, TILE[0]), _tile_grid(nz, TILE[2])
+    if walk is None:
+        walk = tuple(torch.as_tensor(w, device=dev) for w in segment_order(
+            _index(seg, 'cpu').numpy(), n_xt * n_zt))
+    order, seg_start = walk
+    _check_index(name, order, n_act, dev)
+    _check_index(name, seg_start, n_xt * n_zt + 1, dev)
+    if n_xt * n_zt * TILE[0] > _MAX_GRID_X:
+        raise ValueError(f"{name}: {n_xt} x {n_zt} tile positions exceed "
+                         f"the launch grid")
+    out = torch.empty((len(bases), nx, nz), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
         return out
-    with torch.cuda.device(base_t.device):
-        err = _lib().epoch_tiles(base_t.data_ptr(), tss_t.data_ptr(),
-                                 out.data_ptr(), n_act, float(t),
-                                 float(pack_offset), b,
-                                 _stream(base_t.device))
+    with torch.cuda.device(dev):
+        lib = _lib()
+        launch = lib.epoch_maps1 if len(bases) == 1 else lib.epoch_maps2
+        err = launch(*(x.data_ptr() for x in bases), tss_t.data_ptr(),
+                     order.data_ptr(), seg_start.data_ptr(),
+                     *(m.data_ptr() for m in out), n_xt, n_zt, nx, nz,
+                     float(t), float(pack_offset), _bursts_struct(bursts),
+                     _stream(dev))
     _raise_if_error(name, err)
     LAUNCHES[name] += 1
     return out
 
 
+def _identity_walk(n_act: int, dev):
+    """The walk that makes each of ``n_act`` tiles its own tile position
+    (a column of n_act x tiles): the kernels' per-tile partials."""
+    ident = torch.arange(n_act + 1, dtype=torch.int32, device=dev)
+    return ident[:-1], ident
+
+
+def epoch_tile_partials(base_t, tss_t, t: float, bursts: Sequence,
+                        pack_offset: float = 1.0) -> torch.Tensor:
+    """(n_act, 8, 128) per-tile partials sum_y base * chi^2 of compacted
+    (n_act, 8, 64, 128) tiles, the layout of
+    pallas_kernels.epoch_base_map_tiles before its fold: for CUDA tensors
+    the :func:`epoch_base_map_tiles` kernel with every tile its own tile
+    position, for CPU tensors the plain version."""
+    if _device_kind(base_t, 'epoch_base_map_tiles') == 'cpu':
+        return epoch_tile_partials_plain(base_t, tss_t, t, bursts,
+                                         pack_offset)
+    n_act = base_t.shape[0]
+    m = epoch_base_map_tiles(base_t, tss_t, None, t, bursts, n_act * TILE[0],
+                             TILE[2], pack_offset,
+                             walk=_identity_walk(n_act, base_t.device))
+    return m.reshape(n_act, TILE[0], TILE[2])
+
+
 def epoch_base_map_tiles(base_t, tss_t, seg, t: float, bursts: Sequence,
-                         nx: int, nz: int,
-                         pack_offset: float = 1.0) -> torch.Tensor:
+                         nx: int, nz: int, pack_offset: float = 1.0,
+                         walk=None) -> torch.Tensor:
     """LOS-collapsed (nx, nz) map sum_y base * chi(t - ts)^2 over
-    COMPACTED tiles (counterpart of pallas_kernels.epoch_base_map_tiles).
+    COMPACTED tiles (counterpart of pallas_kernels.epoch_base_map_tiles
+    and its fold): the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors.
 
     Args:
       base_t: (n_act, 8, 64, 128) compacted epoch-independent base
@@ -824,9 +861,21 @@ def epoch_base_map_tiles(base_t, tss_t, seg, t: float, bursts: Sequence,
       seg:    (n_act,) int64 (x, z)-tile segment ids (from active_tiles)
       t:      model time [s]
       bursts: (t0, 1/(2 sigma^2), rel_amp, is_red) per burst
-    """
-    parts = epoch_tile_partials(base_t, tss_t, t, bursts, pack_offset)
-    return reassemble_tiles(parts, seg, nx, nz)
+      walk:   :func:`segment_order`'s ``(order, seg_start)`` of ``seg``
+
+    The kernel is :func:`epoch_base_maps2_tiles`' with one base: it walks
+    each tile position's tiles and writes every map element once (0 where
+    no tile lies on the line of sight), in the same summation order, so
+    its map equals that kernel's map of the same base bit for bit, and two
+    calls give the same bits.  A model passes the walk it cached with its
+    tiles; without one, the CUDA path derives it from ``seg`` on the host.
+    The plain version takes ``seg``."""
+    name = 'epoch_base_map_tiles'
+    if _device_kind(base_t, name) == 'cpu':
+        return epoch_base_map_tiles_plain(base_t, tss_t, seg, t, bursts, nx,
+                                          nz, pack_offset)
+    return _epoch_tile_maps(name, (base_t,), tss_t, seg, t, bursts, nx, nz,
+                            pack_offset, walk)[0]
 
 
 def epoch_tile_partials2(a_t, b_t, tss_t, t: float, bursts: Sequence,
@@ -835,16 +884,14 @@ def epoch_tile_partials2(a_t, b_t, tss_t, t: float, bursts: Sequence,
     sum_y b*chi^2) of compacted tiles, the layout of
     pallas_kernels.epoch_base_maps2_tiles before its fold: for CUDA tensors
     the :func:`epoch_base_maps2_tiles` kernel with every tile its own tile
-    position (a column of n_act x tiles), for CPU tensors the plain
-    version."""
+    position, for CPU tensors the plain version."""
     if _device_kind(a_t, 'epoch_base_maps2_tiles') == 'cpu':
         return epoch_tile_partials2_plain(a_t, b_t, tss_t, t, bursts,
                                           pack_offset)
     n_act = a_t.shape[0]
-    ident = torch.arange(n_act + 1, dtype=torch.int32, device=a_t.device)
     maps = epoch_base_maps2_tiles(a_t, b_t, tss_t, None, t, bursts,
                                   n_act * TILE[0], TILE[2], pack_offset,
-                                  walk=(ident[:-1], ident))
+                                  walk=_identity_walk(n_act, a_t.device))
     return tuple(m.reshape(n_act, TILE[0], TILE[2]) for m in maps)
 
 
@@ -857,43 +904,16 @@ def epoch_base_maps2_tiles(a_t, b_t, tss_t, seg, t: float,
     pallas_kernels.epoch_base_maps2_tiles and its fold).  The CUDA kernel
     for CUDA tensors, the plain version for CPU tensors.
 
-    ``seg`` holds the tiles' (x, z)-tile segment ids (from
-    :func:`active_tiles`); ``walk`` is :func:`segment_order`'s
-    ``(order, seg_start)`` of them, as int32 tensors on the tiles' device
-    (``seg_start`` of n_xt * n_zt + 1 entries).  The kernel walks each tile
-    position's tiles itself and writes every map element once (0 where no
-    tile lies on the line of sight), summing in a fixed order, so two calls
-    give the same bits.  A model passes the walk it cached with its tiles;
-    without one, the CUDA path derives it from ``seg`` on the host.  The
-    plain version takes ``seg``."""
+    ``seg`` and ``walk`` are :func:`epoch_base_map_tiles`' (``seg_start``
+    of n_xt * n_zt + 1 entries), and so is the kernel, with two bases: each
+    map is written once, summed in a fixed order, and equals that
+    function's map of its base bit for bit."""
     name = 'epoch_base_maps2_tiles'
     if _device_kind(a_t, name) == 'cpu':
         return epoch_base_maps2_tiles_plain(a_t, b_t, tss_t, seg, t, bursts,
                                             nx, nz, pack_offset)
-    n_act = a_t.shape[0]
-    dev = a_t.device
-    _check_cuda(name, (a_t, b_t, tss_t), (n_act,) + TILE)
-    n_xt, n_zt = _tile_grid(nx, TILE[0]), _tile_grid(nz, TILE[2])
-    if walk is None:
-        walk = tuple(torch.as_tensor(w, device=dev) for w in segment_order(
-            _index(seg, 'cpu').numpy(), n_xt * n_zt))
-    order, seg_start = walk
-    _check_index(name, order, n_act, dev)
-    _check_index(name, seg_start, n_xt * n_zt + 1, dev)
-    if n_xt * n_zt * TILE[0] > _MAX_GRID_X:
-        raise ValueError(f"{name}: {n_xt} x {n_zt} tile positions exceed "
-                         f"the launch grid")
-    out = torch.empty((2, nx, nz), dtype=torch.float32, device=dev)
-    if out.numel() == 0:
-        return out[0], out[1]
-    with torch.cuda.device(dev):
-        err = _lib().epoch_maps2(
-            a_t.data_ptr(), b_t.data_ptr(), tss_t.data_ptr(),
-            order.data_ptr(), seg_start.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), n_xt, n_zt, nx, nz, float(t),
-            float(pack_offset), _bursts_struct(bursts), _stream(dev))
-    _raise_if_error(name, err)
-    LAUNCHES[name] += 1
+    out = _epoch_tile_maps(name, (a_t, b_t), tss_t, seg, t, bursts, nx, nz,
+                           pack_offset, walk)
     return out[0], out[1]
 
 

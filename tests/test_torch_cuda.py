@@ -77,10 +77,13 @@ def test_kernels_match_plain_versions(card):
 
 
 def test_redesigned_tile_kernels_on_random_tiles(card):
-    """The dual-base epoch kernel (segments of 1 to 3 tiles out of order,
-    positions with no tile: exact zeros; two calls bit-identical; the walk
-    cached by the model) and the emergent tile kernel at every block shape
-    (1, 5, 16, 64 and 70 channels) against their plain versions."""
+    """The epoch tile kernel with one base (K1) and with two (K2):
+    segments of 1 to 3 tiles out of order, positions with no tile: exact
+    zeros; two calls bit-identical; K1's map of a base equal to K2's map of
+    it bit for bit; the walk cached by the model, through which flux_ff
+    and emission_measure equal continuum_rt_products exactly, one K1
+    launch a map.  The emergent tile kernel at every block shape (1, 5,
+    16, 64 and 70 channels).  All against their plain versions."""
     rng = np.random.default_rng(11)
     f = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32,
                                   device=card)
@@ -102,6 +105,14 @@ def test_redesigned_tile_kernels_on_random_tiles(card):
                                           nx, nz, off)
         want = kn.epoch_base_maps2_tiles_plain(a_t, b_t, tss_t, seg, t,
                                                bursts, nx, nz, off)
+        one = [kn.epoch_base_map_tiles(x, tss_t, seg, t, bursts, nx, nz, off)
+               for x in (a_t, b_t)]
+        assert torch.equal(one[0], kn.epoch_base_map_tiles(
+            a_t, tss_t, seg, t, bursts, nx, nz, off))
+        assert all(torch.equal(g, k1) for g, k1 in zip(got, one))
+        want1 = kn.epoch_base_map_tiles_plain(a_t, tss_t, seg, t, bursts, nx,
+                                              nz, off)
+        assert _rel(one[0], want1) < 1e-5
         n_zt = -(-nz // 128)
         for g, h, w in zip(got, again, want):
             assert torch.equal(g, h) and _rel(g, w) < 1e-5
@@ -127,6 +138,16 @@ def test_redesigned_tile_kernels_on_random_tiles(card):
                                            st.seg, jm.time, bursts, jm.nx,
                                            jm.nz, jm._ts_pack_offset)
     assert all(_rel(g, w) < 1e-5 for g, w in zip(got, want))
+    freqs = np.geomspace(3e8, 3e11, 4)
+    jm.time = 2.2 * YEAR
+    em, _, flux = jm.continuum_rt_products(freqs)
+    assert em.max() > 0 and flux.max() > 0
+    kn.reset_launches()
+    assert np.array_equal(jm.flux_ff(freqs), flux)
+    assert kn.LAUNCHES['epoch_base_map_tiles'] == 1
+    assert np.array_equal(jm.emission_measure(), em)
+    assert kn.LAUNCHES['epoch_base_map_tiles'] == 2
+    assert kn.LAUNCHES['epoch_base_maps2_tiles'] == 0
 
 
 def test_f32_card_products_match_f64_cpu(card):

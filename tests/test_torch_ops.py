@@ -178,6 +178,34 @@ def test_plain_tile_kernels_match_pallas_interpret():
     assert _rel(ga, wa) < 1e-5 and _rel(gb, wb) < 1e-5
 
 
+def test_epoch_map_wrapper_with_a_walk_is_the_plain_version():
+    """With the cached walk, as JetModel passes it, the single-base wrapper
+    still takes CPU tensors to the plain version, which matches the Pallas
+    kernel; segments of several tiles out of order, positions with no
+    tile, ragged x and z."""
+    rng = np.random.default_rng(5)
+    n_act = 7
+    a, _, tss, off = _random_epoch_inputs(rng, (n_act, 8, 64, 128))
+    seg = np.array([5, 5, 0, 1, 5, 2, 2], np.int32)
+    nx, nz = 21, 300
+    t = 2.2 * YEAR
+    want = pk.epoch_base_map_tiles(jnp.asarray(a), jnp.asarray(tss),
+                                   jnp.asarray(seg), t, BURSTS, nx, nz,
+                                   interpret=True, pack_offset=off)
+    walk = tuple(torch.as_tensor(w) for w in kn.segment_order(seg, 3 * 3))
+    seg_t = torch.as_tensor(seg, dtype=torch.int64)
+    a_t, tss_t = torch.as_tensor(a), torch.as_tensor(tss)
+    kn.reset_launches()
+    got = kn.epoch_base_map_tiles(a_t, tss_t, seg_t, t, BURSTS, nx, nz, off,
+                                  walk=walk)
+    assert not any(kn.LAUNCHES.values())
+    assert torch.equal(got, kn.epoch_base_map_tiles_plain(
+        a_t, tss_t, seg_t, t, BURSTS, nx, nz, off))
+    assert got.shape == (nx, nz)
+    assert _rel(got, want) < 1e-5
+    assert not got[8:16, :128].any() and not got[16:, 128:256].any()
+
+
 def test_plain_full_kernel_matches_pallas_interpret():
     rng = np.random.default_rng(3)
     a, _, tss, off = _random_epoch_inputs(rng, (20, 150, 140))

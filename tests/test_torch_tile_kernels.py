@@ -1,5 +1,5 @@
-"""The dual-base epoch tile kernel (K2), the emergent tile kernel (K6) and
-their shared burst factor, on the CPU.
+"""The epoch tile kernel (K1 and K2, one kernel for one or two bases), the
+emergent tile kernel (K6) and their shared burst factor, on the CPU.
 
 The CUDA kernels (csrc/epoch_maps.cu, csrc/emergent_maps.cu, csrc/bursts.cuh)
 cannot run here, so what they rely on from the host, and the arithmetic of
@@ -10,10 +10,12 @@ against the plain versions (and the Pallas kernel in the interpreter):
   original order; ``burst_chi`` sums only the cell's own side's bursts, and
   a float32 emulation of that per-side loop equals ``_chi_plain`` bit for
   bit (the other side's terms are added there as zeros);
-* K2 walks each (x, z) tile position's tiles through ``(order, seg_start)``
-  (cached once per model by ``JetModel._rt_static``), each thread summing a
-  quarter of every tile's y cells, the quarters combined in a fixed order,
-  cells whose bases are both 0 skipped;
+* the epoch tile kernel walks each (x, z) tile position's tiles through
+  ``(order, seg_start)`` (cached once per model by ``JetModel._rt_static``),
+  each thread summing a quarter of every tile's y cells, the quarters
+  combined in a fixed order, cells whose bases are all 0 skipped; with one
+  base (K1) it gives the two-base kernel's (K2) map of that base bit for
+  bit;
 * K6 splits each column's jet cells of a tile into K chunks, scans each
   from its own start to (I_k, tau_k), and folds the chunks in observer
   order, I += I_k e^{-tau}, tau += tau_k.
@@ -33,7 +35,7 @@ from rajepy_tpu_torch import constants as cnsts
 from rajepy_tpu_torch.ops import kernels as kn
 
 YEAR = 31536000.0
-K2_GROUPS = 4           # y groups of a K2 block (K2_GROUPS in epoch_maps.cu)
+MAPS_GROUPS = 4         # y groups of a block (MAPS_GROUPS in epoch_maps.cu)
 
 
 def _bundled_params(n=(32, 80, 32)):
@@ -130,21 +132,23 @@ def test_per_side_chi_equals_chi_plain_bit_for_bit(inc, pa):
 
 
 # --------------------------------------------------------------------------- #
-# K2: the segment walk and the fixed-order combine
+# K1 and K2: the segment walk and the fixed-order combine
 # --------------------------------------------------------------------------- #
-def _k2_walk(a_t, b_t, tss_t, order, seg_start, t, bursts, off, nx, nz):
-    """epoch_maps2_kernel's walk in numpy, in the tiles' dtype: item
-    (position s, x row xr); thread (z, g) sums y = 16 g .. 16 g + 15 of each
-    of the position's tiles in walk order, skipping cells whose bases are
-    both 0; group 0 adds the four groups' sums in order; rows and columns
-    beyond the grid are dropped, positions with no tile give exact 0."""
-    a, b = a_t.numpy(), b_t.numpy()
+def _k2_walk(bases, tss_t, order, seg_start, t, bursts, off, nx, nz):
+    """epoch_maps_kernel<NB>'s walk in numpy, in the tiles' dtype, for the
+    NB = len(bases) bases: item (position s, x row xr); thread (z, g) sums
+    y = 16 g .. 16 g + 15 of each of the position's tiles in walk order,
+    skipping cells whose bases are all 0; group 0 adds the four groups'
+    sums in order; rows and columns beyond the grid are dropped, positions
+    with no tile give exact 0.  Returns the (NB, nx, nz) maps."""
+    bs = np.stack([x.numpy() for x in bases])
+    nb = len(bases)
     chi = kn._chi_plain(tss_t, t, bursts, off).numpy()
     chi2 = chi * chi
-    _, bx, ny, bz = a.shape
-    rows = ny // K2_GROUPS
+    _, _, bx, ny, bz = bs.shape
+    rows = ny // MAPS_GROUPS
     n_zt = -(-nz // bz)
-    out = np.full((2, nx, nz), np.nan, dtype=a.dtype)
+    out = np.full((nb, nx, nz), np.nan, dtype=bs.dtype)
     for s in range(len(seg_start) - 1):
         tiles = order[seg_start[s]:seg_start[s + 1]]
         for xr in range(bx):
@@ -153,21 +157,37 @@ def _k2_walk(a_t, b_t, tss_t, order, seg_start, t, bursts, off, nx, nz):
                 continue
             z0 = (s % n_zt) * bz
             nzs = min(bz, nz - z0)
-            part = np.zeros((2, K2_GROUPS, bz), dtype=a.dtype)
-            for g in range(K2_GROUPS):
+            part = np.zeros((nb, MAPS_GROUPS, bz), dtype=bs.dtype)
+            for g in range(MAPS_GROUPS):
                 for k in tiles:
                     for y in range(g * rows, (g + 1) * rows):
-                        va, vb, c2 = a[k, xr, y], b[k, xr, y], chi2[k, xr, y]
-                        live = (va != 0) | (vb != 0)
-                        part[0, g] = np.where(live, part[0, g] + va * c2,
-                                              part[0, g])
-                        part[1, g] = np.where(live, part[1, g] + vb * c2,
-                                              part[1, g])
+                        v, c2 = bs[:, k, xr, y], chi2[k, xr, y]
+                        live = (v != 0).any(axis=0)
+                        part[:, g] = np.where(live, part[:, g] + v * c2,
+                                              part[:, g])
             tot = part[:, 0].copy()
-            for g in range(1, K2_GROUPS):
+            for g in range(1, MAPS_GROUPS):
                 tot = tot + part[:, g]
             out[:, x, z0:z0 + nzs] = tot[:, :nzs]
     return out
+
+
+def _plain_maps(bases, tss_t, seg, t, bursts, nx, nz, off):
+    """The plain version of the kernel for one or two bases."""
+    if len(bases) == 1:
+        return (kn.epoch_base_map_tiles_plain(bases[0], tss_t, seg, t,
+                                              bursts, nx, nz, off),)
+    return kn.epoch_base_maps2_tiles_plain(*bases, tss_t, seg, t, bursts, nx,
+                                           nz, off)
+
+
+def _wrapper_maps(bases, tss_t, seg, t, bursts, nx, nz, off, walk):
+    """The wrapper of the kernel for one or two bases, given the walk."""
+    if len(bases) == 1:
+        return (kn.epoch_base_map_tiles(bases[0], tss_t, seg, t, bursts, nx,
+                                        nz, off, walk=walk),)
+    return kn.epoch_base_maps2_tiles(*bases, tss_t, seg, t, bursts, nx, nz,
+                                     off, walk=walk)
 
 
 @pytest.mark.parametrize("seg_l,nx,nz", [
@@ -177,17 +197,21 @@ def _k2_walk(a_t, b_t, tss_t, order, seg_start, t, bursts, off, nx, nz):
 ])
 @pytest.mark.parametrize("dtype,rtol", [(np.float32, 1e-6),
                                         (np.float64, 1e-12)])
-def test_k2_walk_matches_the_plain_maps(seg_l, nx, nz, dtype, rtol):
+@pytest.mark.parametrize("n_bases", [1, 2])
+def test_k2_walk_matches_the_plain_maps(seg_l, nx, nz, dtype, rtol,
+                                        n_bases):
     rng = np.random.default_rng(len(seg_l) + nx)
     a_t, b_t, tss_t, off = _random_tiles(rng, len(seg_l), dtype)
+    bases = (a_t, b_t)[:n_bases]
     jm = JetModel(_bundled_params(), dtype=torch.float32, device='cpu')
     bursts, t = jm._burst_tuple(), 2.0 * YEAR
     seg = np.asarray(seg_l)
     n_seg = -(-nx // 8) * -(-nz // 128)
     order, seg_start = kn.segment_order(seg, n_seg)
-    got = _k2_walk(a_t, b_t, tss_t, order, seg_start, t, bursts, off, nx, nz)
-    want = kn.epoch_base_maps2_tiles_plain(
-        a_t, b_t, tss_t, torch.as_tensor(seg), t, bursts, nx, nz, off)
+    got = _k2_walk(bases, tss_t, order, seg_start, t, bursts, off, nx, nz)
+    want = _plain_maps(bases, tss_t, torch.as_tensor(seg), t, bursts, nx,
+                       nz, off)
+    assert len(got) == len(want) == n_bases
     for g, w in zip(got, want):
         w = w.numpy()
         assert not np.isnan(g).any()
@@ -198,18 +222,47 @@ def test_k2_walk_matches_the_plain_maps(seg_l, nx, nz, dtype, rtol):
         assert not got[:, (s // n_zt) * 8:(s // n_zt) * 8 + 8,
                        (s % n_zt) * 128:(s % n_zt) * 128 + 128].any()
     # on the CPU the wrapper is the plain version, walk or none
-    by_walk = kn.epoch_base_maps2_tiles(
-        a_t, b_t, tss_t, torch.as_tensor(seg), t, bursts, nx, nz, off,
-        walk=tuple(torch.as_tensor(w) for w in (order, seg_start)))
+    by_walk = _wrapper_maps(bases, tss_t, torch.as_tensor(seg), t, bursts,
+                            nx, nz, off,
+                            tuple(torch.as_tensor(w) for w in
+                                  (order, seg_start)))
     for g, w in zip(by_walk, want):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("seg_l,nx,nz", [
+    ([0, 0, 3, 1, 3, 2, 0], 24, 200),
+    ([5, 5, 5, 0, 1, 2, 2], 21, 300),
+])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_one_base_walk_is_the_two_base_walks_map_bit_for_bit(seg_l, nx, nz,
+                                                             dtype):
+    """One summation order for both instantiations: the one-base walk of
+    a (or of b) equals the two-base walk's map of it, although a cell where
+    only the other base is non-zero is skipped by one and adds +0 in the
+    other."""
+    rng = np.random.default_rng(nx + nz)
+    a_t, b_t, tss_t, off = _random_tiles(rng, len(seg_l), dtype)
+    assert bool(((a_t == 0) & (b_t != 0)).any())
+    jm = JetModel(_bundled_params(), dtype=torch.float32, device='cpu')
+    bursts, t = jm._burst_tuple(), 2.0 * YEAR
+    order, seg_start = kn.segment_order(np.asarray(seg_l),
+                                        -(-nx // 8) * -(-nz // 128))
+    walk = (order, seg_start, t, bursts, off, nx, nz)
+    both = _k2_walk((a_t, b_t), tss_t, *walk)
+    for j, base in enumerate((a_t, b_t)):
+        one = _k2_walk((base,), tss_t, *walk)
+        assert one.shape == (1, nx, nz) and one.any()
+        np.testing.assert_array_equal(one[0], both[j])
+
+
 @pytest.mark.parametrize("inc", [90.0, 30.0])
-def test_k2_walk_on_the_conftest_jet(model_params, inc):
+@pytest.mark.parametrize("n_bases", [1, 2])
+def test_k2_walk_on_the_conftest_jet(model_params, inc, n_bases):
     """The 32x80x32 test jet; at inc 30 two y tiles lie on some tile
     positions.  The walk is the one _rt_static caches (and the RRL tiles
-    share), in float32 and, cast, in float64."""
+    share), in float32 and, cast, in float64: the one-base walk of a (K1)
+    and the two-base walk of a and em (K2)."""
     p = copy.deepcopy(model_params)
     p['geometry']['inc'] = inc
     jm = JetModel(p, dtype=torch.float32, device='cpu')
@@ -224,15 +277,48 @@ def test_k2_walk_on_the_conftest_jet(model_params, inc):
     assert np.any(np.diff(seg_start) > 1) == (inc == 30.0)
     bursts, off = jm._burst_tuple(), jm._ts_pack_offset
     for dtype, rtol in ((torch.float32, 1e-6), (torch.float64, 1e-12)):
-        tiles = [x.to(dtype) for x in (st.a_t, st.em_t, st.tss_t)]
-        got = _k2_walk(*tiles, order, seg_start, jm.time, bursts, off,
+        bases = tuple(x.to(dtype) for x in (st.a_t, st.em_t))[:n_bases]
+        tss_t = st.tss_t.to(dtype)
+        got = _k2_walk(bases, tss_t, order, seg_start, jm.time, bursts, off,
                        jm.nx, jm.nz)
-        want = kn.epoch_base_maps2_tiles_plain(*tiles, st.seg, jm.time,
-                                               bursts, jm.nx, jm.nz, off)
+        want = _plain_maps(bases, tss_t, st.seg, jm.time, bursts, jm.nx,
+                           jm.nz, off)
         for g, w in zip(got, want):
             w = w.numpy()
             assert w.max() > 0
             np.testing.assert_allclose(g, w, rtol=rtol, atol=rtol * w.max())
+
+
+def test_epoch_base_map_hands_the_cached_walk_to_the_kernel(model_params,
+                                                            monkeypatch):
+    """Every single-base map of a float32 model (flux_ff, intensity_ff,
+    optical_depth_ff, emission_measure, the RRL continuum) reaches the
+    tile kernel through JetModel._epoch_base_map with the walk cached in
+    RTStatic, so no epoch derives it on the host."""
+    jm = JetModel(copy.deepcopy(model_params), dtype=torch.float32,
+                  device='cpu')
+    jm.time = 2.0 * YEAR
+    st = jm._rt_static()
+    assert st.walk is not None
+    seen = []
+    wrapper = kn.epoch_base_map_tiles
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get('walk'))
+        return wrapper(*args, **kwargs)
+
+    monkeypatch.setattr(kn, 'epoch_base_map_tiles', spy)
+    f = jm._ensure_fields()
+    for kind, base_t in (('a', st.a_t), ('em', st.em_t)):
+        got = jm._epoch_base_map(kind, f, st, jm.time)
+        want = kn.epoch_base_map_tiles_plain(base_t, st.tss_t, st.seg,
+                                             jm.time, jm._burst_tuple(),
+                                             jm.nx, jm.nz,
+                                             jm._ts_pack_offset)
+        assert torch.equal(got, want)
+    jm.flux_ff(np.array([6e9]))
+    jm.emission_measure()
+    assert len(seen) == 4 and all(w is st.walk for w in seen)
 
 
 # --------------------------------------------------------------------------- #
