@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's continuum, RRL, emergent and pipeline main
-paths once on one NVIDIA GPU.
+"""Run the PyTorch/CUDA port's continuum, RRL, emergent, pipeline and
+synthetic-observation main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -64,6 +64,24 @@ Phases (any failure exits non-zero; nothing is caught):
       ``Pipeline.load_pipeline`` must give the same run table, and
       ``clobber=True`` on one run must recompute it.  Prints every run's
       device-compute, copy-out, FITS-write and checkpoint times.
+   e. synthetic observations: ``Pipeline(jm, params).execute(plot=False,
+      resume=False, clobber=True)`` (``simobserve`` at its default, True)
+      on the same model with the bundled ``example-pipeline-params.py`` as
+      shipped: six continuum runs (0-5 yr, VLA A, 6 GHz, 2 channels), each
+      observed (718,848 visibilities, a 500 x 500 image, 500 Hogbom
+      iterations at most) in float64 on the card.  The dual-base epoch
+      kernel must have been launched 6 times; every run must complete with
+      its visibility sets, restored image (Jy/beam, with its beam),
+      ``.estimates`` and ``.imfit``; std(noisy - clean) of each part within
+      1% of sigma.  Run 1 through the synthobs functions on the card and
+      on the CPU, each stage from the same inputs: the clean visibilities
+      (also bit for bit the pipeline's), the dirty image and PSF, and the
+      restored image to 1e-10 of their peaks, ``hogbom_clean`` bit for bit
+      with the same iteration count.  A second ``simulate_observation`` of
+      run 1 must give the same visibilities and image bit for bit, and a
+      resumed ``execute`` must launch and rewrite nothing.  Prints every
+      run's stages, the imfit peak and flux, each stage's time on both
+      devices, the Hogbom loop's iterations per second and peak memory.
    Outputs must be finite, non-zero where the jet is (all-zero on the
    jet-free grid), equal to the plain versions on the same card tensors
    (2e-4), and a small model at float32 must agree with the float64 plain
@@ -191,6 +209,14 @@ STAGE_COMPUTE = 'rt stage: device compute'
 STAGE_COPY = 'rt stage: product transfer'
 STAGE_COPY_WRITE = 'rt stage: product transfer + FITS write'
 STAGE_CKPT = 'checkpoint write'
+# the synthetic observation's stages (phase 2e), as utils.profiling records
+# them; the imaging stage's name ends with the image size
+SYNTHOBS_STAGES = ('synthobs: uv tracks', 'synthobs: vis sampling (+noise)',
+                   'synthobs: vis npz write', 'synthobs: mfs imaging',
+                   'synthobs: image FITS write', 'host source fit (imfit)')
+SYNTHOBS_RTOL = 1e-10     # the card against the CPU, float64 throughout
+SYNTHOBS_NOISE_RTOL = 0.01
+SYNTHOBS_IMSIZE = 500
 
 
 def rel_err(got, want):
@@ -1367,6 +1393,292 @@ def run_pipeline(jm, log, tmp, smi):
     return launches
 
 
+def synthobs_mask(sky_hdr, img_hdr, ny, nx):
+    """simulate_observation's CLEAN box: the model's extent in the image."""
+    cell_as = abs(float(img_hdr['CDELT2'])) * 3600.0
+    half_x = int(np.ceil(nx * abs(float(sky_hdr['CDELT1'])) * 3600.0 /
+                         cell_as / 2.0)) + 2
+    half_y = int(np.ceil(ny * abs(float(sky_hdr['CDELT2'])) * 3600.0 /
+                         cell_as / 2.0)) + 2
+    n = SYNTHOBS_IMSIZE
+    mask = np.zeros((n, n))
+    c0 = n // 2
+    mask[max(c0 - half_y, 0):c0 + half_y,
+         max(c0 - half_x, 0):c0 + half_x] = 1.0
+    return mask, cell_as
+
+
+def synthobs_card_vs_cpu(run, smi):
+    """Run 1's synthetic observation through the port's synthobs functions
+    on the card and on the CPU, each stage from the same inputs; the card's
+    stages timed by CUDA events (phase 2e)."""
+    import torch
+    from rajepy_tpu_torch import constants as cnsts
+    from rajepy_tpu_torch.io import fits as fitsio
+    from rajepy_tpu_torch.synthobs import imaging, observatories, sampler
+    sky, sky_hdr = fitsio.read_fits(run.fits_flux)
+    _, img_hdr = fitsio.read_fits(run.products['clean_image'])
+    with np.load(run.products['ms_clean']) as f:
+        uvw, freqs = f['uvw'], f['freqs']
+        clean_saved = f['vis_re'] + 1j * f['vis_im']
+    with np.load(run.products['ms_noisy']) as f:
+        noisy = f['vis_re'] + 1j * f['vis_im']
+    cell_model = abs(float(sky_hdr['CDELT2'])) * np.pi / 180.0
+    dish = float(np.mean(observatories.read_antenna_config(
+        observatories.cfg_file(*run.tscop))['diam']))
+    mask, cell_as = synthobs_mask(sky_hdr, img_hdr, *sky.shape[-2:])
+    cell = cell_as * cnsts.ARCSEC
+    lam = cnsts.C / freqs
+    us = (uvw[None, :, 0] / lam[:, None]).ravel()
+    vs = (uvw[None, :, 1] / lam[:, None]).ravel()
+
+    def timed(fn):
+        """(result, ms) of one call by the host clock, the card idle on
+        both sides."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    out, ms = {}, {}
+    for dev in ('cuda', 'cpu'):
+        def t(a):
+            return torch.as_tensor(a, dtype=torch.float64, device=dev)
+        sky_d = t(sky)
+        vis, ms_vis = timed(lambda: sampler.sample_vis_cube(
+            sky_d, cell_model, uvw, freqs, apply_pb=True,
+            dish_diameter_m=dish, centre='fits'))
+        vis_n = torch.as_tensor(noisy.ravel(), device=dev)
+        wb, ms_w = timed(lambda: imaging.briggs_weights(
+            t(us), t(vs), t(np.ones_like(us)), SYNTHOBS_IMSIZE, cell))
+        (dirty, psf), ms_g = timed(lambda: imaging.grid_and_image(
+            t(us), t(vs), vis_n, wb, SYNTHOBS_IMSIZE, cell))
+        out[dev] = dict(vis=torch.view_as_real(vis).cpu(), dirty=dirty.cpu(),
+                        psf=psf.cpu())
+        ms[dev] = dict(sample=ms_vis, weights=ms_w, grid=ms_g)
+    if not np.array_equal(torch.view_as_complex(out['cuda']['vis']).numpy(),
+                          clean_saved):
+        raise AssertionError("sample_vis_cube on the card is not the "
+                             "pipeline's clean visibility set bit for bit")
+    errs = {'vis': check('sample_vis_cube (clean vis), card vs CPU',
+                         out['cuda']['vis'], out['cpu']['vis'],
+                         SYNTHOBS_RTOL)[0]}
+    for name in ('dirty', 'psf'):
+        errs[name] = check(f'grid_and_image {name}, card vs CPU',
+                           out['cuda'][name], out['cpu'][name],
+                           SYNTHOBS_RTOL)[0]
+    # CLEAN and restore on the same inputs: the card's dirty image and PSF
+    dirty, psf = out['cuda']['dirty'].numpy(), out['cuda']['psf'].numpy()
+    thr = 3.0 * float(np.std(dirty[mask == 0]))
+    beam = imaging.fit_psf_beam(psf, cell)
+    kern = imaging.gaussian_beam_kernel(SYNTHOBS_IMSIZE, cell, *beam)
+    clean = {}
+    for dev in ('cuda', 'cpu'):
+        d, p = (torch.as_tensor(a, device=dev) for a in (dirty, psf))
+        (mdl, res, its), ms_c = timed(lambda: imaging.hogbom_clean(
+            d, p, mask, gain=0.1, niter=500, threshold=thr))
+        rest, ms_r = timed(lambda: imaging.restore(mdl, res, kern))
+        clean[dev] = (mdl.cpu(), res.cpu(), its, rest.cpu())
+        ms[dev].update(clean=ms_c, restore=ms_r)
+    (m_g, r_g, n_g, rest_g), (m_c, r_c, n_c, rest_c) = \
+        clean['cuda'], clean['cpu']
+    if n_g != n_c or not torch.equal(m_g, m_c) or not torch.equal(r_g, r_c):
+        raise AssertionError(
+            f"hogbom_clean on the card is not the CPU's bit for bit: "
+            f"n_iter {n_g} / {n_c}, model max diff "
+            f"{float((m_g - m_c).abs().max()):.3e}, residual max diff "
+            f"{float((r_g - r_c).abs().max()):.3e}")
+    print(f"  hogbom_clean, card vs CPU on the same dirty image and PSF: "
+          f"model and residual bit for bit, n_iter {n_g} on both "
+          f"(threshold {thr:.3e} Jy/beam)")
+    errs['restore'] = check('restore, card vs CPU', rest_g, rest_c,
+                            SYNTHOBS_RTOL)[0]
+    # the CLEAN loop alone, warm, on the card: iterations per second
+    d, p = (torch.as_tensor(a, device='cuda') for a in (dirty, psf))
+    clean_ms = [timed(lambda: imaging.hogbom_clean(
+        d, p, mask, gain=0.1, niter=500, threshold=thr))[1]
+        for _ in range(3)]
+    it_s = n_g / (statistics.median(clean_ms) / 1e3)
+    for dev in ('cuda', 'cpu'):
+        print(f"  run 1 on the {dev}: sample_vis_cube "
+              f"{ms[dev]['sample']:.4f} ms, briggs_weights "
+              f"{ms[dev]['weights']:.4f} ms, grid_and_image "
+              f"{ms[dev]['grid']:.4f} ms, hogbom_clean "
+              f"{ms[dev]['clean']:.4f} ms, restore "
+              f"{ms[dev]['restore']:.4f} ms (one call each, the card's "
+              f"the first in the process; host clock)")
+    print(f"  hogbom_clean warm on the card: {n_g} iterations in "
+          f"{statistics.median(clean_ms):.4f} ms (median of 3: "
+          f"{', '.join(f'{x:.4f}' for x in clean_ms)}), {it_s:.1f} "
+          f"iterations per second [{smi}]")
+    return errs, it_s
+
+
+def run_synthobs(jm, log, tmp, smi):
+    """The synthetic observations, counted (phase 2e): the bundled campaign
+    as shipped through ``Pipeline.execute`` with ``simobserve`` at its
+    default on the flagship model; its products, the card against the CPU,
+    the noise, a deterministic repeat and a resume."""
+    import shutil
+    import torch
+    from rajepy_tpu_torch import Pipeline
+    from rajepy_tpu_torch.io import fits as fitsio
+    from rajepy_tpu_torch.ops import kernels as kn
+    from rajepy_tpu_torch.synthobs import simulate_observation
+    from rajepy_tpu_torch.utils import profiling
+    params = Pipeline.py_to_dict(os.path.join(
+        HERE, 'rajepy_tpu_torch', 'data', 'example-pipeline-params.py'))
+    dcy = os.path.join(tmp, 'synthobs')
+    params['dcys']['model_dcy'] = dcy
+    pline = Pipeline(jm, params, log=log)
+    runs = pline.runs
+    if [r.obs_type for r in runs] != ['continuum'] * 6 or \
+            not all(r.simobserve for r in runs):
+        raise AssertionError("the bundled campaign is not six continuum "
+                             "runs configured for synthetic observations")
+    print(f"phase 2e: synthetic observations, {N_GRID}^3 float32, "
+          f"{len(runs)} continuum runs ({len(runs[0].chan_freqs)} ch at "
+          f"{runs[0].freq:.1e} Hz, {runs[0].year:g}-{runs[-1].year:g} yr, "
+          f"{runs[0].tscop[0]} {runs[0].tscop[1]}, t_obs {runs[0].t_obs:g} "
+          f"s): execute(plot=False, resume=False, clobber=True)")
+
+    events = []
+    record = profiling.record_stage
+
+    def recording(name, seconds):
+        events.append((name, seconds))
+        record(name, seconds)
+
+    profiling.record_stage = recording
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        profiling.collect_stage_times(True)
+        kn.reset_launches()
+        t_wall = time.perf_counter()
+        pline.execute(plot=False, verbose=False, resume=False, clobber=True)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t_wall
+    finally:
+        profiling.record_stage = record
+    launches = read_launches('synthobs')
+    totals = profiling.stage_times()
+    profiling.collect_stage_times(False)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches['epoch_base_maps2_tiles'] != len(runs):
+        raise AssertionError(f"execute with synthetic observations must "
+                             f"launch the dual-base epoch kernel once per "
+                             f"run ({len(runs)}): {launches}")
+
+    # one line per run: its stages between two device-compute records
+    per_run = []
+    for name, seconds in events:
+        if name == STAGE_COMPUTE:
+            per_run.append({})
+        if per_run:
+            key = next((k for k in SYNTHOBS_STAGES if name.startswith(k)),
+                       name)
+            per_run[-1][key] = per_run[-1].get(key, 0.0) + seconds
+    if len(per_run) != len(runs) or \
+            not all(k in st for st in per_run for k in SYNTHOBS_STAGES):
+        raise AssertionError(f"the runs recorded these stages: {per_run}")
+    for i, (run, st) in enumerate(zip(runs, per_run)):
+        print(f"  run {i + 1} ({run.year:g} yr): RT device compute "
+              f"{st[STAGE_COMPUTE] * 1e3:.4f} ms; " + ', '.join(
+                  f"{k.replace('synthobs: ', '')} {st[k] * 1e3:.4f} ms"
+                  for k in SYNTHOBS_STAGES) + f" [{smi}]")
+    so_total = sum(v for k, v in totals.items()
+                   if k.startswith(SYNTHOBS_STAGES))
+    print(f"  execute {wall_s:.4f} s in all, of which the synthetic "
+          f"observations' stages {so_total:.4f} s; stage totals: " +
+          ', '.join(f"{k} {v:.4f} s" for k, v in sorted(totals.items())) +
+          f"; peak device memory {peak_gb:.3f} GB [{smi}]")
+
+    # runs and files
+    noise_err = 0.0
+    for i, run in enumerate(runs):
+        if not run.completed:
+            raise AssertionError(f"run {i + 1} did not complete")
+        prods = run.products
+        for key in ('ms_clean', 'ms_noisy', 'clean_image', 'estimates',
+                    'imfit'):
+            if not os.path.isfile(prods.get(key, '')):
+                raise AssertionError(f"run {i + 1}: no {key} product")
+        img, hdr = fitsio.read_fits(prods['clean_image'])
+        if img.shape != (SYNTHOBS_IMSIZE, SYNTHOBS_IMSIZE) or \
+                hdr['BUNIT'] != 'Jy/beam' or \
+                not all(k in hdr for k in ('BMAJ', 'BMIN', 'BPA')) or \
+                not np.all(np.isfinite(img)) or not img.max() > 0:
+            raise AssertionError(f"run {i + 1}: restored image {img.shape}, "
+                                 f"BUNIT {hdr.get('BUNIT')}")
+        fit = run.results.get('imfit')
+        flux = run.results['flux']
+        if not fit or not fit['Peak']['val'] > 0 or not flux > 0:
+            raise AssertionError(f"run {i + 1}: imfit {fit}, flux {flux}")
+        with np.load(prods['ms_clean']) as fc, \
+                np.load(prods['ms_noisy']) as fn:
+            d = (fn['vis_re'] - fc['vis_re'], fn['vis_im'] - fc['vis_im'])
+            sigma = float(fn['sigma'])
+            n_vis = fc['vis_re'].size
+        for part in d:
+            noise_err = max(noise_err, abs(float(part.std()) / sigma - 1.0))
+        print(f"  run {i + 1}: imfit peak {fit['Peak']['val']:.6e} "
+              f"{fit['Peak']['unit']}, integrated {fit['I']['val']:.6e} "
+              f"{fit['I']['unit']}; results['flux'] {flux:.6e} Jy; beam "
+              f"{hdr['BMAJ'] * 3600:.4f}\" x {hdr['BMIN'] * 3600:.4f}\" at "
+              f"{hdr['BPA']:.2f} deg; {n_vis} visibilities, sigma "
+              f"{sigma:.6e} Jy")
+    if not noise_err <= SYNTHOBS_NOISE_RTOL:
+        raise AssertionError(f"std(noisy - clean) is {noise_err:.4f} away "
+                             f"from sigma (tolerance {SYNTHOBS_NOISE_RTOL})")
+    print(f"  noise: std(noisy - clean) of each part within {noise_err:.5f} "
+          f"of sigma over each run's {n_vis} visibilities (tolerance "
+          f"{SYNTHOBS_NOISE_RTOL:g})")
+
+    # the card against the CPU on run 1
+    errs, it_s = synthobs_card_vs_cpu(runs[0], smi)
+
+    # a second observation of run 1 on the card: the same bits
+    run = runs[0]
+
+    def vis_and_image():
+        with np.load(run.products['ms_clean']) as fc, \
+                np.load(run.products['ms_noisy']) as fn:
+            arrs = [f[k] for f in (fc, fn) for k in ('vis_re', 'vis_im')]
+        return arrs + [fitsio.read_fits(run.products['clean_image'])[0]]
+
+    first = vis_and_image()
+    simulate_observation(pline, run, min_el=params['min_el'])
+    if not all(np.array_equal(a, b) for a, b in zip(first, vis_and_image())):
+        raise AssertionError("a second simulate_observation of run 1 on "
+                             "the card gave other visibilities or another "
+                             "restored image")
+    print("  a second simulate_observation of run 1 on the card: the same "
+          "visibilities and restored image bit for bit")
+
+    # resume: every run is complete, so nothing is launched or rewritten
+    def stamps():
+        return {p: os.stat(p).st_mtime_ns for r in runs
+                for p in list(r.products.values()) + [r.fits_flux]}
+
+    before = stamps()
+    kn.reset_launches()
+    t0 = time.perf_counter()
+    pline.execute(plot=False, verbose=False, resume=True)
+    resume_s = time.perf_counter() - t0
+    if any(kn.LAUNCHES.values()) or stamps() != before:
+        raise AssertionError(f"the resumed execute launched kernels or "
+                             f"rewrote products: {dict(kn.LAUNCHES)}")
+    print(f"  second execute (resume=True) {resume_s:.4f} s: no launch, "
+          f"none of the {len(before)} products rewritten [{smi}]")
+    del pline
+    shutil.rmtree(dcy)
+    torch.cuda.empty_cache()
+    return launches, {'wall_s': wall_s, 'it_s': it_s, 'peak_gb': peak_gb,
+                      'errs': errs}
+
+
 def check_emergent(jm, em):
     """Phase 2c's comparisons on the card: the main path against the plain
     versions, each kernel against its plain version at the main path's
@@ -1778,6 +2090,7 @@ def main() -> int:
         by_path = {'continuum': cont_launches, 'rrl': rrl_launches,
                    'emergent': em_launches,
                    'pipeline': run_pipeline(jm, log, tmp, smi)}
+        by_path['synthobs'], synthobs = run_synthobs(jm, log, tmp, smi)
         # the pipeline is what a user runs: its counts stand for the two
         # kernels it launches
         launches.update({k: by_path['pipeline'][k] for k in PIPELINE_KERNELS})
@@ -1928,6 +2241,11 @@ def main() -> int:
               f"s (second {N_GRID}^3 fill); continuum run "
               f"{cont['wall_s']:.4f} s (two fills, statics, all products); "
               f"peak memory {cont['peak_gb']:.3f} GB")
+        print(f"  synthetic observations (phase 2e): execute "
+              f"{synthobs['wall_s']:.4f} s for six continuum runs, Hogbom "
+              f"{synthobs['it_s']:.1f} iterations per second, peak memory "
+              f"{synthobs['peak_gb']:.3f} GB; card vs CPU: " + ', '.join(
+                  f"{k} {v:.3e}" for k, v in synthobs['errs'].items()))
         print(f"  RRL run {rrl['wall_s']:.4f} s (tiles, LTE and non-LTE "
               f"{RRL_NCHAN}-channel products, 16-channel tau and flux, the "
               f"jet-free grid); peak memory {rrl['peak_gb']:.3f} GB")

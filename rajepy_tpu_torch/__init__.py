@@ -6,11 +6,14 @@ The package mirrors rajepy_tpu's module paths and names.  It imports
 installed.  Ported so far: ``JetModel`` (construction, the grid fill, the
 free-free continuum products, the radio-recombination-line products in LTE
 and non-LTE, the ordered emergent intensity, FITS products and
-checkpoints), the run descriptors, and ``Pipeline`` with
-``execute(simobserve=False, plot=False)``: the run matrix, per-run FITS
-products under ``Day<d>/<freq|line>/``, resume, clobber and dryrun.  Every
-Pallas kernel of rajepy_tpu has a hand-written CUDA counterpart under
-``csrc/``.  Not ported yet: synthetic observations, plotting, fitting, the
+checkpoints), the run descriptors, ``Pipeline`` with ``execute(plot=False)``
+(the run matrix, per-run FITS products under ``Day<d>/<freq|line>/``,
+resume, clobber and dryrun), and the synthetic observations of continuum
+runs (``synthobs``: uv tracks, visibility sampling, Briggs gridding, Hogbom
+CLEAN, restoration and imfit), which ``execute(simobserve=True)`` runs.
+Every Pallas kernel of rajepy_tpu has a hand-written CUDA counterpart under
+``csrc/``.  Not ported yet: the synthetic observation of line cubes, the
+other deconvolvers, calibration and UVFITS export, plotting, fitting, the
 multi-device fan-out and the CLI.
 
 Package layout
@@ -24,6 +27,10 @@ Package layout
 - ``models``    grid construction, field evaluation, ejection bursts,
                 the ``JetModel`` API, run descriptors
 - ``pipeline``  the multi-epoch, multi-frequency orchestrator
+- ``synthobs``  CASA-free synthetic observations of continuum runs:
+                antenna configurations and uv tracks, visibility sampling
+                and noise, imaging and CLEAN, source fitting (a subpackage,
+                imported where used)
 - ``io``        FITS writer/reader, npz/JSON checkpoints
 - ``utils``     logging, validation, profiling, misc helpers
 """

@@ -4,6 +4,8 @@ port of the matching part of rajepy_tpu.ops.physics).
 * ``q_n``           — reference physics.py:17-35
 * ``q_tau``         — physics.py:38-63
 * ``v_rot``         — physics.py:66-90
+* ``tau_r``, ``tau_r_from_params``, ``tau_r_from_jm`` — physics.py:93-178
+  (Reynolds eq. 4; scalars or tensors)
 * ``n_0_from_mlr``  — physics.py:474-517
 * ``doppler_shift``, ``blackbody_nu``, ``nu_rrl`` — the RRL relations,
   physics.py:547-604
@@ -18,6 +20,7 @@ import math
 import torch
 
 from .. import constants as cnsts
+from . import geometry as geom
 
 
 def q_n(epsilon: float, q_v: float) -> float:
@@ -36,6 +39,37 @@ def v_rot(r, reff, rho, epsilon, m_star):
     return torch.sqrt(cnsts.G * m_star * cnsts.MSOL /
                       (reff * cnsts.AU)) * rho ** -epsilon / 1e3
 
+
+
+# --------------------------------------------------------------------------- #
+# Reynolds (1986) analytic optical depth
+# --------------------------------------------------------------------------- #
+def tau_r(r, r_0, w_0, n_0, chi_0, T_0, freq, inc, epsilon, q_n_, q_x, q_T,
+          opang):
+    """Optical depth across the jet at axis distance r [au] — Reynolds (1986)
+    eq. 4 (physics.py:93-143)."""
+    w0_cm = w_0 * cnsts.AU2CM
+    mr0 = geom.mod_r_0(opang, epsilon, w0_cm)
+    q = q_tau(epsilon, q_x, q_n_, q_T)
+    rho_ = geom.rho(r * cnsts.AU2CM, r_0 * cnsts.AU2CM, mr0)
+    return (2.0 * cnsts.a_k * w0_cm * n_0 ** 2.0 * chi_0 ** 2.0 *
+            T_0 ** -1.35 * rho_ ** q * freq ** -2.1 /
+            math.sin(math.radians(inc)))
+
+
+def tau_r_from_params(params: dict, freq, r):
+    """``tau_r`` with arguments extracted from a model params dict
+    (physics.py:146-178)."""
+    g, p, pl = params['geometry'], params['properties'], params['power_laws']
+    return tau_r(r, g['r_0'], g['w_0'], p['n_0'], p['x_0'], p['T_0'], freq,
+                 g['inc'], g['epsilon'], pl['q_n'], pl['q_x'], pl['q_T'],
+                 g['opang'])
+
+
+def tau_r_from_jm(jm, freq, r):
+    """``tau_r`` with arguments extracted from a JetModel instance
+    (physics.py:146-178)."""
+    return tau_r_from_params(jm.params, freq, r)
 
 def _mlr_shape_factor(a: float, r1: float, r2: float) -> float:
     """Closed-form cross-section integral shared by mlr<->n_0

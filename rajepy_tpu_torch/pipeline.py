@@ -10,10 +10,15 @@ exactly like the reference (save/load at classes.py:2215-2258, 1976-2017)
 so pipelines resume across processes; the files interchange with the JAX
 package's.
 
-Not ported yet, and refused before any work is done: the synthetic
-observations (``execute(simobserve=True)``), the diagnostic figures
-(``plot=True``, ``radio_plot``) and the multi-device fan-out
-(``device_fanout=True``).
+``execute(simobserve=True)`` runs the synthetic observations of continuum
+runs (``synthobs``: uv tracks, visibilities, Briggs gridding, Hogbom
+CLEAN, restoration, imfit) after each run's radiative transfer.
+
+Not ported yet, and refused before any work is done: the diagnostic
+figures (``plot=True``, ``radio_plot``), the multi-device fan-out
+(``device_fanout=True``), the synthetic observation of RRL runs (line
+cubes) and the ``params['synthobs']`` options that need unported parts of
+synthobs (see ``synthobs.check_ported``).
 
 The products of a run leave the device in one copy: on a CUDA model the
 three tensors go into pinned host buffers that the pipeline keeps from run
@@ -345,30 +350,63 @@ class Pipeline:
         torch.cuda.synchronize(device)
         return {name: self._host_buffers[name].numpy() for name in products}
 
+    def _check_synthobs_ported(self, resume: bool, clobber: bool,
+                               dryrun: bool) -> None:
+        """Raise ``NotImplementedError`` if ``execute(simobserve=True)``
+        would need a part of synthobs that is not ported yet: a pending RRL
+        run configured for a synthetic observation (line-cube imaging), or
+        an option of ``params['synthobs']`` (``synthobs.check_ported``)."""
+        from .synthobs import check_ported
+        check_ported(**dict(self.params.get('synthobs') or {}))
+        if dryrun:
+            return
+        for idx, run in enumerate(self.runs):
+            pending = not (run.completed and resume and not clobber)
+            if pending and run.simobserve and run.obs_type != 'continuum':
+                raise NotImplementedError(
+                    f"execute(simobserve=True): run #{idx + 1} is an "
+                    f"{run.obs_type} run, and the synthetic observation of "
+                    "line cubes (clean_cube, hogbom_clean_batched) is not "
+                    "ported yet; pass simobserve=False, or give the run "
+                    "no telescope")
+
     def execute(self, simobserve=True, verbose=True, dryrun=False,
                 resume=True, clobber=False, plot=True, device_fanout=None):
-        """Execute all runs: radiative transfer and FITS products
-        (classes.py:2296-2868).
+        """Execute all runs: radiative transfer, FITS products, synthetic
+        observations, imaging and source fitting (classes.py:2296-2868).
 
-        The signature is the JAX package's.  The synthetic observations
-        and the diagnostic figures are not ported yet, so ``simobserve``
-        and ``plot`` must be passed as False, and ``device_fanout`` as
-        None or False: anything else raises ``NotImplementedError`` before
-        any work is done."""
-        if simobserve:
-            raise NotImplementedError(
-                "execute(simobserve=True): synthobs is not ported yet; "
-                "pass simobserve=False for the radiative-transfer products")
+        The signature is the JAX package's.  ``simobserve=True`` observes
+        the continuum runs (``synthobs.simulate_observation``, with the
+        keyword overrides of ``params['synthobs']``).  Not ported yet, and
+        refused with ``NotImplementedError`` before any work is done:
+        ``plot=True``, ``device_fanout`` other than None or False, and with
+        ``simobserve=True`` a pending RRL run configured for a synthetic
+        observation or a ``params['synthobs']`` option that needs an
+        unported part of synthobs."""
         if plot:
             raise NotImplementedError(
                 "execute(plot=True): plotting is not ported yet; pass "
                 "plot=False")
+        if simobserve:
+            self._check_synthobs_ported(resume, clobber, dryrun)
         fanned = self._prefan_rt_products(resume, clobber, dryrun,
                                           device_fanout)
 
         self.log.add_entry("INFO", "Beginning pipeline execution")
         if verbose != self.log.verbose:
             self.log.verbose = verbose
+
+        if simobserve:
+            from .ops import astronomy as astro
+            ra_deg = astro.parse_ra(self.model.params['target']['ra'])
+            dec_deg = astro.parse_dec(self.model.params['target']['dec'])
+            ptg_txt = "#Epoch     RA          DEC      TIME(optional)\n"
+            ptg_txt += f"J2000 {astro.format_hmsdms(ra_deg, dec_deg)} "
+            self.log.add_entry(
+                "INFO", "Creating pointings and writing to file, "
+                        f"{self.ptgfile}, for synthetic observations")
+            with open(self.ptgfile, 'wt') as f:
+                f.write(ptg_txt)
 
         if resume and os.path.exists(self.model_file):
             # on the device and at the precision of the model it replaces
@@ -507,6 +545,28 @@ class Pipeline:
                 self.save(self.save_file)
                 self.model.save(self.model_file)
                 raise KeyboardInterrupt("Pipeline interrupted by user")
+
+            # Synthetic observations — CASA-free, on the model's device
+            # (replaces classes.py:2490-2851)
+            if simobserve and run.simobserve and not dryrun:
+                from .synthobs import simulate_observation
+                self.log.add_entry(
+                    "INFO", "Running CASA-free synthetic observation "
+                            f"({run.tscop[0]} config {run.tscop[1]})")
+                # optional 'synthobs' params section: keyword overrides
+                # forwarded to every run (thermalnoise/user_pwv,
+                # weighting/robust/niter, uvtaper_as/pbcor, ...)
+                so_kwargs = dict(self.params.get('synthobs') or {})
+                so_kwargs.setdefault('min_el', self.params['min_el'])
+                # stage-level resume: a rerun after an imaging-stage
+                # failure reuses the pre-imaging visibility sets (same
+                # model/plan/seed signature) instead of resampling
+                so_kwargs.setdefault('reuse_vis', resume and not clobber)
+                products = simulate_observation(self, run, **so_kwargs)
+                run.products.update(products)
+                if 'imfit' in run.results and run.results['imfit'] is None:
+                    self.log.add_entry(
+                        "ERROR", f"Run #{idx + 1}'s source fit failed")
 
             # A run is complete only when every stage it is configured
             # for has actually run this call (or was found on disk): the

@@ -1,0 +1,582 @@
+"""CASA-free synthetic interferometric observations of continuum runs
+(PyTorch port of rajepy_tpu.synthobs).
+
+High-level entry point mirroring the reference's simobserve/tclean/imfit stage
+(classes.py:2490-2851 + casa/), with the external CASA binary replaced by:
+
+1. uv-track generation from the bundled antenna configurations and
+   observatory geometry (:mod:`.uvgen`, :mod:`.observatories`), including
+   the reference's elevation windows and the east-west-interferometer
+   8-scan hour-angle split (classes.py:2510-2586);
+2. FFT sampling of the model FITS sky image at the uv points plus
+   radiometer-equation thermal noise (:mod:`.sampler`) — the measurement
+   set becomes an npz visibility set;
+3. Briggs-weighted gridding, FFT dirty imaging, Hogbom CLEAN
+   (niter=500, nsigma=3, briggs robust=0.5 as tclean's defaults at
+   classes.py:2771-2782) and Gaussian restoration (:mod:`.imaging`);
+4. elliptical-Gaussian source fitting with CASA-imfit-compatible summary
+   files (:mod:`.imfit`), estimates seeded from the Reynolds tau=1 surface
+   exactly like the reference (classes.py:2720-2808).
+
+Steps 2 and 3 run on the device of the pipeline's model, in float64 and
+complex128 whatever the model's precision (the JAX package computes this
+chain in float64 everywhere but on a TPU); the uv plan, the beam fit, the
+beam image, the source fit and the file writes are host numpy, as in the
+JAX package.
+
+Not ported yet, and refused before any work by :func:`check_ported`:
+line-cube runs (the channel-batched cube imaging), the deconvolvers other
+than Hogbom, antenna gain corruption, self-calibration, gain transfer,
+UVFITS export and channel-sharded imaging.
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+import time
+import zipfile
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .. import constants as cnsts
+from ..io import fits as fitsio
+from ..ops import astronomy as astro
+from ..ops import geometry as mgeom
+from ..ops import physics as mphys
+from ..utils.misc import atomic_write, casa_imfit_file_to_dict
+from ..utils import profiling
+from ..utils.profiling import KernelTimer
+from . import imaging, imfit as imfit_mod, observatories, sampler, uvgen
+
+__all__ = ["simulate_observation", "check_ported", "observatories", "uvgen",
+           "sampler", "imaging", "imfit_mod"]
+
+#: the precision of the uv/imaging chain on every device
+_RDT = torch.float64
+
+
+def check_ported(obs_type: str = 'continuum', deconvolver: str = 'hogbom',
+                 corruption: Optional[Dict] = None,
+                 selfcal: Optional[str] = None,
+                 applycal_gains: Optional[str] = None,
+                 export_uvfits: bool = False,
+                 shard_imaging: Optional[bool] = None, **_ignored) -> None:
+    """Raise ``NotImplementedError`` for an observation that needs a part
+    of the JAX package's synthobs that is not ported yet; takes
+    :func:`simulate_observation`'s keywords (others are ignored)."""
+    missing = []
+    if obs_type != 'continuum':
+        missing.append(f"{obs_type} runs (the imaging of line cubes: "
+                       "clean_cube, hogbom_clean_batched)")
+    if deconvolver != 'hogbom':
+        missing.append(f"deconvolver={deconvolver!r} (only 'hogbom' is "
+                       "ported)")
+    if corruption:
+        missing.append("corruption (antenna gain errors, calibration)")
+    if selfcal:
+        missing.append("selfcal (self-calibration, calibration)")
+    if applycal_gains:
+        missing.append("applycal_gains (gain transfer, calibration)")
+    if export_uvfits:
+        missing.append("export_uvfits=True (uvfits)")
+    if shard_imaging:
+        missing.append("shard_imaging=True (channel-sharded imaging)")
+    if missing:
+        raise NotImplementedError(
+            "synthobs: not ported yet: " + "; ".join(missing))
+
+
+def _product_path(fitsfile: str, suffix: str) -> str:
+    """Sibling product filename: swap the '.fits' extension for
+    ``suffix`` ('.pbcor.fits', '.estimates', ...).  A bare str.replace
+    corrupts paths whose DIRECTORIES contain the substring."""
+    root, ext = os.path.splitext(fitsfile)
+    if ext != '.fits':
+        raise ValueError(f"expected a .fits product path, got {fitsfile}")
+    return root + suffix
+
+
+def _elevation_window(ra_deg, dec_deg, tscop, min_el):
+    """Time above the elevation limit per day [s] (classes.py:2510-2529)."""
+    lon, lat, _ = observatories.observatory_location(tscop)
+    ra_hour = ra_deg / 15.0
+    min_ha = ra_hour - 12.0
+    if min_ha < 0:
+        min_ha += 24.0
+    el_range = (astro.elevation(ra_deg, dec_deg, lat, min_ha),
+                astro.elevation(ra_deg, dec_deg, lat, ra_hour))
+    if min(el_range) > min_el:
+        time_up = int(24. * 60. * 60.)
+    else:
+        ha_lim = float(astro.ha(ra_deg, dec_deg, lat, min_el))
+        if not np.isfinite(ha_lim):
+            # arccos out of range: the source never rises above (or
+            # never sets below) the elevation limit at this latitude
+            raise ValueError(
+                f"target (dec={dec_deg:.2f} deg) never rises above the "
+                f"elevation limit {min_el:.1f} deg at {tscop} "
+                f"(latitude {lat:.2f} deg) — no observable time")
+        time_up = int(7200.0 * ha_lim)
+    return el_range, time_up, lon, lat
+
+
+def simulate_observation(pipeline, run, min_el: float = 20.0,
+                         seed: int = 11111,
+                         max_time_samples: int = 512,
+                         niter: int = 500, nsigma: float = 3.0,
+                         weighting: str = 'briggs', robust: float = 0.5,
+                         deconvolver: str = 'hogbom',
+                         uvtaper_as: Optional[float] = None,
+                         pbcor: bool = False, pblimit: float = 0.2,
+                         apply_pb: bool = True,
+                         pb_model: str = 'gaussian',
+                         pb_blockage_m: float = 0.0,
+                         sefd: Optional[float] = None,
+                         thermalnoise: str = 'radiometer',
+                         user_pwv: float = 1.0,
+                         t_ground: float = 270.0,
+                         corruption: Optional[Dict] = None,
+                         selfcal: Optional[str] = None,
+                         applycal_gains: Optional[str] = None,
+                         save_products: tuple = (),
+                         shard_imaging: Optional[bool] = None,
+                         reuse_vis: bool = False,
+                         export_uvfits: bool = False,
+                         **unported) -> Dict[str, str]:
+    """Synthesise an interferometric observation of a continuum ``run``'s
+    sky model.
+
+    Writes (under ``run.rt_dcy``): the visibility sets
+    ``SynObs/SynObs.<cfg>.vis.npz`` (clean) / ``...noisy.vis.npz``, the
+    restored image ``SynObs.<cfg>.noisy.imaging.fits`` and the imfit
+    estimates/summary files.  Returns a products dict using the
+    reference's keys ('ms_clean', 'ms_noisy', 'clean_image', ...).
+
+    The keywords are the JAX package's, with the same defaults and the
+    same products; see its docstring for each.  ``seed`` (simobserve's
+    thermal-noise seed, tasks.py:205) seeds a ``torch.Generator`` on the
+    model's device, so the noise is torch's stream, not ``jax.random``'s.
+    ``reuse_vis=True`` reuses saved visibility sets whose signature (sky
+    model, uv plan, noise model, seed, primary beam) matches, which the
+    JAX package's sets do too: the two packages' sets interchange.
+
+    Raises ``NotImplementedError`` before any work for what is not ported
+    yet (:func:`check_ported`): line-cube runs, deconvolvers other than
+    'hogbom' (with their knobs ``scales``, ``smallscalebias``, ``nterms``,
+    ``reffreq``, ``cycleniter``), ``corruption``, ``selfcal`` (with
+    ``selfcal_solint_s``, ``selfcal_rounds``), ``applycal_gains``,
+    ``export_uvfits=True`` and ``shard_imaging=True``.
+    """
+    check_ported(run.obs_type, deconvolver, corruption, selfcal,
+                 applycal_gains, export_uvfits, shard_imaging)
+    knobs = {'scales', 'smallscalebias', 'nterms', 'reffreq', 'cycleniter',
+             'selfcal_solint_s', 'selfcal_rounds'}
+    if set(unported) - knobs:
+        raise TypeError("simulate_observation: unexpected keyword(s) "
+                        f"{sorted(set(unported) - knobs)}")
+    if pb_model not in ('gaussian', 'airy'):
+        raise ValueError(f"unknown pb_model {pb_model!r} (gaussian/airy)")
+    if isinstance(save_products, str):
+        save_products = (save_products,)
+    unknown = set(save_products) - {'psf', 'dirty', 'model', 'residual'}
+    if unknown:
+        raise ValueError(f"save_products: unknown name(s) {sorted(unknown)}"
+                         " — choose from psf/dirty/model/residual")
+    if weighting not in ('briggs', 'uniform', 'natural'):
+        raise ValueError(f"unknown weighting {weighting!r}")
+    if thermalnoise not in ('radiometer', 'tsys-atm'):
+        raise ValueError(f"unknown thermalnoise mode {thermalnoise!r}")
+    model = pipeline.model
+    dev = model.device
+    log = pipeline.log
+    tscop, t_cfg = run.tscop
+    ant_file = observatories.cfg_file(tscop, t_cfg)
+    ant = observatories.read_antenna_config(ant_file)
+
+    ra_deg = astro.parse_ra(model.params['target']['ra'])
+    dec_deg = astro.parse_dec(model.params['target']['dec'])
+
+    # --- observation plan (classes.py:2510-2586) ----------------------- #
+    el_range, time_up, lon, lat = _elevation_window(ra_deg, dec_deg, tscop,
+                                                    min_el)
+    ew_int = tscop in observatories.EW_TELESCOPES
+    plan = uvgen.plan_scans(run.t_obs, time_up, ew_int)
+    if log:
+        log.add_entry(
+            "INFO",
+            "Target elevation range of {:+.0f} to {:+.0f}deg with minimum "
+            "elevation of {}deg and total time on target of {:.1f}hr, means "
+            "splitting observations over {} run(s)".format(
+                el_range[0], el_range[1], min_el, run.t_obs / 3600,
+                len(plan['durations'])), timestamp=False)
+
+    # --- uv tracks ------------------------------------------------------ #
+    with KernelTimer("synthobs: uv tracks", log):
+        bl, _pairs = uvgen.baselines(ant['xyz'])
+        uvw_list = []
+        n_int_true = 0
+        for dur, ha_c in zip(plan['durations'], plan['ha_centres']):
+            has = uvgen.scan_hour_angles(ha_c, dur, run.t_int,
+                                         max_samples=max_time_samples)
+            n_int_true += max(1, int(round(dur / run.t_int)))
+            uvw_list.append(uvgen.uvw_tracks(bl, has, dec_deg, lon))
+        uvw = np.concatenate(uvw_list, axis=0).reshape(-1, 3)
+
+    # --- sky model ------------------------------------------------------ #
+    sky, hdr = fitsio.read_fits(run.fits_flux)
+    if sky.ndim == 2:
+        sky = sky[None]
+    n_chan = sky.shape[0]
+    cell_model_rad = abs(float(hdr['CDELT2'])) * np.pi / 180.0
+    freqs = np.asarray(run.chan_freqs, dtype=float)[:n_chan]
+
+    # --- beam / image geometry (classes.py:2656-2759) ------------------- #
+    max_bl = observatories.max_baseline(ant_file)
+    max_bl_uvwave = max_bl / (cnsts.C / run.freq)
+    beam_min_as = 1.0 / max_bl_uvwave / cnsts.ARCSEC
+    cell_as = beam_min_as / 4.0
+    cell_rad = cell_as * cnsts.ARCSEC
+    if log:
+        log.add_entry(
+            "INFO",
+            "With maximum baseline length of {:.0e} wavelengths, a beam "
+            "width of {:.2e}arcsec is calculated and therefore using a "
+            "cell size of {:.2e}arcsec".format(max_bl_uvwave, beam_min_as,
+                                               cell_as), timestamp=False)
+
+    ny_m, nx_m = sky.shape[-2:]
+    min_imsize_as = max(nx_m, ny_m) * abs(float(hdr['CDELT2'])) * 7200.0
+    imsize = max(500, int(np.ceil(min_imsize_as / cell_as)))
+    imsize += imsize % 2
+
+    # small-field (coplanar) validity check: when the a-priori bound on the
+    # dropped w(n-1) phase says it matters, sample by w-stacking with
+    # enough planes to hold the residual under ~1e-3 per unit flux
+    field_radius_rad = 0.5 * max(nx_m, ny_m) * cell_model_rad
+    w_phase = sampler.w_term_max_phase_error(uvw, float(np.max(freqs)),
+                                             field_radius_rad)
+    w_planes = 0
+    if w_phase > 0.1:
+        w_planes = sampler.n_wplanes_for(uvw, float(np.max(freqs)),
+                                         field_radius_rad)
+        if log:
+            log.add_entry(
+                "INFO",
+                "non-coplanar (w-term) phase error bound {:.2f} rad at "
+                "the field edge exceeds 0.1 rad (max|w|={:.2e} m, field "
+                "radius {:.1f}\"): sampling visibilities by w-stacking "
+                "over {} plane(s)".format(
+                    w_phase, float(np.max(np.abs(uvw[:, 2]))),
+                    field_radius_rad / cnsts.ARCSEC, w_planes),
+                timestamp=False)
+
+    # the sky model carries no information beyond its pixel Nyquist
+    # 1/(2 cell): baselines out there degrid to 0 — warn, since it means
+    # the model grid is too coarse for this array
+    uv_max_wav = float(np.max(np.abs(uvw[:, :2]))) * \
+        float(np.max(freqs)) / cnsts.C
+    nyq_wav = 0.5 / cell_model_rad
+    if uv_max_wav > nyq_wav and log:
+        log.add_entry(
+            "WARNING",
+            "longest baseline ({:.3g} wavelengths) exceeds the sky "
+            "model's pixel Nyquist ({:.3g}; model cell {:.2e} rad) — "
+            "those visibilities carry zero model flux; use a finer "
+            "model grid (smaller c_size or larger n_x/n_z) for this "
+            "array".format(uv_max_wav, nyq_wav, cell_model_rad),
+            timestamp=False)
+
+    # --- noise level ----------------------------------------------------- #
+    lam = cnsts.C / freqs
+    # per-vis noise; scale so the *imaged* noise matches the true number of
+    # integrations even when time samples were decimated
+    sefd_val = sefd if sefd is not None else \
+        observatories.DEFAULT_SEFD.get(tscop, 500.0)
+    n_samp = uvw.shape[0] // bl.shape[0] if bl.shape[0] else 1
+    t_int_eff = run.t_int * max(n_int_true / max(n_samp, 1), 1.0)
+    sigma = sampler.thermal_noise_sigma(sefd_val, run.chanwidth, t_int_eff)
+    if thermalnoise == 'tsys-atm':
+        # atmosphere-aware Tsys (CASA tsys-atm analogue): scale the
+        # catalogue-SEFD sigma per channel by Tsys(nu, el, pwv)/Tsys_ref
+        # at the time-weighted track-mean elevation, sampled across each
+        # scan's hour-angle span
+        from . import atmosphere
+        ra_hour = ra_deg / 15.0
+        els, wts = [], []
+        for dur, ha_c in zip(plan['durations'], plan['ha_centres']):
+            half_h = 0.5 * dur / 3600.0
+            for ha in np.linspace(ha_c - half_h, ha_c + half_h, 5):
+                els.append(astro.elevation(ra_deg, dec_deg, lat,
+                                           (ra_hour + ha) % 24.0))
+                wts.append(dur)
+        el_mean = float(np.average(els, weights=wts)) if els else 90.0
+        sigma = sigma * atmosphere.sefd_scale(freqs, el_mean, user_pwv,
+                                              t_ground)
+        if log:
+            flat = sampler.thermal_noise_sigma(sefd_val, run.chanwidth,
+                                               t_int_eff)
+            log.add_entry(
+                "INFO",
+                "tsys-atm noise: pwv={:.1f}mm, t_ground={:.0f}K, mean "
+                "elevation {:.0f}deg -> sigma x{:.2f}-{:.2f} vs flat "
+                "radiometer".format(user_pwv, t_ground, el_mean,
+                                    float(np.min(sigma)) / flat,
+                                    float(np.max(sigma)) / flat),
+                timestamp=False)
+
+    # --- stage-level resume (reuse_vis) ---------------------------------- #
+    base = os.path.basename(ant_file)
+    if base.endswith('.cfg'):
+        base = base[:-4]
+    synobs_dcy = os.path.join(run.rt_dcy, 'SynObs')
+    clean_vis_file = os.path.join(synobs_dcy, f'SynObs.{base}.vis.npz')
+    noisy_vis_file = os.path.join(synobs_dcy,
+                                  f'SynObs.{base}.noisy.vis.npz')
+    # primary-beam width input to the sampler — part of the visibility
+    # signature (an antenna-diameter edit changes the sampled PB even
+    # when the positions, and so the uvw bytes, are unchanged)
+    mean_dish = float(np.mean(ant['diam'])) if len(ant['diam']) else 25.0
+
+    def _vis_signature() -> str:
+        """Fingerprint of everything upstream of the sampled visibilities
+        (the JAX package's, token for token, so that either package's
+        saved sets are found by the other)."""
+        h = hashlib.blake2b(digest_size=16)
+        h.update(np.ascontiguousarray(sky).tobytes())
+        h.update(np.ascontiguousarray(uvw).tobytes())
+        h.update(np.ascontiguousarray(np.asarray(sigma)).tobytes())
+        h.update(np.asarray(freqs).tobytes())
+        parts = [sky.shape, int(seed), bool(apply_pb), pb_model,
+                 float(pb_blockage_m), int(w_planes), mean_dish,
+                 sorted((corruption or {}).items()), 'centre-fits']
+        h.update(repr(parts).encode())
+        return h.hexdigest()
+
+    vis_sig = _vis_signature()
+    reused = False
+    if reuse_vis and os.path.exists(clean_vis_file) \
+            and os.path.exists(noisy_vis_file):
+        try:
+            with np.load(clean_vis_file) as fc, \
+                    np.load(noisy_vis_file) as fn:
+                if (str(fc.get('resume_sig', '')) == vis_sig and
+                        str(fn.get('resume_sig', '')) == vis_sig):
+                    re_cn, im_cn = fc['vis_re'], fc['vis_im']
+                    re_nn, im_nn = fn['vis_re'], fn['vis_im']
+                    reused = True
+        except (OSError, EOFError, ValueError, KeyError,
+                zipfile.BadZipFile):
+            reused = False      # unreadable / truncated set: resample
+    if reused:
+        noisy = torch.complex(torch.as_tensor(re_nn, dtype=_RDT, device=dev),
+                              torch.as_tensor(im_nn, dtype=_RDT, device=dev))
+        if log:
+            log.add_entry(
+                "INFO",
+                "Reusing sampled visibilities from {} (signature match — "
+                "skipping the sampling stage)".format(
+                    os.path.basename(noisy_vis_file)), timestamp=False)
+    else:
+        # every channel FFTs its own sky plane, applies its own primary
+        # beam (the role of CASA's vpmanager PB, casa/_interface.py:17-27)
+        # and samples at its own uv wavelengths, on the model's device
+        with KernelTimer("synthobs: vis sampling (+noise)", log) as kt:
+            clean, noisy = sampler.sample_vis_cube_with_noise(
+                torch.as_tensor(sky, device=dev).to(_RDT), cell_model_rad,
+                uvw, freqs, seed, sigma, apply_pb=apply_pb,
+                dish_diameter_m=mean_dish, w_planes=w_planes,
+                pb_model=pb_model, pb_blockage_m=pb_blockage_m,
+                centre='fits')
+            kt.set_result(noisy)
+        re_cn, im_cn = clean.real.cpu().numpy(), clean.imag.cpu().numpy()
+        re_nn, im_nn = noisy.real.cpu().numpy(), noisy.imag.cpu().numpy()
+        del clean
+
+    # --- visibility products, written BEFORE imaging ---------------------- #
+    # the measurement-set analogue hits disk as soon as it exists, so an
+    # imaging-stage failure never loses the sampling stage: a reuse_vis
+    # rerun resumes from here
+    if not reused:
+        os.makedirs(synobs_dcy, exist_ok=True)
+        with KernelTimer("synthobs: vis npz write", log):
+            # uncompressed (re, im) float64 pairs, the JAX package's layout
+            with atomic_write(clean_vis_file) as f:
+                np.savez(f, uvw=uvw, vis_re=re_cn, vis_im=im_cn,
+                         freqs=freqs, sigma=0.0, resume_sig=vis_sig)
+            with atomic_write(noisy_vis_file) as f:
+                np.savez(f, uvw=uvw, vis_re=re_nn, vis_im=im_nn,
+                         freqs=freqs, sigma=sigma, resume_sig=vis_sig)
+
+    # --- imaging (classes.py:2761-2788): multi-frequency synthesis ------- #
+    def uvtaper_weights(us, vs):
+        """tclean's outer uv taper: Gaussian rolloff in weight whose
+        image-plane FWHM is uvtaper_as arcsec (FWHM_uv =
+        4 ln2 / (pi FWHM_sky))."""
+        if uvtaper_as is None:
+            return np.ones_like(us)
+        theta = float(uvtaper_as) * cnsts.ARCSEC
+        fwhm_uv = 4.0 * np.log(2.0) / (np.pi * theta)
+        return np.exp(-4.0 * np.log(2.0) * (us ** 2 + vs ** 2) /
+                      fwhm_uv ** 2)
+
+    # CLEAN mask: the model's bounding box mapped into the new image
+    # (classes.py:2688-2751)
+    model_extent_x_as = nx_m * abs(float(hdr['CDELT1'])) * 3600.0
+    model_extent_y_as = ny_m * abs(float(hdr['CDELT2'])) * 3600.0
+    half_x = int(np.ceil(model_extent_x_as / cell_as / 2.0)) + 2
+    half_y = int(np.ceil(model_extent_y_as / cell_as / 2.0)) + 2
+    mask = np.zeros((imsize, imsize))
+    c0 = imsize // 2
+    mask[max(c0 - half_y, 0):c0 + half_y,
+         max(c0 - half_x, 0):c0 + half_x] = 1.0
+
+    extra_maps = {}                 # save_products captures
+    with KernelTimer(f"synthobs: mfs imaging ({imsize}px)", log) as kt:
+        us = (uvw[None, :, 0] / lam[:, None]).ravel()
+        vs = (uvw[None, :, 1] / lam[:, None]).ravel()
+        us_d = torch.as_tensor(us, dtype=_RDT, device=dev)
+        vs_d = torch.as_tensor(vs, dtype=_RDT, device=dev)
+        w0 = torch.as_tensor(uvtaper_weights(us, vs), dtype=_RDT, device=dev)
+        if weighting == 'natural':
+            wb = w0
+        else:
+            wb = imaging.briggs_weights(
+                us_d, vs_d, w0, imsize, cell_rad,
+                robust=robust if weighting == 'briggs' else -2.0)
+        dirty_d, psf_d = imaging.grid_and_image(
+            us_d, vs_d, noisy.reshape(-1), wb, imsize, cell_rad)
+        dirty, psf = dirty_d.cpu().numpy(), psf_d.cpu().numpy()
+        outside = dirty[mask == 0]
+        rms = float(np.std(outside)) if outside.size else 0.0
+        mdl, resid, _its = imaging.hogbom_clean(
+            dirty_d, psf_d, mask, gain=0.1, niter=niter,
+            threshold=nsigma * rms)
+        beam = imaging.fit_psf_beam(psf, cell_rad)
+        beam_kernel = imaging.gaussian_beam_kernel(
+            imsize, cell_rad, beam[0], beam[1], beam[2])
+        restored_d = imaging.restore(mdl, resid, beam_kernel)
+        kt.set_result(restored_d)
+        restored = restored_d.cpu().numpy()
+        if save_products:
+            extra_maps.update(psf=psf, dirty=dirty,
+                              model=mdl.cpu().numpy(),
+                              residual=resid.cpu().numpy())
+    del noisy, us_d, vs_d, w0, wb, dirty_d, psf_d, mdl, resid, restored_d
+    bmaj_rad, bmin_rad, bpa_deg = beam
+
+    # --- products -------------------------------------------------------- #
+    dcy = run.rt_dcy
+    fitsfile = os.path.join(dcy, f'SynObs.{base}.noisy.imaging.fits')
+    out_hdr = fitsio.Header()
+    out_hdr['OBJECT'] = model.params['target']['name']
+    out_hdr['BUNIT'] = 'Jy/beam'
+    out_hdr['CTYPE1'] = 'RA---TAN'
+    out_hdr['CTYPE2'] = 'DEC--TAN'
+    out_hdr['CRVAL1'] = ra_deg
+    out_hdr['CRVAL2'] = dec_deg
+    # the imager's zero-phase point is integer pixel imsize//2 (FFT DC
+    # after fftshift), so CRPIX is that pixel 1-based — CASA's n/2+1
+    out_hdr['CRPIX1'] = imsize // 2 + 1
+    out_hdr['CRPIX2'] = imsize // 2 + 1
+    out_hdr['CDELT1'] = -cell_as / 3600.0
+    out_hdr['CDELT2'] = cell_as / 3600.0
+    out_hdr['BMAJ'] = np.degrees(bmaj_rad)
+    out_hdr['BMIN'] = np.degrees(bmin_rad)
+    out_hdr['BPA'] = bpa_deg
+    with KernelTimer("synthobs: image FITS write", log):
+        fitsio.write_fits(fitsfile, restored, out_hdr)
+
+    products = {'ms_clean': clean_vis_file, 'ms_noisy': noisy_vis_file,
+                'clean_image': fitsfile}
+
+    if pbcor:
+        # primary-beam-corrected image (tclean pbcor/pblimit): divide by
+        # the same PB model the sampler applied, NaN below pblimit
+        pb = sampler.primary_beam(imsize, imsize, cell_rad, run.freq,
+                                  mean_dish, model=pb_model,
+                                  blockage_m=pb_blockage_m)
+        pbc = np.where(pb >= pblimit, restored / pb, np.nan)
+        pbcor_file = _product_path(fitsfile, '.pbcor.fits')
+        with KernelTimer("synthobs: pbcor FITS write", log):
+            fitsio.write_fits(pbcor_file, pbc, out_hdr)
+        products['clean_image_pbcor'] = pbcor_file
+
+    if save_products:
+        # tclean's auxiliary images (the reference keeps CASA's .psf/
+        # .residual/.model artefacts, README "Data products")
+        bunits = {'psf': '', 'dirty': 'Jy/beam', 'model': 'Jy/pixel',
+                  'residual': 'Jy/beam'}
+        for name in save_products:
+            hdr_p = out_hdr.copy()
+            hdr_p['BUNIT'] = bunits[name]
+            pfile = _product_path(fitsfile, f'.{name}.fits')
+            with KernelTimer(f"synthobs: {name} FITS write", log):
+                fitsio.write_fits(pfile, extra_maps[name], hdr_p)
+            products[name] = pfile
+
+    # --- imfit (classes.py:2690-2840) ------------------------------------ #
+    fm_data = sky[0]
+    yy, xx = np.mgrid[0:ny_m, 0:nx_m]
+    xx_as = (xx + 0.5 - nx_m / 2) * abs(float(hdr['CDELT1'])) * 3600.0
+    yy_as = (yy + 0.5 - ny_m / 2) * abs(float(hdr['CDELT2'])) * 3600.0
+    rr_as = np.sqrt(xx_as ** 2 + yy_as ** 2)
+    peak_flux = float(np.nansum(
+        np.where(rr_as < beam_min_as / 2.0, fm_data, 0.0)))
+
+    # expected deconvolved jet dims from the tau = 1 surface
+    # (classes.py:2720-2746): scalar algebra on the host
+    mp = model.params
+    r_0_au = mp['geometry']['r_0']
+    mod_r_0_au = mp['geometry']['mod_r_0']
+    w_0_au = mp['geometry']['w_0']
+    tau_0 = float(mphys.tau_r_from_params(mp, run.freq, r_0_au))
+    q_tau = mp['power_laws']['q_tau']
+    eps = mp['geometry']['epsilon']
+    dist_pc = mp['target']['dist']
+    maj_au = (mod_r_0_au * tau_0 ** (-1.0 / q_tau) + r_0_au -
+              mod_r_0_au) * 2.0
+    maj_as = np.arctan(maj_au * cnsts.AU /
+                       (dist_pc * cnsts.PARSEC)) / cnsts.ARCSEC
+    min_au = float(mgeom.w_r(maj_au / 2.0, w_0_au, mod_r_0_au, r_0_au, eps))
+    min_as = np.arctan(min_au * cnsts.AU /
+                       (dist_pc * cnsts.PARSEC)) / cnsts.ARCSEC
+    conv_maj = float(np.sqrt(maj_as ** 2 + beam_min_as ** 2))
+    conv_min = float(np.sqrt(min_as ** 2 + beam_min_as ** 2))
+    if conv_min > conv_maj:
+        conv_maj, conv_min = conv_min, conv_maj
+
+    est_file = _product_path(fitsfile, '.estimates')
+    products['estimates'] = est_file
+    with open(est_file, 'wt') as f:
+        f.write('{:.6f}, {:.1f}, {:.1f}, {:.5f}arcsec, {:.5f}arcsec, '
+                '{:.2f}deg'.format(peak_flux, imsize / 2.0, imsize / 2.0,
+                                   conv_maj, conv_min,
+                                   mp['geometry']['pa']))
+
+    beam_area_pix = (np.pi / (4 * np.log(2.0)) *
+                     (bmaj_rad / cell_rad) * (bmin_rad / cell_rad))
+    fit_t0 = time.perf_counter()
+    fit = imfit_mod.fit_gaussian(
+        restored,
+        estimates={'peak': max(peak_flux, 1e-12), 'x': imsize / 2.0,
+                   'y': imsize / 2.0, 'maj_pix': conv_maj / cell_as,
+                   'min_pix': conv_min / cell_as,
+                   'pa_deg': mp['geometry']['pa']},
+        beam_area_pix=beam_area_pix)
+    profiling.record_stage("host source fit (imfit)",
+                           time.perf_counter() - fit_t0)
+    imfit_file = _product_path(fitsfile, '.imfit')
+    if fit is not None:
+        imfit_mod.write_imfit_summary(imfit_file, fit, cell_as,
+                                      beam_area_pix)
+        products['imfit'] = imfit_file
+        run.results['imfit'] = {
+            h: {'val': v['value'], 'unit': v['units']}
+            for h, v in casa_imfit_file_to_dict(imfit_file).items()
+            if h}
+    else:
+        run.results['imfit'] = None
+
+    return products

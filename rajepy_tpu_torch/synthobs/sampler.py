@@ -1,0 +1,478 @@
+"""Visibility sampling: FFT the sky model and sample it on uv tracks
+(PyTorch port of rajepy_tpu.synthobs.sampler).
+
+This replaces the CASA ``simobserve`` measurement-set machinery
+(casa/tasks.py:176-213 + the subprocess at casa/_interface.py:63-81) with a
+forward model on the device of the sky tensor: one taper-corrected 2-D FFT
+per channel plus a Kaiser-Bessel convolutional degrid at the uv points
+(worst-case ~2e-6 of total flux vs the exact DFT; w-stacking engages for
+non-coplanar wide fields).  Thermal noise follows the radiometer equation
+(standing in for simobserve's 'tsys-atm' mode, tasks.py:205 — equivalence
+is statistical, not bitwise).
+
+Visibilities are complex tensors.  The functions compute at the precision
+and on the device of the image they are given; host numpy is used only
+for the closed-form tapers, the plane-count heuristics and the primary-beam
+product image.  The noise is drawn from a ``torch.Generator`` on the
+visibilities' device, so its stream is torch's (Philox on CUDA, MT19937 on
+the CPU), not ``jax.random``'s: noisy products agree with the JAX
+package's in their statistics only.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_PAD = 4  # zero-padding (= gridder oversampling) factor before the
+#           forward FFT
+_KB_W = 6  # Kaiser-Bessel degrid kernel support [uv cells]: at 4x
+#           oversampling the worst-case (field-edge source) degrid error
+#           is ~2e-6 of total flux (W=4: 1.7e-4; bilinear: up to 5%)
+_C = 299792458.0
+
+
+def _as(x, like: torch.Tensor) -> torch.Tensor:
+    """``x`` as a tensor of ``like``'s real dtype on ``like``'s device."""
+    dt = like.real.dtype if like.is_complex() else like.dtype
+    return torch.as_tensor(x, dtype=dt, device=like.device)
+
+
+def sky_fft(image: torch.Tensor, pad: int = _PAD) -> torch.Tensor:
+    """Centred 2-D FFT of a sky image (image[dec, ra] in Jy/pixel).
+
+    Returns the complex visibility grid with DC at the centre, shape
+    (pad*ny, pad*nx).
+    """
+    ny, nx = image.shape
+    padded = image.new_zeros((ny * pad, nx * pad))
+    # the image centre pixel (index n//2) must land on the padded grid's
+    # DC index (n_big//2) — (n_big - n)//2 gets that wrong by one pixel
+    # for odd n (a one-pixel phase ramp on every visibility)
+    y0 = ny * pad // 2 - ny // 2
+    x0 = nx * pad // 2 - nx // 2
+    padded[y0:y0 + ny, x0:x0 + nx] = image
+    return torch.fft.fftshift(torch.fft.fft2(torch.fft.ifftshift(padded)))
+
+
+def _centre_shift(n: int, centre: str) -> float:
+    """Pixel offset of the requested phase centre from the FFT DC pixel
+    ``n // 2``.
+
+    ``'pixel'`` (default): the phase centre IS the DC pixel — the
+    convention of :func:`imaging.grid_and_image` and CLEAN component
+    images.  ``'fits'``: the centre sits at 0-based ``(n - 1) / 2``,
+    where the model FITS header's CRPIX ``n/2 + 0.5`` puts CRVAL
+    (between pixels for even n)."""
+    if centre == 'pixel':
+        return 0.0
+    if centre != 'fits':
+        raise ValueError(f"unknown centre convention {centre!r}")
+    return (n - 1) / 2.0 - n // 2          # -0.5 for even n, 0 for odd
+
+
+def _fits_centre_ramp(vis, cell_rad, u_wav, v_wav, nx: int, ny: int,
+                      centre: str):
+    """Re-reference degridded visibility phases from the DC pixel to the
+    requested centre: V_new = V * e^{+2 pi i (u l_c + v m_c)} with
+    (l_c, m_c) the centre's offset in the pixel convention."""
+    sx = _centre_shift(nx, centre)
+    sy = _centre_shift(ny, centre)
+    if sx == 0.0 and sy == 0.0:
+        return vis
+    ph = (2.0 * np.pi) * cell_rad * (sx * u_wav + sy * v_wav)
+    return vis * torch.complex(torch.cos(ph), torch.sin(ph))
+
+
+def _kb_beta(width: int, sigma: int) -> float:
+    """Beatty et al. (2005) optimal Kaiser-Bessel shape parameter for a
+    kernel of support ``width`` cells at oversampling ``sigma``."""
+    return float(np.pi * np.sqrt((width / sigma) ** 2 *
+                                 (sigma - 0.5) ** 2 - 0.8))
+
+
+def _kb_kernel_1d(x: torch.Tensor, width: int, beta: float) -> torch.Tensor:
+    """KB kernel I0(beta sqrt(1-(2x/W)^2)) / I0(beta), zero outside
+    |x| <= W/2 (x in uv cells)."""
+    t = 1.0 - (2.0 * x / width) ** 2
+    val = torch.special.i0(beta * torch.sqrt(torch.clamp(t, min=0.0)))
+    return torch.where(t > 0, val, torch.zeros_like(val)) * \
+        float(1.0 / np.i0(beta))
+
+
+def _kb_taper_axis(n: int, n_big: int, width: int, beta: float,
+                   like: torch.Tensor) -> torch.Tensor:
+    """Continuous Fourier transform of the KB kernel sampled at the image
+    pixels (length-n axis of an n_big-point padded grid):
+    khat(nu) = W sinh(g)/g / I0(beta), g = sqrt(beta^2 - (pi W nu)^2).
+    Dividing the image by the outer product of these tapers before the
+    FFT makes KB convolutional degridding an (aliasing-bounded) exact
+    DFT — the standard NUFFT identity, and what CASA's gridder does with
+    its prolate-spheroidal taper."""
+    p = np.arange(n) - n // 2
+    nu = p / n_big
+    g = np.sqrt(np.maximum(beta ** 2 - (np.pi * width * nu) ** 2, 1e-30))
+    return _as(width * np.sinh(g) / g / np.i0(beta), like)
+
+
+def _kb_correct(image: torch.Tensor, pad: int, width: int) -> torch.Tensor:
+    """Divide the sky image by the KB taper (both axes) so degridding off
+    its padded FFT reproduces the exact DFT."""
+    ny, nx = image.shape
+    beta = _kb_beta(width, pad)
+    ty = _kb_taper_axis(ny, ny * pad, width, beta, image)
+    tx = _kb_taper_axis(nx, nx * pad, width, beta, image)
+    return image / (ty[:, None] * tx[None, :])
+
+
+def _kb_degrid(vis_grid, cell_rad, u_wav, v_wav, width: int, beta: float):
+    """Convolutional degrid: V(u,v) = sum_{ab} kx_a ky_b G[yb, xa] over a
+    width x width neighbourhood, as one flattened (n_vis, W^2) gather plus
+    a weighted row-sum."""
+    n_big = vis_grid.shape
+    du_v = 1.0 / (n_big[0] * cell_rad)
+    du_u = 1.0 / (n_big[1] * cell_rad)
+    fx = u_wav / du_u + n_big[1] // 2
+    fy = v_wav / du_v + n_big[0] // 2
+    xf = torch.floor(fx).to(torch.int64)
+    yf = torch.floor(fy).to(torch.int64)
+    offs = torch.arange(width, dtype=torch.int64,
+                        device=u_wav.device) - width // 2 + 1
+    xi = torch.clamp(xf[:, None] + offs[None, :], 0, n_big[1] - 1)
+    yi = torch.clamp(yf[:, None] + offs[None, :], 0, n_big[0] - 1)
+    kx = _kb_kernel_1d(fx[:, None] - (xf[:, None] +
+                                      offs[None, :]).to(u_wav.dtype),
+                       width, beta)
+    ky = _kb_kernel_1d(fy[:, None] - (yf[:, None] +
+                                      offs[None, :]).to(u_wav.dtype),
+                       width, beta)
+    nv = u_wav.shape[0]
+    idx = (yi[:, :, None] * n_big[1] + xi[:, None, :]).reshape(
+        nv, width * width)
+    wgt = (ky[:, :, None] * kx[:, None, :]).reshape(nv, width * width)
+    vals = vis_grid.reshape(-1)[idx]
+    out = torch.sum(wgt * vals, dim=1)
+    # beyond the model grid's Nyquist (|u| > 1/(2 cell)) the clamp above
+    # would silently return the grid-edge value at full kernel weight;
+    # the pixelated model carries no information there — return 0
+    # (simulate_observation warns when any baseline lands out here)
+    in_rng = ((fx >= 0) & (fx <= n_big[1] - 1) &
+              (fy >= 0) & (fy <= n_big[0] - 1))
+    return torch.where(in_rng, out, torch.zeros_like(out))
+
+
+def _bilerp_uv(vis_grid, cell_rad, u_wav, v_wav):
+    """Bilinear interpolation of a centred uv grid at (u, v) [wavelengths]."""
+    n_big = vis_grid.shape
+    du_v = 1.0 / (n_big[0] * cell_rad)   # v axis (dec)
+    du_u = 1.0 / (n_big[1] * cell_rad)   # u axis (ra)
+
+    fx = u_wav / du_u + n_big[1] // 2
+    fy = v_wav / du_v + n_big[0] // 2
+    x0 = torch.clamp(torch.floor(fx).to(torch.int64), 0, n_big[1] - 2)
+    y0 = torch.clamp(torch.floor(fy).to(torch.int64), 0, n_big[0] - 2)
+    tx = torch.clamp(fx - x0, 0.0, 1.0)
+    ty = torch.clamp(fy - y0, 0.0, 1.0)
+
+    v00 = vis_grid[y0, x0]
+    v01 = vis_grid[y0, x0 + 1]
+    v10 = vis_grid[y0 + 1, x0]
+    v11 = vis_grid[y0 + 1, x0 + 1]
+    out = ((1 - ty) * ((1 - tx) * v00 + tx * v01) +
+           ty * ((1 - tx) * v10 + tx * v11))
+    # out-of-Nyquist points: zero, not the clamped grid-edge value
+    in_rng = ((fx >= 0) & (fx <= n_big[1] - 1) &
+              (fy >= 0) & (fy <= n_big[0] - 1))
+    return torch.where(in_rng, out, torch.zeros_like(out))
+
+
+def sample_vis(image: torch.Tensor, cell_rad: float, u_wav, v_wav,
+               pad: int = _PAD, degrid: str = 'kb', centre: str = 'pixel'):
+    """Sample the sky model's Fourier transform at (u, v) [wavelengths].
+
+    u is the east-west spatial frequency conjugate to RA offset, v conjugate
+    to Dec offset.  ``degrid='kb'`` (default) taper-corrects the image and
+    degrids with a Kaiser-Bessel convolution kernel — worst-case error
+    ~2e-6 of total flux vs the exact DFT; ``'bilinear'`` is the cheaper
+    4-gather interpolation (up to ~5% for field-edge sources).  Returns
+    complex visibilities [Jy] on the image's device.
+    """
+    ny, nx = image.shape
+    cell_rad = float(cell_rad)
+    u_wav = _as(u_wav, image)
+    v_wav = _as(v_wav, image)
+    if degrid == 'kb':
+        grid = sky_fft(_kb_correct(image, pad, _KB_W), pad=pad)
+        vis = _kb_degrid(grid, cell_rad, u_wav, v_wav, _KB_W,
+                         _kb_beta(_KB_W, pad))
+    elif degrid != 'bilinear':
+        raise ValueError(f"unknown degrid mode {degrid!r}")
+    else:
+        vis_grid = sky_fft(image, pad=pad)
+        vis = _bilerp_uv(vis_grid, cell_rad, u_wav, v_wav)
+    return _fits_centre_ramp(vis, cell_rad, u_wav, v_wav, nx, ny, centre)
+
+
+def sample_vis_wstack(image: torch.Tensor, cell_rad: float, u_wav, v_wav,
+                      w_wav, n_wplanes: int = 8, pad: int = _PAD,
+                      degrid: str = 'kb', centre: str = 'pixel'):
+    """Wide-field visibility sampling by w-stacking.
+
+    The sky (with its 1/n Jacobian) is multiplied by the w phase screen
+    ``e^{-2 pi i w_p (n - 1)}`` on each of ``n_wplanes`` planes spanning
+    [min w, max w], each screened sky is FFT'd, and every visibility
+    linearly interpolates between its two bracketing planes (hat weights)
+    after (u, v) degridding; one padded grid is live at a time.  Residual
+    amplitude error ~ (pi dw (1-cos theta))^2 / 8 per plane spacing dw —
+    :func:`n_wplanes_for` picks the plane count for a target tolerance.
+
+    With ``n_wplanes=1`` this degenerates to a single screen at the mean w
+    (the "w-shift" approximation) — still including the 1/n Jacobian, so
+    it differs from :func:`sample_vis` even at w=0 for wide fields.
+    """
+    ny, nx = image.shape
+    cell_rad = float(cell_rad)
+    u_wav = _as(u_wav, image)
+    v_wav = _as(v_wav, image)
+    w_wav = _as(w_wav, image)
+
+    l_ax = (torch.arange(nx, dtype=image.dtype, device=image.device) -
+            nx // 2) * cell_rad
+    m_ax = (torch.arange(ny, dtype=image.dtype, device=image.device) -
+            ny // 2) * cell_rad
+    mm, ll = torch.meshgrid(m_ax, l_ax, indexing='ij')
+    nn = torch.sqrt(torch.clamp(1.0 - ll ** 2 - mm ** 2, min=1e-12))
+    base = image / nn
+    if degrid == 'kb':
+        base = _kb_correct(base, pad, _KB_W)
+        kb_beta = _kb_beta(_KB_W, pad)
+    elif degrid != 'bilinear':
+        raise ValueError(f"unknown degrid mode {degrid!r}")
+    n1 = nn - 1.0
+
+    if n_wplanes == 1:
+        planes = (0.5 * (torch.min(w_wav) + torch.max(w_wav)))[None]
+        frac_idx = torch.zeros_like(w_wav)  # hat == 1 everywhere
+    else:
+        w_lo = torch.min(w_wav)
+        dw = (torch.max(w_wav) - w_lo) / (n_wplanes - 1)
+        planes = w_lo + dw * torch.arange(n_wplanes, dtype=image.dtype,
+                                          device=image.device)
+        # hat weights in PLANE-INDEX space: with coincident planes (all w
+        # equal -> dw == 0) every visibility maps to fractional index 0,
+        # so only plane 0 carries weight
+        dw_safe = torch.clamp(dw, min=1e-30)
+        frac_idx = (w_wav - w_lo) / dw_safe
+
+    acc = torch.zeros(u_wav.shape, dtype=torch.complex128
+                      if image.dtype == torch.float64 else torch.complex64,
+                      device=image.device)
+    for p_idx in range(n_wplanes):
+        ph = (-2.0 * np.pi) * planes[p_idx] * n1
+        img_c = torch.complex(base * torch.cos(ph), base * torch.sin(ph))
+        grid = sky_fft(img_c, pad=pad)
+        if degrid == 'kb':
+            vis_p = _kb_degrid(grid, cell_rad, u_wav, v_wav, _KB_W, kb_beta)
+        else:
+            vis_p = _bilerp_uv(grid, cell_rad, u_wav, v_wav)
+        hat = torch.clamp(1.0 - torch.abs(frac_idx - float(p_idx)), 0.0,
+                          1.0)
+        acc = acc + hat * vis_p
+    return _fits_centre_ramp(acc, cell_rad, u_wav, v_wav, nx, ny, centre)
+
+
+def n_wplanes_for(uvw_m, freq_hz: float, field_radius_rad: float,
+                  tol: float = 1e-3, max_planes: int = 128) -> int:
+    """Plane count for :func:`sample_vis_wstack` such that the linear
+    w-interpolation's amplitude error stays below ``tol`` (per unit flux
+    at the field edge): the phase step between adjacent planes is
+    ``dphi = 2 pi dw (1 - cos theta)`` and the hat-interpolation error of
+    ``e^{i phi}`` is ``<= dphi^2 / 8``, so we need
+    ``dphi <= sqrt(8 tol)``.  Returns 1 when even the full w range is
+    within tolerance (a single mean-w screen suffices)."""
+    ws = np.asarray(uvw_m)[:, 2] if np.asarray(uvw_m).shape[1] > 2 else \
+        np.zeros(1)
+    lam = _C / float(freq_hz)
+    w_span = float(np.max(ws) - np.min(ws)) / lam
+    span_phase = 2.0 * np.pi * w_span * (1.0 - np.cos(field_radius_rad))
+    dphi_max = np.sqrt(8.0 * tol)
+    if span_phase <= dphi_max:
+        return 1
+    return int(min(np.ceil(span_phase / dphi_max) + 1, max_planes))
+
+
+def w_term_max_phase_error(uvw_m, freq_hz: float,
+                           field_radius_rad: float) -> float:
+    """A-priori bound on the phase error [rad] of the coplanar (no-w)
+    approximation: ``2 pi max|w_wav| (1 - cos theta) ~ pi w theta^2`` at
+    the field edge.  Below ~0.1 rad the 2-D FFT sampler is
+    indistinguishable from the full measurement equation (amplitude
+    error <~ 1 - cos(phi) ~ 0.5%)."""
+    w_max_m = float(np.max(np.abs(np.asarray(uvw_m)[:, 2]))) \
+        if np.asarray(uvw_m).shape[1] > 2 else 0.0
+    lam = _C / float(freq_hz)
+    theta = float(field_radius_rad)
+    return 2.0 * np.pi * (w_max_m / lam) * (1.0 - np.cos(theta))
+
+
+def sample_vis_cube(sky: torch.Tensor, cell_rad, uvw, freqs,
+                    apply_pb: bool = False, dish_diameter_m: float = 25.0,
+                    pad: int = _PAD, w_planes: int = 0, degrid: str = 'kb',
+                    pb_model: str = 'gaussian', pb_blockage_m: float = 0.0,
+                    centre: str = 'pixel') -> torch.Tensor:
+    """Channel-by-channel visibility sampling: (n_chan, n_vis) complex.
+
+    Each channel FFTs ITS OWN sky plane, applies the primary beam at its
+    own frequency and samples at uvw metres scaled to its own wavelength;
+    one channel's padded grid is live at a time.
+
+    ``w_planes=0`` (default) is the coplanar small-field path;
+    ``w_planes>=1`` routes through :func:`sample_vis_wstack` for
+    long-baseline/wide-field configurations.
+
+    Args:
+      sky:   (n_chan, ny, nx) sky cube [Jy/pixel]; its dtype and device are
+             the computation's
+      uvw:   (n_vis, >=2 — >=3 when w_planes >= 1) baseline coords [m]
+      freqs: (n_chan,) channel frequencies [Hz]
+    """
+    ny, nx = sky.shape[-2:]
+    cell_r = float(cell_rad)
+    cy = ny // 2 + _centre_shift(ny, centre)
+    cx = nx // 2 + _centre_shift(nx, centre)
+    yy = (torch.arange(ny, dtype=sky.dtype, device=sky.device) - cy) * cell_r
+    xx = (torch.arange(nx, dtype=sky.dtype, device=sky.device) - cx) * cell_r
+    r2 = yy[:, None] ** 2 + xx[None, :] ** 2
+    uvw = _as(uvw, sky)
+    freqs = _as(freqs, sky)
+    out = []
+    for c in range(sky.shape[0]):
+        img, freq = sky[c], freqs[c]
+        lam = _C / freq
+        if apply_pb:
+            if pb_model == 'airy':
+                img = img * airy_power(torch.sqrt(r2), freq,
+                                       dish_diameter_m, pb_blockage_m)
+            else:
+                fwhm = 1.2 * lam / dish_diameter_m
+                img = img * torch.exp(-4.0 * np.log(2.0) * r2 / fwhm ** 2)
+        if w_planes >= 1:
+            out.append(sample_vis_wstack(
+                img, cell_r, uvw[:, 0] / lam, uvw[:, 1] / lam,
+                uvw[:, 2] / lam, n_wplanes=w_planes, pad=pad,
+                degrid=degrid, centre=centre))
+        else:
+            out.append(sample_vis(img, cell_r, uvw[:, 0] / lam,
+                                  uvw[:, 1] / lam, pad=pad, degrid=degrid,
+                                  centre=centre))
+    return torch.stack(out)
+
+
+def sample_vis_cube_with_noise(sky: torch.Tensor, cell_rad, uvw, freqs,
+                               seed, sigma, apply_pb: bool = False,
+                               dish_diameter_m: float = 25.0,
+                               pad: int = _PAD, w_planes: int = 0,
+                               degrid: str = 'kb',
+                               pb_model: str = 'gaussian',
+                               pb_blockage_m: float = 0.0,
+                               centre: str = 'pixel'):
+    """Sampling plus thermal noise: ``(clean, noisy)``, each (n_chan, n_vis)
+    complex on the sky's device (the noise of :func:`add_noise`)."""
+    vis = sample_vis_cube(sky, cell_rad, uvw, freqs, apply_pb=apply_pb,
+                          dish_diameter_m=dish_diameter_m, pad=pad,
+                          w_planes=w_planes, degrid=degrid,
+                          pb_model=pb_model, pb_blockage_m=pb_blockage_m,
+                          centre=centre)
+    return vis, add_noise(seed, vis, sigma)
+
+
+def _j1_over_x(x: torch.Tensor) -> torch.Tensor:
+    """J1(x)/x for x >= 0 (Abramowitz & Stegun 9.4.4/9.4.6 rational
+    approximations, |err| <~ 1e-7 absolute).  Continuous through x = 0
+    (value 1/2)."""
+    x = torch.abs(x)
+    # |x| < 3: polynomial for J1(x)/x directly (A&S 9.4.4)
+    t = (x / 3.0) ** 2
+    small = (0.5 + t * (-0.56249985 + t * (0.21093573 + t * (
+        -0.03954289 + t * (0.00443319 + t * (-0.00031761 +
+                                             t * 0.00001109))))))
+    # x >= 3: J1(x) = f1 cos(theta1)/sqrt(x) (A&S 9.4.6)
+    xs = torch.clamp(x, min=3.0)
+    u = 3.0 / xs
+    f1 = (0.79788456 + u * (0.00000156 + u * (0.01659667 + u * (
+        0.00017105 + u * (-0.00249511 + u * (0.00113653 -
+                                             u * 0.00020033))))))
+    th1 = (xs - 2.35619449 + u * (0.12499612 + u * (0.00005650 + u * (
+        -0.00637879 + u * (0.00074348 + u * (0.00079824 -
+                                             u * 0.00029166))))))
+    large = f1 * torch.cos(th1) / (xs * torch.sqrt(xs))
+    return torch.where(x < 3.0, small, large)
+
+
+def airy_power(theta_rad: torch.Tensor, freq_hz, dish_diameter_m: float,
+               blockage_m: float = 0.0) -> torch.Tensor:
+    """Airy power pattern |2 J1(x)/x|^2 of a circular aperture at offset
+    ``theta_rad`` from boresight (x = pi D theta / lambda), optionally
+    with a central blockage of diameter ``blockage_m`` — the
+    voltage-pattern family CASA's vpmanager assigns to real dishes
+    (VLA/ALMA), as opposed to the Gaussian the reference registers for
+    e-MERLIN."""
+    lam = _C / freq_hz
+    x = np.pi * dish_diameter_m * theta_rad / lam
+    b = blockage_m / dish_diameter_m
+    # at b = 0 the correction term is exactly 0 and the normalisation 1
+    v = (2.0 * _j1_over_x(x) - b * b * 2.0 * _j1_over_x(b * x)) / \
+        (1.0 - b * b)
+    return v * v
+
+
+def primary_beam(n_y: int, n_x: int, cell_rad: float, freq_hz: float,
+                 dish_diameter_m: float, model: str = 'gaussian',
+                 blockage_m: float = 0.0) -> np.ndarray:
+    """Primary-beam attenuation pattern over an image grid, as a host
+    array (the primary-beam correction of a restored image is host work).
+
+    ``model='gaussian'``: FWHM = 1.2 lambda / D (the Gaussian-PB model
+    the reference registers with CASA's vpmanager for e-MERLIN,
+    casa/_interface.py:17-27 / tasks.py:479-502).
+    ``model='airy'``: blocked-aperture Airy power pattern (the pattern
+    CASA's simobserve applies for VLA/ALMA-class dishes)."""
+    lam = _C / freq_hz
+    yy, xx = np.mgrid[0:n_y, 0:n_x]
+    r2 = (((xx - n_x // 2) * cell_rad) ** 2 +
+          ((yy - n_y // 2) * cell_rad) ** 2)
+    if model == 'airy':
+        return airy_power(torch.from_numpy(np.sqrt(r2)), freq_hz,
+                          dish_diameter_m, blockage_m).numpy()
+    if model != 'gaussian':
+        raise ValueError(f"unknown primary-beam model {model!r} "
+                         "(gaussian/airy)")
+    fwhm = 1.2 * lam / dish_diameter_m
+    return np.exp(-4.0 * np.log(2.0) * r2 / fwhm ** 2)
+
+
+def thermal_noise_sigma(sefd: float, chan_width: float, t_int: float,
+                        eta: float = 0.88) -> float:
+    """Per-visibility per-polarisation noise RMS [Jy] from the radiometer
+    equation: sigma = SEFD / (eta sqrt(2 dnu tau))."""
+    return sefd / (eta * np.sqrt(2.0 * chan_width * t_int))
+
+
+def add_noise(seed: int, vis: torch.Tensor, sigma) -> torch.Tensor:
+    """Complex Gaussian thermal noise (sigma per real/imag part), drawn on
+    the visibilities' device by a ``torch.Generator`` there seeded with
+    ``seed``: the real parts, then the imaginary parts.  ``sigma`` may be
+    a scalar or per-channel (n_chan,) — e.g. from the 'tsys-atm' noise
+    model (synthobs.atmosphere) where Tsys varies across the band."""
+    rdt = vis.real.dtype
+    gen = torch.Generator(device=vis.device)
+    gen.manual_seed(int(seed))
+    re = torch.randn(vis.shape, generator=gen, dtype=rdt, device=vis.device)
+    im = torch.randn(vis.shape, generator=gen, dtype=rdt, device=vis.device)
+    sig = torch.as_tensor(sigma, dtype=rdt, device=vis.device)
+    if sig.ndim == 1:
+        if vis.ndim != 2:
+            raise ValueError(
+                "per-channel sigma requires (n_chan, n_vis) visibilities; "
+                f"got vis.ndim={vis.ndim}")
+        sig = sig[:, None]  # per-channel over (n_chan, n_vis)
+    return vis + torch.complex(sig * re, sig * im)

@@ -1,5 +1,6 @@
 """The CUDA kernels (epoch, RRL and emergent) against their plain
-versions, and the pipeline's copy-out, on the card.
+versions, the pipeline's copy-out, and the synthetic observation's device
+stages against the CPU, on the card.
 
 Needs an NVIDIA GPU with ``nvcc``; skipped elsewhere.  This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
@@ -395,3 +396,42 @@ def test_pipeline_on_the_card_reuses_its_pinned_buffers(card, tmp_path):
     assert pline.model.dtype == torch.float32
     loaded = Pipeline.load_pipeline(pline.save_file)
     assert loaded.model.device.type == 'cuda' and str(loaded) == str(pline)
+
+
+def test_synthobs_on_the_card_is_the_cpus_and_deterministic(card):
+    """The synthetic observation's device stages on the card: sampling,
+    weights and gridding to 1e-10 of the CPU's, two gridding calls bit for
+    bit (no scatter-add), and Hogbom bit for bit the CPU's."""
+    from rajepy_tpu_torch.synthobs import imaging, sampler
+    rng = np.random.default_rng(3)
+    sky = rng.random((2, 64, 64)) * 1e-3
+    sky[:, 32, 30] += 1.0
+    uvw = rng.normal(0.0, 2e3, (5000, 3))
+    freqs = np.array([6e9, 6.2e9])
+    vis = {d: sampler.sample_vis_cube(
+        torch.as_tensor(sky, device=d), 2e-7, uvw, freqs, apply_pb=True,
+        centre='fits') for d in ('cpu', card)}
+    assert _rel(torch.view_as_real(vis[card]),
+                torch.view_as_real(vis['cpu'])) < 1e-10
+    lam = cnsts.C / freqs
+    us = torch.as_tensor((uvw[None, :, 0] / lam[:, None]).ravel())
+    vs = torch.as_tensor((uvw[None, :, 1] / lam[:, None]).ravel())
+    cell = 1.0 / (4.0 * float(us.abs().max()) * 2.0)
+    out = {}
+    for d in ('cpu', card):
+        u, v, x = us.to(d), vs.to(d), vis['cpu'].reshape(-1).to(d)
+        wb = imaging.briggs_weights(u, v, torch.ones_like(u), 128, cell)
+        out[d] = imaging.grid_and_image(u, v, x, wb, 128, cell)
+        if d == card:
+            again = imaging.grid_and_image(u, v, x, wb, 128, cell)
+            assert all(torch.equal(a, b) for a, b in zip(out[d], again))
+    for g, w in zip(out[card], out['cpu']):
+        assert _rel(g, w) < 1e-10
+    dirty, psf = (t.cpu() for t in out[card])
+    mask = np.zeros((128, 128))
+    mask[40:88, 40:88] = 1.0
+    res = {d: imaging.hogbom_clean(dirty.to(d), psf.to(d), mask, niter=300)
+           for d in ('cpu', card)}
+    assert res[card][2] == res['cpu'][2] > 0
+    assert torch.equal(res[card][0].cpu(), res['cpu'][0])
+    assert torch.equal(res[card][1].cpu(), res['cpu'][1])

@@ -31,8 +31,14 @@ def test_port_imports_without_jax():
         "from rajepy_tpu_torch import Pipeline, ContinuumRun, RRLRun\n"
         "from rajepy_tpu_torch import Pointing, logger, cfg\n"
         "from rajepy_tpu_torch.io import checkpoint\n"
+        "from rajepy_tpu_torch import synthobs\n"
+        "from rajepy_tpu_torch.synthobs import atmosphere, imaging, imfit\n"
+        "from rajepy_tpu_torch.synthobs import observatories, sampler, uvgen\n"
         "for name in ('_config', 'pipeline', 'models.runs',\n"
-        "             'io.checkpoint'):\n"
+        "             'io.checkpoint', 'synthobs', 'synthobs.atmosphere',\n"
+        "             'synthobs.imaging', 'synthobs.imfit',\n"
+        "             'synthobs.observatories', 'synthobs.sampler',\n"
+        "             'synthobs.uvgen'):\n"
         "    assert 'rajepy_tpu_torch.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'rajepy_tpu' or m.startswith('rajepy_tpu.')\n"
@@ -75,9 +81,22 @@ def test_no_port_source_builds_a_path_into_the_jax_package():
         assert not pattern.search(src), path
 
 
+_ANTENNA_CONFIGS = sorted(
+    os.path.join('antenna_configs', n) for n in os.listdir(
+        os.path.join(ROOT, 'rajepy_tpu', 'data', 'antenna_configs')))
+
+
+def test_the_port_has_every_antenna_configuration():
+    assert len(_ANTENNA_CONFIGS) == 73
+    assert sorted(os.listdir(os.path.join(
+        ROOT, 'rajepy_tpu_torch', 'data', 'antenna_configs'))) == \
+        [os.path.basename(n) for n in _ANTENNA_CONFIGS]
+
+
 @pytest.mark.parametrize("name", ["vanHoofetal2014.data", "departure_bn.npz",
                                   "example-model-params.py",
-                                  "example-pipeline-params.py"])
+                                  "example-pipeline-params.py"] +
+                         _ANTENNA_CONFIGS)
 def test_port_data_files_equal_the_jax_packages(name):
     port = os.path.join(ROOT, 'rajepy_tpu_torch', 'data', name)
     assert filecmp.cmp(port, os.path.join(ROOT, 'rajepy_tpu', 'data', name),
@@ -101,6 +120,7 @@ def test_package_data_covers_the_kernel_sources_and_the_data_files():
         for n in names if not n.endswith('.pyc')]
     assert any(p.endswith('.cuh') for p in needed)
     assert os.path.join(data, 'example-pipeline-params.py') in needed
+    assert os.path.join(data, 'antenna_configs', 'vla.a.cfg') in needed
     for path in needed:
         rel = os.path.relpath(path, pkg)
         assert not rel.startswith('..'), path
@@ -112,9 +132,39 @@ def test_package_data_covers_the_kernel_sources_and_the_data_files():
 
 def test_port_reads_its_own_data_files():
     from rajepy_tpu_torch.ops import departure, gaunt
+    from rajepy_tpu_torch.synthobs import observatories
     data = os.path.join(ROOT, 'rajepy_tpu_torch', 'data')
     assert os.path.dirname(gaunt._DATA_FILE) == data
     assert os.path.dirname(departure._TABLE_FILE) == data
+    assert observatories._CFG_DIR == os.path.join(data, 'antenna_configs')
+    assert os.path.dirname(observatories.cfg_file('VLA', 'A')) == \
+        observatories._CFG_DIR
+
+
+def test_no_synthobs_module_imports_jax_or_the_jax_package():
+    """No import statement of the port's synthobs, at module level or
+    inside a function, names JAX or the JAX package (the package import
+    itself, with ``jax`` blocked, is test_port_imports_without_jax)."""
+    import ast
+    dcy = os.path.join(ROOT, 'rajepy_tpu_torch', 'synthobs')
+    names = sorted(n for n in os.listdir(dcy) if n.endswith('.py'))
+    assert names == ['__init__.py', 'atmosphere.py', 'imaging.py',
+                     'imfit.py', 'observatories.py', 'sampler.py',
+                     'uvgen.py']
+    for name in names:
+        with open(os.path.join(dcy, name)) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                mods = [node.module]
+            else:
+                continue
+            for mod in mods:
+                top = mod.split('.')[0]
+                assert top not in ('jax', 'jaxlib', 'rajepy_tpu'), \
+                    (name, mod)
 
 
 def test_library_hash_covers_the_shared_headers(tmp_path):

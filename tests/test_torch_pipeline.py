@@ -321,17 +321,37 @@ def test_cpu_pipeline_resumes_on_the_cpu_at_its_precision(
         rajepy_tpu_torch.Pipeline.load_pipeline(pl.save_file)
 
 
+# simobserve=True (the default) with what synthobs does not port yet: an
+# RRL run configured for a synthetic observation (line-cube imaging), or an
+# option of params['synthobs']
+_OBSERVED_RRL = {'rrls': dict(t_obs=np.array([3600]), t_ints=np.array([60]),
+                              tscps=np.array([('VLA', 'A')]))}
+
+
 @pytest.mark.parametrize('kwargs,match', [
-    (dict(plot=False), 'synthobs'),
+    (dict(plot=False, pline=_OBSERVED_RRL), 'line cubes'),
+    (dict(plot=False, pline={'synthobs': {'deconvolver': 'clark'}}),
+     "deconvolver='clark'"),
+    (dict(plot=False, pline={'synthobs': {'corruption': {'amp_rms': 0.1}}}),
+     'corruption'),
+    (dict(plot=False, pline={'synthobs': {'selfcal': 'phase'}}), 'selfcal'),
+    (dict(plot=False, pline={'synthobs': {'applycal_gains': 'g.npz'}}),
+     'applycal_gains'),
+    (dict(plot=False, pline={'synthobs': {'export_uvfits': True}}),
+     'export_uvfits'),
     (dict(simobserve=False), 'plotting'),
     (dict(simobserve=False, plot=False, device_fanout=True), 'fan-out'),
     (dict(simobserve=False, plot=False, device_fanout=2), 'fan-out'),
 ])
 def test_unported_stages_raise_before_any_work(kwargs, match, model_params,
                                                tmp_path):
-    pl = rajepy_tpu_torch.Pipeline(
-        _torch_model(_small(model_params)),
-        _pline_params(tmp_path / 'out', rrl=False))
+    kwargs = dict(kwargs)
+    pline = kwargs.pop('pline', {})
+    params = _pline_params(tmp_path / 'out', rrl='rrls' in pline)
+    params['rrls'].update(pline.get('rrls', {}))
+    if 'synthobs' in pline:
+        params['synthobs'] = pline['synthobs']
+    pl = rajepy_tpu_torch.Pipeline(_torch_model(_small(model_params)), params)
     with pytest.raises(NotImplementedError, match=match):
         pl.execute(verbose=False, **kwargs)
     assert pl.model._fields is None
