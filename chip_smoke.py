@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's continuum, RRL, emergent, pipeline and
-synthetic-observation main paths once on one NVIDIA GPU.
+"""Run the PyTorch/CUDA port's continuum, RRL, emergent, pipeline,
+synthetic-observation and line-cube observation main paths once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -82,6 +83,29 @@ Phases (any failure exits non-zero; nothing is caught):
       resumed ``execute`` must launch and rewrite nothing.  Prints every
       run's stages, the imfit peak and flux, each stage's time on both
       devices, the Hogbom loop's iterations per second and peak memory.
+      The other mfs deconvolvers on run 1: ``clark_clean`` and
+      ``multiscale_clean`` on its dirty image and PSF, ``mtmfs_clean`` on
+      its two channels' Taylor stacks, each on the card and on the CPU
+      from the same inputs (the same count; model and residual to 1e-10
+      of the dirty peak), with their times.
+   f. line-cube observation: ``Pipeline(jm, params).execute(plot=False,
+      resume=False, clobber=True)`` on the same model with the bundled
+      pipeline params' H58a run alone (``rrls.times = [2.0]``, no
+      continuum epoch): 1000 channels of 1e5 Hz observed with VLA A for
+      30,000 s of 60 s integrations (500 time samples x 351 baselines a
+      channel, with noise), imaged at 500 x 500 by ``clean_cube`` (Briggs
+      0.5, the channel-batched Hogbom, 500 iterations at most, 3 sigma).
+      The dual-base epoch kernel and the RRL tile kernel must each have
+      been launched once; the run must complete with its two visibility
+      sets and a (1000, 500, 500) restored FITS cube with its FREQ axis,
+      equal to the cube in memory.  ``clean_cube`` on 8 channels around
+      nu0 on the card and on the CPU: restored and dirty cubes to 1e-10 of
+      each channel's peak, the batched Hogbom on the card's inputs bit for
+      bit on the CPU, a repeat and blocks of 3 channels bit for bit on the
+      card.  Prints the stages (uv tracks, sampling, npz write, cube
+      imaging with its prep, CLEAN and restore, FITS write), the channel
+      block, the batched loop's iterations and channel-iterations per
+      second and peak memory.
    Outputs must be finite, non-zero where the jet is (all-zero on the
    jet-free grid), equal to the plain versions on the same card tensors
    (2e-4), and a small model at float32 must agree with the float64 plain
@@ -120,8 +144,9 @@ Phases (any failure exits non-zero; nothing is caught):
    whole; launch times only where base != 0) and ptxas's report of both
    (no spill allowed).
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel and
+the line-cube observation's numbers; the last line is ``{"ok": true,
+"device": {...}}``.
 
     python3 chip_smoke.py --time-paths DIR
 
@@ -217,6 +242,15 @@ SYNTHOBS_STAGES = ('synthobs: uv tracks', 'synthobs: vis sampling (+noise)',
 SYNTHOBS_RTOL = 1e-10     # the card against the CPU, float64 throughout
 SYNTHOBS_NOISE_RTOL = 0.01
 SYNTHOBS_IMSIZE = 500
+# the line-cube observation's stages (phase 2f); the cube imaging stage's
+# name ends with its channels and image size, and holds the prep, CLEAN
+# and restore stages that clean_cube records inside it
+CUBE_STAGES = ('synthobs: uv tracks', 'synthobs: vis sampling (+noise)',
+               'synthobs: vis npz write', 'synthobs: cube imaging',
+               'synthobs: cube prep', 'synthobs: cube CLEAN',
+               'synthobs: cube restore', 'synthobs: image FITS write')
+CUBE_CHECK_NCHAN = 8      # channels around nu0 held card against CPU
+CUBE_CHECK_BLOCK = 3      # a second channel block for the same channels
 
 
 def rel_err(got, want):
@@ -1494,6 +1528,8 @@ def synthobs_card_vs_cpu(run, smi):
           f"(threshold {thr:.3e} Jy/beam)")
     errs['restore'] = check('restore, card vs CPU', rest_g, rest_c,
                             SYNTHOBS_RTOL)[0]
+    errs.update(deconvolvers_card_vs_cpu(run, dirty, psf, mask, cell, thr,
+                                         smi))
     # the CLEAN loop alone, warm, on the card: iterations per second
     d, p = (torch.as_tensor(a, device='cuda') for a in (dirty, psf))
     clean_ms = [timed(lambda: imaging.hogbom_clean(
@@ -1513,6 +1549,75 @@ def synthobs_card_vs_cpu(run, smi):
           f"{', '.join(f'{x:.4f}' for x in clean_ms)}), {it_s:.1f} "
           f"iterations per second [{smi}]")
     return errs, it_s
+
+
+def deconvolvers_card_vs_cpu(run, dirty, psf, mask, cell, thr, smi):
+    """Clark and multiscale CLEAN on run 1's dirty image and PSF, and
+    mtmfs on its two channels' Taylor stacks, each on the card and on the
+    CPU from the same inputs (phase 2e): the same iteration count, model
+    and residual within SYNTHOBS_RTOL of the dirty peak."""
+    import torch
+    from rajepy_tpu_torch import constants as cnsts
+    from rajepy_tpu_torch.synthobs import imaging
+    with np.load(run.products['ms_noisy']) as f:
+        uvw, freqs = f['uvw'], f['freqs']
+        noisy = f['vis_re'] + 1j * f['vis_im']
+    # the mtmfs inputs: each channel imaged on its own on the card, then
+    # the Taylor stacks about the run's centre frequency
+    planes = []
+    for c, nu in enumerate(freqs):
+        us, vs = (torch.as_tensor(uvw[:, i] * nu / cnsts.C, device='cuda')
+                  for i in (0, 1))
+        wb = imaging.briggs_weights(us, vs, torch.ones_like(us),
+                                    SYNTHOBS_IMSIZE, cell)
+        planes.append(imaging.grid_and_image(
+            us, vs, torch.as_tensor(noisy[c], device='cuda'), wb,
+            SYNTHOBS_IMSIZE, cell))
+    dirty_t, psf_m = (a.cpu() for a in imaging.taylor_stacks(
+        torch.stack([d for d, _ in planes]),
+        torch.stack([p for _, p in planes]), freqs, float(run.freq)))
+    thr_t = 3.0 * float(np.std(dirty_t[0].numpy()[mask == 0]))
+    cases = {
+        'clark_clean': ((dirty, psf), lambda d, p: imaging.clark_clean(
+            d, p, mask, gain=0.1, niter=500, threshold=thr,
+            cycleniter=100)),
+        'multiscale_clean': ((dirty, psf),
+                             lambda d, p: imaging.multiscale_clean(
+                                 d, p, mask, scales=(0, 3, 10), gain=0.1,
+                                 niter=500, threshold=thr)),
+        'mtmfs_clean': ((dirty_t.numpy(), psf_m.numpy()),
+                        lambda d, p: imaging.mtmfs_clean(
+                            d, p, mask, gain=0.1, niter=500,
+                            threshold=thr_t))}
+    errs = {}
+    for name, (inputs, fn) in cases.items():
+        out = {}
+        for dev in ('cuda', 'cpu'):
+            d, p = (torch.as_tensor(a, device=dev) for a in inputs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m, r, n_it = fn(d, p)
+            torch.cuda.synchronize()
+            out[dev] = (m.cpu(), r.cpu(), n_it,
+                        (time.perf_counter() - t0) * 1e3)
+        (m_g, r_g, n_g, ms_g), (m_c, r_c, n_c, ms_c) = out['cuda'], \
+            out['cpu']
+        peak = float(np.abs(inputs[0]).max())
+        err = max(float((m_g - m_c).abs().max()),
+                  float((r_g - r_c).abs().max())) / peak
+        what = 'Taylor stacks' if name == 'mtmfs_clean' else \
+            'dirty image and PSF'
+        print(f"  {name}, card vs CPU on run 1's {what}: "
+              f"{n_g} / {n_c} iterations, card {ms_g:.4f} ms, CPU "
+              f"{ms_c:.4f} ms (one call each, host clock); model and "
+              f"residual max diff {err:.3e} of the dirty peak (tolerance "
+              f"{SYNTHOBS_RTOL:g}) [{smi}]")
+        if n_g != n_c or not err <= SYNTHOBS_RTOL or not (
+                torch.isfinite(m_g).all() and torch.isfinite(r_g).all()):
+            raise AssertionError(f"{name} on the card differs from the "
+                                 f"CPU: {n_g} / {n_c} iterations, {err:.3e}")
+        errs[name] = err
+    return errs
 
 
 def run_synthobs(jm, log, tmp, smi):
@@ -1676,6 +1781,238 @@ def run_synthobs(jm, log, tmp, smi):
     shutil.rmtree(dcy)
     torch.cuda.empty_cache()
     return launches, {'wall_s': wall_s, 'it_s': it_s, 'peak_gb': peak_gb,
+                      'errs': errs}
+
+
+def cube_card_vs_cpu(run, img_hdr, smi):
+    """``imaging.clean_cube`` on CUBE_CHECK_NCHAN channels of the observed
+    RRL run around nu0, on the card and on the CPU (phase 2f): restored
+    and dirty cubes to SYNTHOBS_RTOL of each channel's peak; the batched
+    Hogbom on the card's dirty images, PSFs and thresholds bit for bit on
+    the CPU; a repeat on the card and another channel block bit for
+    bit."""
+    import torch
+    from rajepy_tpu_torch import constants as cnsts
+    from rajepy_tpu_torch.io import fits as fitsio
+    from rajepy_tpu_torch.synthobs import imaging
+    sky_hdr = fitsio.read_fits(run.fits_flux)[1]
+    with np.load(run.products['ms_noisy']) as f:
+        uvw, freqs = f['uvw'], f['freqs']
+        c0 = int(np.argmin(np.abs(freqs - run.freq)))
+        sel = slice(c0 - CUBE_CHECK_NCHAN // 2, c0 + CUBE_CHECK_NCHAN // 2)
+        noisy = f['vis_re'][sel] + 1j * f['vis_im'][sel]
+    freqs = freqs[sel]
+    mask, cell_as = synthobs_mask(sky_hdr, img_hdr, sky_hdr['NAXIS2'],
+                                  sky_hdr['NAXIS1'])
+    cell = cell_as * cnsts.ARCSEC
+    kern = imaging.gaussian_beam_kernel(
+        SYNTHOBS_IMSIZE, cell, np.radians(img_hdr['BMAJ']),
+        np.radians(img_hdr['BMIN']), img_hdr['BPA'])
+    real = imaging._hogbom
+
+    def cube(dev, **kw):
+        """clean_cube's (restored, dirty) and every block's CLEAN inputs
+        and outputs, and the call's time."""
+        blocks = []
+
+        def spy(*args, **kwargs):
+            out = real(*args, **kwargs)
+            blocks.append((args[:4], out))
+            return out
+
+        imaging._hogbom = spy
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = imaging.clean_cube(
+                uvw, freqs, torch.as_tensor(noisy, device=dev),
+                np.ones(uvw.shape[0]), SYNTHOBS_IMSIZE, cell, mask, kern,
+                **kw)
+            torch.cuda.synchronize()
+        finally:
+            imaging._hogbom = real
+        return res, blocks, (time.perf_counter() - t0) * 1e3
+
+    (rest_g, dirty_g), blocks_g, ms_g = cube('cuda')
+    (rest_c, dirty_c), _, ms_c = cube('cpu')
+    errs = {}
+    for name, g, c in (('dirty', dirty_g, dirty_c),
+                       ('restored', rest_g, rest_c)):
+        peak = c.abs().flatten(1).max(1).values
+        errs[f'cube {name}'] = float(((g.cpu() - c).abs().flatten(1)
+                                      .max(1).values / peak).max())
+        print(f"  clean_cube {name}, {len(freqs)} channels around nu0, "
+              f"card vs CPU: max diff {errs[f'cube {name}']:.3e} of each "
+              f"channel's peak (tolerance {SYNTHOBS_RTOL:g})")
+        if not errs[f'cube {name}'] <= SYNTHOBS_RTOL:
+            raise AssertionError(f"clean_cube {name} on the card differs "
+                                 f"from the CPU's")
+    # the batched Hogbom on the card's own inputs, on the CPU
+    (args, (m_g, r_g, n_g)), = blocks_g
+    m_c, r_c, n_c = real(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                           for a in args), gain=0.1, niter=500)
+    if not (torch.equal(m_g.cpu(), m_c) and torch.equal(r_g.cpu(), r_c)
+            and torch.equal(n_g.cpu(), n_c)):
+        raise AssertionError("the batched Hogbom on the card is not the "
+                             "CPU's bit for bit on the same inputs")
+    print(f"  batched Hogbom on the card's dirty images, PSFs and "
+          f"thresholds: model, residual and counts bit for bit on the CPU "
+          f"({n_c.tolist()} iterations); clean_cube {ms_g:.4f} ms on the "
+          f"card, {ms_c:.4f} ms on the CPU (one call each, host clock)")
+    # a repeat, and blocks of CUBE_CHECK_BLOCK channels, on the card
+    for label, kw in (('a repeat', {}),
+                      (f'blocks of {CUBE_CHECK_BLOCK}',
+                       {'chan_block': CUBE_CHECK_BLOCK})):
+        (rest, dirty), blocks, _ = cube('cuda', **kw)
+        m, r, n = (torch.cat([b[1][i] for b in blocks]) for i in range(3))
+        if not (torch.equal(m, m_g) and torch.equal(r, r_g) and
+                torch.equal(n, n_g) and torch.equal(rest, rest_g) and
+                torch.equal(dirty, dirty_g)):
+            raise AssertionError(f"clean_cube on the card, {label}: not "
+                                 f"the first call's bits")
+        print(f"  clean_cube on the card, {label} ({len(blocks)} "
+              f"block(s)): models, residuals, counts, restored and dirty "
+              f"cubes bit for bit the first call's [{smi}]")
+    return errs
+
+
+def run_cube_observation(jm, log, tmp, smi):
+    """The line-cube synthetic observation, counted (phase 2f): the bundled
+    pipeline with its H58a run alone through ``Pipeline.execute`` with
+    ``simobserve`` at its default on the flagship model; its products, the
+    FITS cube against the cube in memory, and clean_cube card against
+    CPU."""
+    import shutil
+    import torch
+    from rajepy_tpu_torch import Pipeline
+    from rajepy_tpu_torch.io import fits as fitsio
+    from rajepy_tpu_torch.ops import kernels as kn
+    from rajepy_tpu_torch.synthobs import imaging
+    from rajepy_tpu_torch.utils import profiling
+    params = Pipeline.py_to_dict(os.path.join(
+        HERE, 'rajepy_tpu_torch', 'data', 'example-pipeline-params.py'))
+    dcy = os.path.join(tmp, 'cube')
+    params['dcys']['model_dcy'] = dcy
+    params['rrls']['times'] = np.array([RRL_EPOCH_YR])
+    params['continuum']['times'] = np.array([])
+    pline = Pipeline(jm, params, log=log)
+    runs = pline.runs
+    if len(runs) != 1 or runs[0].obs_type != 'rrl' or \
+            not runs[0].simobserve or len(runs[0].chan_freqs) != RRL_NCHAN:
+        raise AssertionError("the campaign is not one observed RRL run of "
+                             f"{RRL_NCHAN} channels")
+    run = runs[0]
+    print(f"phase 2f: line-cube observation, {N_GRID}^3 float32, "
+          f"{run.line} ({len(run.chan_freqs)} ch of {run.chanwidth:g} Hz, "
+          f"{run.year:g} yr, {run.tscop[0]} {run.tscop[1]}, t_obs "
+          f"{run.t_obs:g} s, t_int {run.t_int:g} s): execute(plot=False, "
+          f"resume=False, clobber=True)")
+
+    events, cubes = [], {}
+    record = profiling.record_stage
+    real = imaging.clean_cube
+
+    def recording(name, seconds):
+        events.append((name, seconds))
+        record(name, seconds)
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        cubes.update(restored=out[0], info=kwargs.get('info'))
+        return out
+
+    profiling.record_stage = recording
+    imaging.clean_cube = spy
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        profiling.collect_stage_times(True)
+        kn.reset_launches()
+        t_wall = time.perf_counter()
+        pline.execute(plot=False, verbose=False, resume=False, clobber=True)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t_wall
+    finally:
+        profiling.record_stage = record
+        imaging.clean_cube = real
+    launches = read_launches('cube')
+    totals = profiling.stage_times()
+    profiling.collect_stage_times(False)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches['epoch_base_maps2_tiles'] != 1 or \
+            launches['rrl_tiles_pallas'] != 1:
+        raise AssertionError(f"the observed RRL run must launch the "
+                             f"dual-base epoch kernel and the RRL tile "
+                             f"kernel once each: {launches}")
+    stage = {k: sum(v for name, v in totals.items() if name.startswith(k))
+             for k in CUBE_STAGES + (STAGE_COMPUTE, STAGE_COPY_WRITE)}
+    if not all(stage[k] > 0 for k in stage):
+        raise AssertionError(f"the run recorded these stages: {totals}")
+    info = cubes['info']
+    clean_s = stage['synthobs: cube CLEAN']
+    it_s = info['loop_iterations'] / clean_s
+    chan_it_s = info['channel_iterations'] / clean_s
+    print(f"  stages (stage_times, exclusive): RT device compute "
+          f"{stage[STAGE_COMPUTE] * 1e3:.4f} ms, RT copy-out and FITS "
+          f"writes {stage[STAGE_COPY_WRITE] * 1e3:.4f} ms; " + ', '.join(
+              f"{k.replace('synthobs: ', '')} {stage[k] * 1e3:.4f} ms"
+              for k in CUBE_STAGES) + f" [{smi}]")
+    print(f"  cube CLEAN: {RRL_NCHAN} channels in {info['n_blocks']} "
+          f"block(s) of {info['chan_block']} (CUBE_BLOCK_BYTES "
+          f"{imaging.CUBE_BLOCK_BYTES} at {imaging.CUBE_PLANES} planes a "
+          f"channel); {info['iterations']} iterations at most, "
+          f"{info['loop_iterations']} iterations of the batched loop over "
+          f"the blocks, {info['channel_iterations']} channel-iterations: "
+          f"{it_s:.1f} loop iterations and {chan_it_s:.1f} "
+          f"channel-iterations a second [{smi}]")
+    print(f"  execute {wall_s:.4f} s in all; stage totals: " + ', '.join(
+        f"{k} {v:.4f} s" for k, v in sorted(totals.items())) +
+        f"; peak device memory {peak_gb:.3f} GB [{smi}]")
+
+    # the products; the FITS cube against the cube in memory
+    if not run.completed:
+        raise AssertionError("the observed RRL run did not complete")
+    for key in ('ms_clean', 'ms_noisy', 'clean_image'):
+        if not os.path.isfile(run.products.get(key, '')):
+            raise AssertionError(f"no {key} product")
+    with np.load(run.products['ms_noisy']) as f:
+        n_vis = f['vis_re'].shape
+        if f['vis_re'].shape[0] != RRL_NCHAN:
+            raise AssertionError(f"noisy visibilities {n_vis}")
+    img, img_hdr = fitsio.read_fits(run.products['clean_image'])
+    freqs = np.asarray(run.chan_freqs)
+    cards = {k: img_hdr.get(k) for k in ('CTYPE3', 'CRPIX3', 'CRVAL3',
+                                         'CDELT3', 'CUNIT3', 'BUNIT')}
+    if img.shape != (RRL_NCHAN, SYNTHOBS_IMSIZE, SYNTHOBS_IMSIZE) or \
+            cards != {'CTYPE3': 'FREQ', 'CRPIX3': 1.0,
+                      'CRVAL3': float(freqs[0]),
+                      'CDELT3': float(freqs[1] - freqs[0]),
+                      'CUNIT3': 'Hz', 'BUNIT': 'Jy/beam'}:
+        raise AssertionError(f"restored cube {img.shape}, cards {cards}")
+    if not np.array_equal(img, cubes['restored'].cpu().numpy()):
+        raise AssertionError("the FITS cube is not the restored cube")
+    if not np.all(np.isfinite(img)) or not img.max() > 0:
+        raise AssertionError("the restored cube is not finite and positive")
+    peaks = img.reshape(RRL_NCHAN, -1).max(1)
+    print(f"  {n_vis[0]} x {n_vis[1]} visibilities; restored cube "
+          f"{img.shape} ({os.path.getsize(run.products['clean_image'])} "
+          f"bytes) with its FREQ axis {cards}: equal to the cube in "
+          f"memory; channel peaks {peaks.min():.6e}-{peaks.max():.6e} "
+          f"Jy/beam (line centre {peaks[RRL_NCHAN // 2]:.6e}); beam "
+          f"{img_hdr['BMAJ'] * 3600:.4f}\" x "
+          f"{img_hdr['BMIN'] * 3600:.4f}\"")
+    del img, cubes
+    errs = cube_card_vs_cpu(run, img_hdr, smi)
+    del pline
+    shutil.rmtree(dcy)
+    torch.cuda.empty_cache()
+    return launches, {'wall_s': wall_s, 'peak_gb': peak_gb,
+                      'chan_block': info['chan_block'],
+                      'iterations': info['iterations'],
+                      'loop_iterations': info['loop_iterations'],
+                      'channel_iterations': info['channel_iterations'],
+                      'it_s': it_s, 'chan_it_s': chan_it_s,
+                      'stages_ms': {k: stage[k] * 1e3 for k in CUBE_STAGES},
                       'errs': errs}
 
 
@@ -2091,6 +2428,7 @@ def main() -> int:
                    'emergent': em_launches,
                    'pipeline': run_pipeline(jm, log, tmp, smi)}
         by_path['synthobs'], synthobs = run_synthobs(jm, log, tmp, smi)
+        by_path['cube'], cube = run_cube_observation(jm, log, tmp, smi)
         # the pipeline is what a user runs: its counts stand for the two
         # kernels it launches
         launches.update({k: by_path['pipeline'][k] for k in PIPELINE_KERNELS})
@@ -2246,6 +2584,14 @@ def main() -> int:
               f"{synthobs['it_s']:.1f} iterations per second, peak memory "
               f"{synthobs['peak_gb']:.3f} GB; card vs CPU: " + ', '.join(
                   f"{k} {v:.3e}" for k, v in synthobs['errs'].items()))
+        print(f"  line-cube observation (phase 2f): execute "
+              f"{cube['wall_s']:.4f} s for one {RRL_NCHAN}-channel RRL run, "
+              f"channel block {cube['chan_block']}, batched Hogbom "
+              f"{cube['it_s']:.1f} loop iterations and "
+              f"{cube['chan_it_s']:.1f} "
+              f"channel-iterations per second, peak memory "
+              f"{cube['peak_gb']:.3f} GB; card vs CPU: " + ', '.join(
+                  f"{k} {v:.3e}" for k, v in cube['errs'].items()))
         print(f"  RRL run {rrl['wall_s']:.4f} s (tiles, LTE and non-LTE "
               f"{RRL_NCHAN}-channel products, 16-channel tau and flux, the "
               f"jet-free grid); peak memory {rrl['peak_gb']:.3f} GB")
@@ -2377,7 +2723,11 @@ def main() -> int:
                         'max_abs_err': abs_err, 'max_rel_err': rel,
                         'ms': k_ms, 'plain_ms': p_ms, 'bound_ms': b_ms,
                         'bound_by': b_by, 'library_ms': None})
-        print(json.dumps({'kernels': out}))
+        print(json.dumps({'kernels': out, 'cube_observation': {
+            k: cube[k] for k in ('wall_s', 'peak_gb', 'chan_block',
+                                 'iterations', 'loop_iterations',
+                                 'channel_iterations', 'it_s', 'chan_it_s',
+                                 'stages_ms')}}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -11,14 +11,14 @@ so pipelines resume across processes; the files interchange with the JAX
 package's.
 
 ``execute(simobserve=True)`` runs the synthetic observations of continuum
-runs (``synthobs``: uv tracks, visibilities, Briggs gridding, Hogbom
-CLEAN, restoration, imfit) after each run's radiative transfer.
+and RRL runs (``synthobs``: uv tracks, visibilities, Briggs gridding,
+CLEAN, restoration; imfit for continuum runs, restored cubes for RRL runs)
+after each run's radiative transfer.
 
 Not ported yet, and refused before any work is done: the diagnostic
 figures (``plot=True``, ``radio_plot``), the multi-device fan-out
-(``device_fanout=True``), the synthetic observation of RRL runs (line
-cubes) and the ``params['synthobs']`` options that need unported parts of
-synthobs (see ``synthobs.check_ported``).
+(``device_fanout=True``) and the ``params['synthobs']`` options that need
+unported parts of synthobs (see ``synthobs.check_ported``).
 
 The products of a run leave the device in one copy: on a CUDA model the
 three tensors go into pinned host buffers that the pipeline keeps from run
@@ -350,45 +350,29 @@ class Pipeline:
         torch.cuda.synchronize(device)
         return {name: self._host_buffers[name].numpy() for name in products}
 
-    def _check_synthobs_ported(self, resume: bool, clobber: bool,
-                               dryrun: bool) -> None:
-        """Raise ``NotImplementedError`` if ``execute(simobserve=True)``
-        would need a part of synthobs that is not ported yet: a pending RRL
-        run configured for a synthetic observation (line-cube imaging), or
-        an option of ``params['synthobs']`` (``synthobs.check_ported``)."""
-        from .synthobs import check_ported
-        check_ported(**dict(self.params.get('synthobs') or {}))
-        if dryrun:
-            return
-        for idx, run in enumerate(self.runs):
-            pending = not (run.completed and resume and not clobber)
-            if pending and run.simobserve and run.obs_type != 'continuum':
-                raise NotImplementedError(
-                    f"execute(simobserve=True): run #{idx + 1} is an "
-                    f"{run.obs_type} run, and the synthetic observation of "
-                    "line cubes (clean_cube, hogbom_clean_batched) is not "
-                    "ported yet; pass simobserve=False, or give the run "
-                    "no telescope")
-
     def execute(self, simobserve=True, verbose=True, dryrun=False,
                 resume=True, clobber=False, plot=True, device_fanout=None):
         """Execute all runs: radiative transfer, FITS products, synthetic
         observations, imaging and source fitting (classes.py:2296-2868).
 
         The signature is the JAX package's.  ``simobserve=True`` observes
-        the continuum runs (``synthobs.simulate_observation``, with the
-        keyword overrides of ``params['synthobs']``).  Not ported yet, and
-        refused with ``NotImplementedError`` before any work is done:
-        ``plot=True``, ``device_fanout`` other than None or False, and with
-        ``simobserve=True`` a pending RRL run configured for a synthetic
-        observation or a ``params['synthobs']`` option that needs an
+        every run configured with a telescope
+        (``synthobs.simulate_observation``, with the keyword overrides of
+        ``params['synthobs']``; for RRL runs without the continuum-only
+        ones, as in the JAX package).  Not ported yet, and refused with
+        ``NotImplementedError`` before any work is done: ``plot=True``,
+        ``device_fanout`` other than None or False, and with
+        ``simobserve=True`` a ``params['synthobs']`` option that needs an
         unported part of synthobs."""
         if plot:
             raise NotImplementedError(
                 "execute(plot=True): plotting is not ported yet; pass "
                 "plot=False")
         if simobserve:
-            self._check_synthobs_ported(resume, clobber, dryrun)
+            # an option of params['synthobs'] that needs an unported part
+            # of synthobs raises here, before any work
+            from .synthobs import check_ported
+            check_ported(**dict(self.params.get('synthobs') or {}))
         fanned = self._prefan_rt_products(resume, clobber, dryrun,
                                           device_fanout)
 
@@ -562,9 +546,19 @@ class Pipeline:
                 # failure reuses the pre-imaging visibility sets (same
                 # model/plan/seed signature) instead of resampling
                 so_kwargs.setdefault('reuse_vis', resume and not clobber)
+                if run.obs_type != 'continuum' and so_kwargs.get(
+                        'deconvolver') in ('multiscale', 'clark', 'mtmfs'):
+                    # cube runs always use the channel-batched Hogbom; the
+                    # continuum-only deconvolver knobs are stripped rather
+                    # than failing the line runs
+                    for k in ('deconvolver', 'scales', 'smallscalebias',
+                              'nterms', 'reffreq', 'cycleniter'):
+                        so_kwargs.pop(k, None)
                 products = simulate_observation(self, run, **so_kwargs)
                 run.products.update(products)
-                if 'imfit' in run.results and run.results['imfit'] is None:
+                if run.obs_type == 'continuum' and \
+                        'imfit' in run.results and \
+                        run.results['imfit'] is None:
                     self.log.add_entry(
                         "ERROR", f"Run #{idx + 1}'s source fit failed")
 

@@ -1,5 +1,5 @@
-"""CASA-free synthetic interferometric observations of continuum runs
-(PyTorch port of rajepy_tpu.synthobs).
+"""CASA-free synthetic interferometric observations of continuum and
+line (RRL) runs (PyTorch port of rajepy_tpu.synthobs).
 
 High-level entry point mirroring the reference's simobserve/tclean/imfit stage
 (classes.py:2490-2851 + casa/), with the external CASA binary replaced by:
@@ -11,12 +11,15 @@ High-level entry point mirroring the reference's simobserve/tclean/imfit stage
 2. FFT sampling of the model FITS sky image at the uv points plus
    radiometer-equation thermal noise (:mod:`.sampler`) — the measurement
    set becomes an npz visibility set;
-3. Briggs-weighted gridding, FFT dirty imaging, Hogbom CLEAN
-   (niter=500, nsigma=3, briggs robust=0.5 as tclean's defaults at
-   classes.py:2771-2782) and Gaussian restoration (:mod:`.imaging`);
-4. elliptical-Gaussian source fitting with CASA-imfit-compatible summary
-   files (:mod:`.imfit`), estimates seeded from the Reynolds tau=1 surface
-   exactly like the reference (classes.py:2720-2808).
+3. Briggs-weighted gridding, FFT dirty imaging, CLEAN (Hogbom, Clark,
+   multiscale or multi-term MFS for continuum runs; the channel-batched
+   Hogbom for line cubes; niter=500, nsigma=3, briggs robust=0.5 as
+   tclean's defaults at classes.py:2771-2782) and Gaussian restoration
+   (:mod:`.imaging`);
+4. for continuum runs, elliptical-Gaussian source fitting with
+   CASA-imfit-compatible summary files (:mod:`.imfit`), estimates seeded
+   from the Reynolds tau=1 surface exactly like the reference
+   (classes.py:2720-2808).
 
 Steps 2 and 3 run on the device of the pipeline's model, in float64 and
 complex128 whatever the model's precision (the JAX package computes this
@@ -25,9 +28,8 @@ beam image, the source fit and the file writes are host numpy, as in the
 JAX package.
 
 Not ported yet, and refused before any work by :func:`check_ported`:
-line-cube runs (the channel-batched cube imaging), the deconvolvers other
-than Hogbom, antenna gain corruption, self-calibration, gain transfer,
-UVFITS export and channel-sharded imaging.
+antenna gain corruption, self-calibration, gain transfer, UVFITS export
+and channel-sharded imaging.
 """
 from __future__ import annotations
 
@@ -57,22 +59,17 @@ __all__ = ["simulate_observation", "check_ported", "observatories", "uvgen",
 _RDT = torch.float64
 
 
-def check_ported(obs_type: str = 'continuum', deconvolver: str = 'hogbom',
-                 corruption: Optional[Dict] = None,
+def check_ported(corruption: Optional[Dict] = None,
                  selfcal: Optional[str] = None,
                  applycal_gains: Optional[str] = None,
                  export_uvfits: bool = False,
                  shard_imaging: Optional[bool] = None, **_ignored) -> None:
     """Raise ``NotImplementedError`` for an observation that needs a part
-    of the JAX package's synthobs that is not ported yet; takes
-    :func:`simulate_observation`'s keywords (others are ignored)."""
+    of the JAX package's synthobs that is not ported yet: antenna gain
+    corruption, self-calibration and gain transfer (its ``calibration``
+    module), UVFITS export (``uvfits``) and channel-sharded cube imaging.
+    Takes :func:`simulate_observation`'s keywords (others are ignored)."""
     missing = []
-    if obs_type != 'continuum':
-        missing.append(f"{obs_type} runs (the imaging of line cubes: "
-                       "clean_cube, hogbom_clean_batched)")
-    if deconvolver != 'hogbom':
-        missing.append(f"deconvolver={deconvolver!r} (only 'hogbom' is "
-                       "ported)")
     if corruption:
         missing.append("corruption (antenna gain errors, calibration)")
     if selfcal:
@@ -128,6 +125,11 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
                          niter: int = 500, nsigma: float = 3.0,
                          weighting: str = 'briggs', robust: float = 0.5,
                          deconvolver: str = 'hogbom',
+                         scales=(0, 3, 10),
+                         smallscalebias: float = 0.0,
+                         nterms: int = 2,
+                         reffreq: Optional[float] = None,
+                         cycleniter: int = 100,
                          uvtaper_as: Optional[float] = None,
                          pbcor: bool = False, pblimit: float = 0.2,
                          apply_pb: bool = True,
@@ -145,34 +147,62 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
                          reuse_vis: bool = False,
                          export_uvfits: bool = False,
                          **unported) -> Dict[str, str]:
-    """Synthesise an interferometric observation of a continuum ``run``'s
-    sky model.
+    """Synthesise an interferometric observation of ``run``'s sky model.
 
     Writes (under ``run.rt_dcy``): the visibility sets
     ``SynObs/SynObs.<cfg>.vis.npz`` (clean) / ``...noisy.vis.npz``, the
-    restored image ``SynObs.<cfg>.noisy.imaging.fits`` and the imfit
-    estimates/summary files.  Returns a products dict using the
+    restored image ``SynObs.<cfg>.noisy.imaging.fits`` (for a line run the
+    (n_chan, n, n) cube with its FREQ axis) and, for continuum runs, the
+    imfit estimates/summary files.  Returns a products dict using the
     reference's keys ('ms_clean', 'ms_noisy', 'clean_image', ...).
 
     The keywords are the JAX package's, with the same defaults and the
-    same products; see its docstring for each.  ``seed`` (simobserve's
+    same products; see its docstring for each.  ``deconvolver`` selects
+    the continuum (mfs) minor cycle: ``'hogbom'``, ``'clark'`` (with
+    ``cycleniter``), ``'multiscale'`` (``scales``, ``smallscalebias``) or
+    ``'mtmfs'`` (``nterms``, ``reffreq``; also writes the tt1, alpha and
+    alpha.error images); line runs always image with the channel-batched
+    Hogbom (:func:`imaging.clean_cube`), restored with a common beam
+    fitted to the central channel's PSF.  ``seed`` (simobserve's
     thermal-noise seed, tasks.py:205) seeds a ``torch.Generator`` on the
     model's device, so the noise is torch's stream, not ``jax.random``'s.
     ``reuse_vis=True`` reuses saved visibility sets whose signature (sky
     model, uv plan, noise model, seed, primary beam) matches, which the
     JAX package's sets do too: the two packages' sets interchange.
 
-    Raises ``NotImplementedError`` before any work for what is not ported
-    yet (:func:`check_ported`): line-cube runs, deconvolvers other than
-    'hogbom' (with their knobs ``scales``, ``smallscalebias``, ``nterms``,
-    ``reffreq``, ``cycleniter``), ``corruption``, ``selfcal`` (with
+    Raises ``ValueError`` before anything is sampled or written for what
+    the JAX package refuses (a deconvolver other than Hogbom or ``selfcal``
+    on a line run, mtmfs with ``nterms`` outside 2-4 or fewer channels
+    than terms, ``selfcal`` with mtmfs), and ``NotImplementedError`` before
+    any work for what is not ported yet (:func:`check_ported`):
+    ``corruption``, ``selfcal`` (with
     ``selfcal_solint_s``, ``selfcal_rounds``), ``applycal_gains``,
     ``export_uvfits=True`` and ``shard_imaging=True``.
     """
-    check_ported(run.obs_type, deconvolver, corruption, selfcal,
-                 applycal_gains, export_uvfits, shard_imaging)
-    knobs = {'scales', 'smallscalebias', 'nterms', 'reffreq', 'cycleniter',
-             'selfcal_solint_s', 'selfcal_rounds'}
+    cube_mode = run.obs_type != 'continuum'
+    if deconvolver not in ('hogbom', 'clark', 'multiscale', 'mtmfs'):
+        raise ValueError(f"unknown deconvolver {deconvolver!r}")
+    if deconvolver != 'hogbom' and cube_mode:
+        raise ValueError(f"deconvolver={deconvolver!r} is continuum "
+                         "(mfs) only; cube runs use the channel-batched "
+                         "Hogbom")
+    if deconvolver == 'mtmfs':
+        nterms = int(nterms)
+        if nterms < 2 or nterms > 4:
+            raise ValueError(f"mtmfs needs 2 <= nterms <= 4, got {nterms}")
+        if selfcal:
+            raise ValueError("selfcal with deconvolver='mtmfs' is not "
+                             "supported (the CLEAN component model is "
+                             "per-Taylor-order, not a flat sky); "
+                             "selfcal with clark/hogbom/multiscale, or "
+                             "transfer gains via applycal_gains")
+    if selfcal and cube_mode:
+        raise ValueError("selfcal is continuum (mfs) only: line cubes "
+                         "lack the per-solint SNR for a gain solve; "
+                         "transfer continuum solutions instead")
+    check_ported(corruption, selfcal, applycal_gains, export_uvfits,
+                 shard_imaging)
+    knobs = {'selfcal_solint_s', 'selfcal_rounds'}
     if set(unported) - knobs:
         raise TypeError("simulate_observation: unexpected keyword(s) "
                         f"{sorted(set(unported) - knobs)}")
@@ -231,6 +261,11 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
     n_chan = sky.shape[0]
     cell_model_rad = abs(float(hdr['CDELT2'])) * np.pi / 180.0
     freqs = np.asarray(run.chan_freqs, dtype=float)[:n_chan]
+    if deconvolver == 'mtmfs' and n_chan < nterms:
+        raise ValueError(
+            f"mtmfs with nterms={nterms} needs at least that many "
+            f"channels to constrain the Taylor planes; this run has "
+            f"{n_chan} (set the run's chanws below its bws)")
 
     # --- beam / image geometry (classes.py:2656-2759) ------------------- #
     max_bl = observatories.max_baseline(ant_file)
@@ -409,7 +444,9 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
                 np.savez(f, uvw=uvw, vis_re=re_nn, vis_im=im_nn,
                          freqs=freqs, sigma=sigma, resume_sig=vis_sig)
 
-    # --- imaging (classes.py:2761-2788): multi-frequency synthesis ------- #
+    # --- imaging (classes.py:2761-2788) ---------------------------------- #
+    # multi-frequency synthesis: all channels on one grid (continuum) or a
+    # per-channel cube (RRL)
     def uvtaper_weights(us, vs):
         """tclean's outer uv taper: Gaussian rolloff in weight whose
         image-plane FWHM is uvtaper_as arcsec (FWHM_uv =
@@ -420,6 +457,25 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
         fwhm_uv = 4.0 * np.log(2.0) / (np.pi * theta)
         return np.exp(-4.0 * np.log(2.0) * (us ** 2 + vs ** 2) /
                       fwhm_uv ** 2)
+
+    def image_channels(chan_idx):
+        """Dirty image and PSF of the channels ``chan_idx`` gridded
+        together, on the device."""
+        us = (uvw[None, :, 0] / lam[chan_idx, None]).ravel()
+        vs = (uvw[None, :, 1] / lam[chan_idx, None]).ravel()
+        us_d = torch.as_tensor(us, dtype=_RDT, device=dev)
+        vs_d = torch.as_tensor(vs, dtype=_RDT, device=dev)
+        w0 = torch.as_tensor(uvtaper_weights(us, vs), dtype=_RDT,
+                             device=dev)
+        if weighting == 'natural':
+            wb = w0
+        else:
+            wb = imaging.briggs_weights(
+                us_d, vs_d, w0, imsize, cell_rad,
+                robust=robust if weighting == 'briggs' else -2.0)
+        return imaging.grid_and_image(us_d, vs_d,
+                                      noisy[chan_idx].reshape(-1), wb,
+                                      imsize, cell_rad)
 
     # CLEAN mask: the model's bounding box mapped into the new image
     # (classes.py:2688-2751)
@@ -432,38 +488,120 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
     mask[max(c0 - half_y, 0):c0 + half_y,
          max(c0 - half_x, 0):c0 + half_x] = 1.0
 
-    extra_maps = {}                 # save_products captures
-    with KernelTimer(f"synthobs: mfs imaging ({imsize}px)", log) as kt:
-        us = (uvw[None, :, 0] / lam[:, None]).ravel()
-        vs = (uvw[None, :, 1] / lam[:, None]).ravel()
-        us_d = torch.as_tensor(us, dtype=_RDT, device=dev)
-        vs_d = torch.as_tensor(vs, dtype=_RDT, device=dev)
-        w0 = torch.as_tensor(uvtaper_weights(us, vs), dtype=_RDT, device=dev)
-        if weighting == 'natural':
-            wb = w0
-        else:
-            wb = imaging.briggs_weights(
-                us_d, vs_d, w0, imsize, cell_rad,
-                robust=robust if weighting == 'briggs' else -2.0)
-        dirty_d, psf_d = imaging.grid_and_image(
-            us_d, vs_d, noisy.reshape(-1), wb, imsize, cell_rad)
-        dirty, psf = dirty_d.cpu().numpy(), psf_d.cpu().numpy()
-        outside = dirty[mask == 0]
-        rms = float(np.std(outside)) if outside.size else 0.0
-        mdl, resid, _its = imaging.hogbom_clean(
-            dirty_d, psf_d, mask, gain=0.1, niter=niter,
-            threshold=nsigma * rms)
+    def beam_of(psf):
         beam = imaging.fit_psf_beam(psf, cell_rad)
-        beam_kernel = imaging.gaussian_beam_kernel(
-            imsize, cell_rad, beam[0], beam[1], beam[2])
-        restored_d = imaging.restore(mdl, resid, beam_kernel)
-        kt.set_result(restored_d)
-        restored = restored_d.cpu().numpy()
-        if save_products:
-            extra_maps.update(psf=psf, dirty=dirty,
-                              model=mdl.cpu().numpy(),
-                              residual=resid.cpu().numpy())
-    del noisy, us_d, vs_d, w0, wb, dirty_d, psf_d, mdl, resid, restored_d
+        return beam, imaging.gaussian_beam_kernel(imsize, cell_rad, *beam)
+
+    extra_maps = {}                 # save_products captures
+    mtmfs_maps: Dict[str, np.ndarray] = {}   # tt1/alpha (mtmfs only)
+    if cube_mode:
+        # common restoring beam fitted to the central channel's PSF
+        # (tclean 'commonbeam' behaviour), then every channel: weighting,
+        # gridding, FFT, the channel-batched CLEAN, restoration
+        with KernelTimer(f"synthobs: cube imaging ({n_chan} chan, "
+                         f"{imsize}px)", log) as kt:
+            psf0 = image_channels([n_chan // 2])[1].cpu().numpy()
+            beam, beam_kernel = beam_of(psf0)
+            # per-visibility taper evaluated at the run centre frequency
+            # (narrow-fractional-bandwidth cubes; per-channel deviation
+            # ~ (dnu/nu)^2)
+            lam_c = cnsts.C / run.freq
+            w_vis = uvtaper_weights(uvw[:, 0] / lam_c, uvw[:, 1] / lam_c)
+            info: Dict = {}
+            restored_d, dirty_d = imaging.clean_cube(
+                uvw, freqs, noisy, w_vis, imsize, cell_rad, mask,
+                beam_kernel, weighting=weighting, robust=robust, gain=0.1,
+                niter=niter, nsigma=nsigma, info=info)
+            kt.set_result(restored_d)
+            restored_cube = restored_d.cpu().numpy()
+            if 'dirty' in save_products:
+                extra_maps['dirty'] = dirty_d.cpu().numpy()
+            if save_products:
+                extra_maps['psf'] = psf0
+            del restored_d, dirty_d
+        if log:
+            log.add_entry(
+                "INFO",
+                "Cube CLEAN: {} channels in {} block(s) of {}, {} "
+                "iterations at most, {} channel-iterations".format(
+                    n_chan, info['n_blocks'], info['chan_block'],
+                    info['iterations'], info['channel_iterations']),
+                timestamp=False)
+    elif deconvolver == 'mtmfs':
+        # multi-term MFS: per-channel dirty/PSF stacks, Taylor moments,
+        # joint minor cycle, Taylor-plane restoration
+        with KernelTimer(f"synthobs: mtmfs imaging ({n_chan} chan, "
+                         f"{imsize}px, nterms={nterms})", log) as kt:
+            stacks = [image_channels([ci]) for ci in range(n_chan)]
+            nu_ref = float(reffreq) if reffreq else float(run.freq)
+            dirty_t, psf_m = imaging.taylor_stacks(
+                torch.stack([d for d, _ in stacks]),
+                torch.stack([p for _, p in stacks]), freqs, nu_ref,
+                nterms=nterms)
+            del stacks
+            d0, psf0 = dirty_t[0].cpu().numpy(), psf_m[0].cpu().numpy()
+            outside = d0[mask == 0]
+            rms = float(np.std(outside)) if outside.size else 0.0
+            mdl_t, res_t, _its = imaging.mtmfs_clean(
+                dirty_t, psf_m, mask, gain=0.1, niter=niter,
+                threshold=nsigma * rms)
+            beam, beam_kernel = beam_of(psf0)
+            tt_d = torch.stack([imaging.restore(mdl_t[t], res_t[t],
+                                                beam_kernel)
+                                for t in range(nterms)])
+            kt.set_result(tt_d)
+            tt, res01 = tt_d.cpu().numpy(), res_t[:2].cpu().numpy()
+            # in-band spectral index where tt0 is solid (5 sigma)
+            solid = tt[0] > 5.0 * rms
+            safe0 = np.where(solid, tt[0], 1.0)
+            alpha_map = np.where(solid, tt[1] / safe0, np.nan)
+            # alpha error (tclean's .alpha.error): first-order propagation
+            # of the per-plane residual rms through alpha = I1/I0
+            # (covariance term dropped)
+            sig = [float(np.std(res01[t][mask == 0]))
+                   if outside.size else 0.0 for t in range(2)]
+            alpha_err = np.where(
+                solid, np.sqrt(sig[1] ** 2 + np.where(
+                    solid, alpha_map, 0.0) ** 2 * sig[0] ** 2) / safe0,
+                np.nan)
+            mtmfs_maps.update(tt1=tt[1], alpha=alpha_map,
+                              alpha_error=alpha_err)
+            if save_products:
+                extra_maps.update(psf=psf0, dirty=d0,
+                                  model=mdl_t[0].cpu().numpy(),
+                                  residual=res01[0])
+            restored_cube = tt[:1]
+        del dirty_t, psf_m, mdl_t, res_t, tt_d
+    else:
+        with KernelTimer(f"synthobs: mfs imaging ({imsize}px)", log) as kt:
+            dirty_d, psf_d = image_channels(np.arange(n_chan))
+            dirty, psf = dirty_d.cpu().numpy(), psf_d.cpu().numpy()
+            outside = dirty[mask == 0]
+            threshold = nsigma * (float(np.std(outside)) if outside.size
+                                  else 0.0)
+            if deconvolver == 'multiscale':
+                mdl, resid, _its = imaging.multiscale_clean(
+                    dirty_d, psf_d, mask, scales=tuple(scales), gain=0.1,
+                    niter=niter, threshold=threshold,
+                    smallscalebias=smallscalebias)
+            elif deconvolver == 'clark':
+                mdl, resid, _its = imaging.clark_clean(
+                    dirty_d, psf_d, mask, gain=0.1, niter=niter,
+                    threshold=threshold, cycleniter=cycleniter)
+            else:
+                mdl, resid, _its = imaging.hogbom_clean(
+                    dirty_d, psf_d, mask, gain=0.1, niter=niter,
+                    threshold=threshold)
+            beam, beam_kernel = beam_of(psf)
+            restored_d = imaging.restore(mdl, resid, beam_kernel)
+            kt.set_result(restored_d)
+            restored_cube = restored_d.cpu().numpy()[None]
+            if save_products:
+                extra_maps.update(psf=psf, dirty=dirty,
+                                  model=mdl.cpu().numpy(),
+                                  residual=resid.cpu().numpy())
+        del dirty_d, psf_d, mdl, resid, restored_d
+    del noisy
     bmaj_rad, bmin_rad, bpa_deg = beam
 
     # --- products -------------------------------------------------------- #
@@ -485,38 +623,87 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
     out_hdr['BMAJ'] = np.degrees(bmaj_rad)
     out_hdr['BMIN'] = np.degrees(bmin_rad)
     out_hdr['BPA'] = bpa_deg
+    if cube_mode:
+        # spectral axis, as CASA exportfits writes for tclean cubes
+        out_hdr['CTYPE3'] = 'FREQ'
+        out_hdr['CRPIX3'] = 1.0
+        out_hdr['CRVAL3'] = float(freqs[0])
+        out_hdr['CDELT3'] = float(freqs[1] - freqs[0]) if len(freqs) > 1 \
+            else float(run.chanwidth)
+        out_hdr['CUNIT3'] = 'Hz'
     with KernelTimer("synthobs: image FITS write", log):
-        fitsio.write_fits(fitsfile, restored, out_hdr)
+        fitsio.write_fits(
+            fitsfile, restored_cube if cube_mode else restored_cube[0],
+            out_hdr)
 
     products = {'ms_clean': clean_vis_file, 'ms_noisy': noisy_vis_file,
                 'clean_image': fitsfile}
 
+    if mtmfs_maps:
+        # mtmfs Taylor/spectral-index products (tclean writes .tt0/.tt1/
+        # .alpha image sets; the restored image above is tt0)
+        hdr_a = out_hdr.copy()
+        hdr_a['BUNIT'] = ''     # the spectral index is dimensionless
+        for key, suffix, name, hdr_p in (
+                ('clean_image_tt1', '.tt1.fits', 'tt1', out_hdr),
+                ('alpha', '.alpha.fits', 'alpha', hdr_a),
+                ('alpha_error', '.alpha.error.fits', 'alpha_error', hdr_a)):
+            pfile = _product_path(fitsfile, suffix)
+            with KernelTimer(f"synthobs: {suffix[1:-5]} FITS write", log):
+                fitsio.write_fits(pfile, mtmfs_maps[name], hdr_p)
+            products[key] = pfile
+
     if pbcor:
         # primary-beam-corrected image (tclean pbcor/pblimit): divide by
-        # the same PB model the sampler applied, NaN below pblimit
-        pb = sampler.primary_beam(imsize, imsize, cell_rad, run.freq,
-                                  mean_dish, model=pb_model,
-                                  blockage_m=pb_blockage_m)
-        pbc = np.where(pb >= pblimit, restored / pb, np.nan)
+        # the same PB model the sampler applied, NaN below pblimit, one
+        # channel's PB plane at a time
+        pb_freqs = freqs if cube_mode else np.asarray([run.freq])
+        pbc = np.empty_like(restored_cube)
+        for k, f in enumerate(pb_freqs):
+            pb_k = sampler.primary_beam(imsize, imsize, cell_rad, f,
+                                        mean_dish, model=pb_model,
+                                        blockage_m=pb_blockage_m)
+            pbc[k] = np.where(pb_k >= pblimit, restored_cube[k] / pb_k,
+                              np.nan)
         pbcor_file = _product_path(fitsfile, '.pbcor.fits')
         with KernelTimer("synthobs: pbcor FITS write", log):
-            fitsio.write_fits(pbcor_file, pbc, out_hdr)
+            fitsio.write_fits(pbcor_file, pbc if cube_mode else pbc[0],
+                              out_hdr)
         products['clean_image_pbcor'] = pbcor_file
 
     if save_products:
         # tclean's auxiliary images (the reference keeps CASA's .psf/
-        # .residual/.model artefacts, README "Data products")
+        # .residual/.model artefacts, README "Data products"); a cube
+        # keeps its common-beam psf plane and its dirty cube
         bunits = {'psf': '', 'dirty': 'Jy/beam', 'model': 'Jy/pixel',
                   'residual': 'Jy/beam'}
         for name in save_products:
+            arr = extra_maps.get(name)
+            if arr is None:
+                if log:
+                    log.add_entry(
+                        "WARNING",
+                        f"save_products: '{name}' is not available from "
+                        f"{'cube' if cube_mode else 'mfs'} imaging",
+                        timestamp=False)
+                continue
             hdr_p = out_hdr.copy()
+            if cube_mode and arr.ndim == 2:
+                # the common-beam psf plane is 2-D: strip the cube's
+                # spectral-axis cards or the file advertises a FREQ axis
+                # it does not have
+                hdr_p._cards = [c for c in hdr_p._cards
+                                if not c[0].endswith('3')]
             hdr_p['BUNIT'] = bunits[name]
             pfile = _product_path(fitsfile, f'.{name}.fits')
             with KernelTimer(f"synthobs: {name} FITS write", log):
-                fitsio.write_fits(pfile, extra_maps[name], hdr_p)
+                fitsio.write_fits(pfile, arr, hdr_p)
             products[name] = pfile
 
-    # --- imfit (classes.py:2690-2840) ------------------------------------ #
+    if cube_mode:
+        return products
+
+    # --- imfit (continuum only; classes.py:2690-2840) -------------------- #
     fm_data = sky[0]
     yy, xx = np.mgrid[0:ny_m, 0:nx_m]
     xx_as = (xx + 0.5 - nx_m / 2) * abs(float(hdr['CDELT1'])) * 3600.0
@@ -559,7 +746,7 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
                      (bmaj_rad / cell_rad) * (bmin_rad / cell_rad))
     fit_t0 = time.perf_counter()
     fit = imfit_mod.fit_gaussian(
-        restored,
+        restored_cube[0],
         estimates={'peak': max(peak_flux, 1e-12), 'x': imsize / 2.0,
                    'y': imsize / 2.0, 'maj_pix': conv_maj / cell_as,
                    'min_pix': conv_min / cell_as,

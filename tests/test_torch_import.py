@@ -141,6 +141,43 @@ def test_port_reads_its_own_data_files():
         observatories._CFG_DIR
 
 
+def test_cube_imaging_and_deconvolvers_run_without_jax():
+    """With ``jax`` blocked, the line-cube imaging and the mfs
+    deconvolvers run on the CPU and leave no module of JAX or the JAX
+    package loaded."""
+    res = _run(
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import numpy as np, torch\n"
+        "from rajepy_tpu_torch.synthobs import imaging as im\n"
+        "n = 32\n"
+        "yy, xx = np.mgrid[0:n, 0:n] - n // 2\n"
+        "psf = torch.from_numpy(np.exp(-(yy ** 2 + xx ** 2) / 6.0))\n"
+        "dirty = 2.0 * torch.roll(psf, (3, -2), (0, 1))\n"
+        "mask = np.ones((n, n))\n"
+        "m, r, k = im.hogbom_clean_batched(torch.stack([dirty, psf]),\n"
+        "    torch.stack([psf, psf]), mask, [0.0, 0.0], niter=40)\n"
+        "assert m.shape == (2, n, n) and k == 40\n"
+        "for fn in (im.clark_clean, im.multiscale_clean):\n"
+        "    assert fn(dirty, psf, mask, niter=20)[2] == 20\n"
+        "dt, pm = im.taylor_stacks(torch.stack([dirty, dirty]),\n"
+        "    torch.stack([psf, psf]), [0.9e9, 1.1e9], 1e9)\n"
+        "assert im.mtmfs_clean(dt, pm, mask, niter=20)[2] == 20\n"
+        "rng = np.random.default_rng(0)\n"
+        "uvw = rng.uniform(-300, 300, (200, 3))\n"
+        "vis = torch.from_numpy(rng.normal(size=(3, 200)) + 0j)\n"
+        "rest, di = im.clean_cube(uvw, [1e9, 1.1e9, 1.2e9], vis,\n"
+        "    np.ones(200), n, 2e-4, mask, np.asarray(psf), niter=10)\n"
+        "assert rest.shape == di.shape == (3, n, n)\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m == 'rajepy_tpu' or m.startswith('rajepy_tpu.')\n"
+        "       or m == 'jax' and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == 'ok'
+
+
 def test_no_synthobs_module_imports_jax_or_the_jax_package():
     """No import statement of the port's synthobs, at module level or
     inside a function, names JAX or the JAX package (the package import

@@ -322,8 +322,9 @@ def test_cpu_pipeline_resumes_on_the_cpu_at_its_precision(
 
 
 # simobserve=True (the default) with what synthobs does not port yet: an
-# RRL run configured for a synthetic observation (line-cube imaging), or an
-# option of params['synthobs']
+# option of params['synthobs'].  An RRL run configured for a synthetic
+# observation (line-cube imaging) and deconvolver='clark' were refused
+# until they were ported; they now run
 _OBSERVED_RRL = {'rrls': dict(t_obs=np.array([3600]), t_ints=np.array([60]),
                               tscps=np.array([('VLA', 'A')]))}
 
@@ -345,6 +346,9 @@ _OBSERVED_RRL = {'rrls': dict(t_obs=np.array([3600]), t_ints=np.array([60]),
 ])
 def test_unported_stages_raise_before_any_work(kwargs, match, model_params,
                                                tmp_path):
+    """What is not ported raises before any work; the observed RRL runs and
+    deconvolver='clark', refused until they were ported, complete and
+    write their products."""
     kwargs = dict(kwargs)
     pline = kwargs.pop('pline', {})
     params = _pline_params(tmp_path / 'out', rrl='rrls' in pline)
@@ -352,6 +356,18 @@ def test_unported_stages_raise_before_any_work(kwargs, match, model_params,
     if 'synthobs' in pline:
         params['synthobs'] = pline['synthobs']
     pl = rajepy_tpu_torch.Pipeline(_torch_model(_small(model_params)), params)
+    if match in ('line cubes', "deconvolver='clark'"):
+        pl.execute(verbose=False, **kwargs)
+        assert all(r.completed for r in pl.runs)
+        for run in pl.runs:
+            assert all(os.path.isfile(getattr(run, p)) for p in PRODUCTS)
+            if run.simobserve:
+                img, hdr = read_fits(run.products['clean_image'])
+                assert img.shape == (len(run.chan_freqs), 500, 500)
+                assert hdr['CTYPE3'] == 'FREQ'
+        assert sum(r.simobserve for r in pl.runs) == \
+            (2 if match == 'line cubes' else 0)
+        return
     with pytest.raises(NotImplementedError, match=match):
         pl.execute(verbose=False, **kwargs)
     assert pl.model._fields is None

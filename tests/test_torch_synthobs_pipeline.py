@@ -15,7 +15,9 @@ The conftest jet at 24 x 60 x 24 cells, one continuum run (VLA A, 6 GHz,
   them, and its restored image and imfit then match the port's (1e-9,
   1e-6);
 * ``resume=True`` skips completed runs, ``clobber=True`` recomputes them;
-  the options that need unported parts of synthobs raise before any work.
+  the options that need unported parts of synthobs raise before any work,
+  and what was refused before it was ported (line cubes, the Clark and
+  multiscale deconvolvers) runs and writes its image.
 """
 import copy
 import os
@@ -237,6 +239,10 @@ def test_resume_skips_and_clobber_recomputes(model_params, root):
     assert loaded.runs[0].results['imfit'] == pl.runs[0].results['imfit']
 
 
+NOW_PORTED = ('line cubes', "deconvolver='clark'",
+              "deconvolver='multiscale'")
+
+
 @pytest.mark.parametrize('synthobs,rrl,match', [
     (None, True, 'line cubes'),
     ({'deconvolver': 'clark'}, False, "deconvolver='clark'"),
@@ -250,11 +256,22 @@ def test_resume_skips_and_clobber_recomputes(model_params, root):
 def test_simulate_observation_refuses_unported_options(
         synthobs, rrl, match, model_params, tmp_path):
     """Called directly, simulate_observation refuses what is not ported
-    before it reads or writes anything."""
+    before it reads or writes anything; the cases that were refused until
+    they were ported (an RRL run's line cube, deconvolver='clark' and
+    'multiscale') now observe the run and write its restored image."""
     pl = rajepy_tpu_torch.Pipeline(
         rajepy_tpu_torch.JetModel(_small(model_params), device='cpu'),
         _params(tmp_path / 'out', rrl=rrl))
     run = pl.runs[-1]
+    if match in NOW_PORTED:
+        pl.execute(simobserve=False, **QUIET)
+        prods = tsyn.simulate_observation(pl, run, **(synthobs or {}))
+        img, hdr = read_fits(prods['clean_image'])
+        assert img.shape == ((len(run.chan_freqs), 500, 500) if rrl else
+                             (500, 500))
+        assert np.all(np.isfinite(img)) and hdr['BUNIT'] == 'Jy/beam'
+        assert os.path.isfile(prods['ms_noisy'])
+        return
     with pytest.raises(NotImplementedError, match=match):
         tsyn.simulate_observation(pl, run, **(synthobs or {}))
     assert not os.path.exists(run.rt_dcy)
