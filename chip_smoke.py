@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's continuum, RRL, emergent, pipeline,
-synthetic-observation and line-cube observation main paths once on one
-NVIDIA GPU.
+synthetic-observation, line-cube observation and analysis main paths once
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -65,15 +65,20 @@ Phases (any failure exits non-zero; nothing is caught):
       ``Pipeline.load_pipeline`` must give the same run table, and
       ``clobber=True`` on one run must recompute it.  Prints every run's
       device-compute, copy-out, FITS-write and checkpoint times.
-   e. synthetic observations: ``Pipeline(jm, params).execute(plot=False,
-      resume=False, clobber=True)`` (``simobserve`` at its default, True)
-      on the same model with the bundled ``example-pipeline-params.py`` as
-      shipped: six continuum runs (0-5 yr, VLA A, 6 GHz, 2 channels), each
-      observed (718,848 visibilities, a 500 x 500 image, 500 Hogbom
+   e. synthetic observations: ``Pipeline(jm, params).execute(resume=False,
+      clobber=True)`` (``simobserve`` at its default, True, and ``plot``
+      at its default, True, where matplotlib can be imported, else False:
+      an early line says which) on the same model with the bundled
+      ``example-pipeline-params.py`` as shipped: six continuum runs (0-5
+      yr, VLA A, 6 GHz, 2 channels), each observed (718,848
+      visibilities, a 500 x 500 image, 500 Hogbom
       iterations at most) in float64 on the card.  The dual-base epoch
       kernel must have been launched 6 times; every run must complete with
       its visibility sets, restored image (Jy/beam, with its beam),
-      ``.estimates`` and ``.imfit``; std(noisy - clean) of each part within
+      ``.estimates`` and ``.imfit``; with ``plot=True``, ``GridPlot.pdf``,
+      ``JMLPlot.pdf``, each epoch's ``ModelPlot.pdf`` and each epoch's
+      ``RadioSED<year>yrPlot.png`` (the stage ``plots`` is printed with
+      the others); std(noisy - clean) of each part within
       1% of sigma.  Run 1 through the synthobs functions on the card and
       on the CPU, each stage from the same inputs: the clean visibilities
       (also bit for bit the pipeline's), the dirty image and PSF, and the
@@ -106,6 +111,19 @@ Phases (any failure exits non-zero; nothing is caught):
       imaging with its prep, CLEAN and restore, FITS write), the channel
       block, the batched loop's iterations and channel-iterations per
       second and peak memory.
+   g. diagnostics and analysis: ``models.analysis.light_curve`` of the
+      same model over 50 epochs from 0 to 5 yr (across its four bursts)
+      and the 16 continuum channels: the single-base epoch kernel must
+      have been launched once per epoch, and the brightest epoch must
+      equal the kernel's plain version followed by the channel stage on
+      the same card tensors (2e-4).  Timed by CUDA events (median of 5,
+      the copy to the host included): ``diagnostic_maps``,
+      ``occupancy_projections``, ``conservation_profiles``,
+      ``velocity_midplane``, ``chi_xyz``, ``number_density``, ``sed``,
+      ``spectral_index_map``, ``turnover_map`` and ``light_curve``, with
+      peak memory; each held at 128^3 against the same call of a float32
+      CPU model (1e-5 of the CPU's largest magnitude, NaN in the same
+      cells).
    Outputs must be finite, non-zero where the jet is (all-zero on the
    jet-free grid), equal to the plain versions on the same card tensors
    (2e-4), and a small model at float32 must agree with the float64 plain
@@ -144,9 +162,9 @@ Phases (any failure exits non-zero; nothing is caught):
    whole; launch times only where base != 0) and ptxas's report of both
    (no spill allowed).
 
-The line before the last is a JSON object with one entry per kernel and
-the line-cube observation's numbers; the last line is ``{"ok": true,
-"device": {...}}``.
+The line before the last is a JSON object with one entry per kernel, the
+line-cube observation's numbers and phase 2g's times; the last line is
+``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --time-paths DIR
 
@@ -253,6 +271,20 @@ CUBE_CHECK_NCHAN = 8      # channels around nu0 held card against CPU
 CUBE_CHECK_BLOCK = 3      # a second channel block for the same channels
 
 
+# phase 2g: the light curve's epochs [yr], 0 to 5 yr across the example
+# jet's four bursts; the CPU model the card's reductions are held against
+# (a float32 512^3 CPU model is too slow for the script); their tolerance
+# (float32, relative to the largest magnitude: the last bits of the two
+# devices' fills, and conservation_profiles' index_add_ uses atomics on a
+# card)
+ANALYSIS_EPOCHS_YR = np.linspace(0.0, 5.0, 50)
+ANALYSIS_CPU_GRID = 128
+ANALYSIS_RTOL = 1e-5
+# the figures of Pipeline.execute(plot=True) that phase 2e checks, besides
+# each epoch's ModelPlot.pdf
+PIPELINE_FIGURES = ('GridPlot.pdf', 'JMLPlot.pdf')
+
+
 def rel_err(got, want):
     """(max |got - want| / max |want|, max |got - want|) over tensors."""
     got = got.double()
@@ -269,6 +301,19 @@ def check(name, got, want, rtol):
     if not rel <= rtol:
         raise AssertionError(f"{name}: rel err {rel:.3e} > {rtol:g}")
     return rel, abs_err
+
+
+def check_host(name, got, want, rtol):
+    """:func:`check` of host arrays that hold NaN outside the jet: the same
+    cells must be NaN in both."""
+    import torch
+    got, want = np.asarray(got, dtype=float), np.asarray(want, dtype=float)
+    if got.shape != want.shape or \
+            not np.array_equal(np.isnan(got), np.isnan(want)):
+        raise AssertionError(f"{name}: shapes {got.shape}, {want.shape} or "
+                             f"NaN cells differ")
+    return check(name, torch.from_numpy(np.nan_to_num(got)),
+                 torch.from_numpy(np.nan_to_num(want)), rtol)
 
 
 def cuda_ms(fn, n_rep=30, batch=1, n_warm=3):
@@ -1620,11 +1665,12 @@ def deconvolvers_card_vs_cpu(run, dirty, psf, mask, cell, thr, smi):
     return errs
 
 
-def run_synthobs(jm, log, tmp, smi):
+def run_synthobs(jm, log, tmp, smi, plot):
     """The synthetic observations, counted (phase 2e): the bundled campaign
     as shipped through ``Pipeline.execute`` with ``simobserve`` at its
-    default on the flagship model; its products, the card against the CPU,
-    the noise, a deterministic repeat and a resume."""
+    default on the flagship model, and ``plot`` at its default (True)
+    where matplotlib can be imported; its products and figures, the card
+    against the CPU, the noise, a deterministic repeat and a resume."""
     import shutil
     import torch
     from rajepy_tpu_torch import Pipeline
@@ -1646,7 +1692,7 @@ def run_synthobs(jm, log, tmp, smi):
           f"{len(runs)} continuum runs ({len(runs[0].chan_freqs)} ch at "
           f"{runs[0].freq:.1e} Hz, {runs[0].year:g}-{runs[-1].year:g} yr, "
           f"{runs[0].tscop[0]} {runs[0].tscop[1]}, t_obs {runs[0].t_obs:g} "
-          f"s): execute(plot=False, resume=False, clobber=True)")
+          f"s): execute(plot={plot}, resume=False, clobber=True)")
 
     events = []
     record = profiling.record_stage
@@ -1662,7 +1708,7 @@ def run_synthobs(jm, log, tmp, smi):
         profiling.collect_stage_times(True)
         kn.reset_launches()
         t_wall = time.perf_counter()
-        pline.execute(plot=False, verbose=False, resume=False, clobber=True)
+        pline.execute(plot=plot, verbose=False, resume=False, clobber=True)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t_wall
     finally:
@@ -1695,6 +1741,21 @@ def run_synthobs(jm, log, tmp, smi):
                   for k in SYNTHOBS_STAGES) + f" [{smi}]")
     so_total = sum(v for k, v in totals.items()
                    if k.startswith(SYNTHOBS_STAGES))
+    if plot:
+        figures = list(PIPELINE_FIGURES) + sorted({
+            os.path.relpath(os.path.join(os.path.dirname(r.rt_dcy),
+                                         'ModelPlot.pdf'), dcy)
+            for r in runs}) + [f'RadioSED{y:.1f}yrPlot.png'
+                               for y in sorted({r.year for r in runs})]
+        for name in figures:
+            path = os.path.join(dcy, name)
+            if not os.path.isfile(path) or os.path.getsize(path) <= 1000:
+                raise AssertionError(f"execute(plot=True) wrote no figure "
+                                     f"{name}")
+        print(f"  figures: {len(figures)} files ({', '.join(figures)}); "
+              f"stage 'plots' {totals['plots']:.4f} s [{smi}]")
+    else:
+        print("  figures skipped (no matplotlib): execute(plot=False)")
     print(f"  execute {wall_s:.4f} s in all, of which the synthetic "
           f"observations' stages {so_total:.4f} s; stage totals: " +
           ', '.join(f"{k} {v:.4f} s" for k, v in sorted(totals.items())) +
@@ -2014,6 +2075,103 @@ def run_cube_observation(jm, log, tmp, smi):
                       'it_s': it_s, 'chan_it_s': chan_it_s,
                       'stages_ms': {k: stage[k] * 1e3 for k in CUBE_STAGES},
                       'errs': errs}
+
+
+def run_analysis(jm, smi):
+    """Diagnostics and analysis, counted (phase 2g): the light curve of the
+    flagship model over ANALYSIS_EPOCHS_YR and the 16 continuum channels
+    (the single-base epoch kernel once per epoch), one of its epochs
+    against the kernel's plain version and the channel stage on the same
+    card tensors; every device reduction and analysis product timed on the
+    flagship; each held on a ANALYSIS_CPU_GRID^3 model against the same
+    call of a CPU model."""
+    import torch
+    from rajepy_tpu_torch import JetModel
+    from rajepy_tpu_torch.models import analysis
+    from rajepy_tpu_torch.ops import kernels as kn
+    n_ep = len(ANALYSIS_EPOCHS_YR)
+    print(f"phase 2g: diagnostics and analysis, {N_GRID}^3 float32: "
+          f"light_curve over {n_ep} epochs ({ANALYSIS_EPOCHS_YR[0]:g}-"
+          f"{ANALYSIS_EPOCHS_YR[-1]:g} yr) x {len(FREQS)} channels, the "
+          f"device reductions, sed, spectral_index_map and turnover_map")
+    jm.time = EPOCHS_YR[-1] * YEAR
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kn.reset_launches()
+    curve, lc_ms = timed_once(lambda: analysis.light_curve(
+        jm, ANALYSIS_EPOCHS_YR, FREQS))
+    launches = read_launches('analysis')
+    require_launched(launches, ('epoch_base_map_tiles',), 'analysis')
+    if launches['epoch_base_map_tiles'] != n_ep:
+        raise AssertionError(f"light_curve over {n_ep} epochs launched the "
+                             f"single-base epoch kernel "
+                             f"{launches['epoch_base_map_tiles']} times")
+    if curve.shape != (n_ep, len(FREQS)) or \
+            not np.all(np.isfinite(curve)) or not np.all(curve > 0):
+        raise AssertionError(f"light curve {curve.shape}, finite and "
+                             f"positive: {np.all(np.isfinite(curve))}, "
+                             f"{np.all(curve > 0)}")
+    thin = curve[:, -1]
+    print(f"  light_curve: {lc_ms:.4f} ms (CUDA events, first call); at "
+          f"{FREQS[-1]:.3e} Hz {thin.min():.6e} to {thin.max():.6e} Jy, at "
+          f"{FREQS[0]:.3e} Hz {curve[:, 0].min():.6e} to "
+          f"{curve[:, 0].max():.6e} Jy")
+    # the brightest epoch against the plain version on the same tensors
+    k = int(np.argmax(thin))
+    st = jm._rt_static()
+    t = float(ANALYSIS_EPOCHS_YR[k]) * YEAR
+    a_map = kn.epoch_base_map_tiles_plain(st.a_t, st.tss_t, st.seg, t,
+                                          jm._burst_tuple(), jm.nx, jm.nz,
+                                          jm._ts_pack_offset)
+    want = products_from_maps(jm, st, a_map, a_map)[2].sum(dim=(1, 2))
+    check(f"light_curve epoch {k} ({ANALYSIS_EPOCHS_YR[k]:.4f} yr) vs "
+          f"plain", torch.from_numpy(curve[k]).to(want), want, MAP_RTOL)
+    del a_map, want
+
+    calls = {
+        'diagnostic_maps': lambda m: m.diagnostic_maps(),
+        'occupancy_projections': lambda m: m.occupancy_projections(),
+        'conservation_profiles': lambda m: m.conservation_profiles(),
+        'velocity_midplane': lambda m: m.velocity_midplane(),
+        'chi_xyz': lambda m: m.chi_xyz,
+        'number_density': lambda m: m.number_density,
+        'sed': lambda m: analysis.sed(m, FREQS),
+        'spectral_index_map': lambda m: analysis.spectral_index_map(
+            m, 1e9, 2e10, min_flux_jy=1e-12),
+        'turnover_map': lambda m: analysis.turnover_map(m, FREQS),
+        'light_curve': lambda m: analysis.light_curve(
+            m, ANALYSIS_EPOCHS_YR, FREQS),
+    }
+    times_ms = {}
+    for name, fn in calls.items():
+        times_ms[name] = cuda_ms(lambda: fn(jm), n_rep=5, n_warm=1)
+        print(f"  {name}: {times_ms[name]:.4f} ms (CUDA events, median of "
+              f"5, the copy to the host included) [{smi}]")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  peak device memory {peak_gb:.3f} GB [{smi}]")
+
+    # the card against the CPU, one float32 model on each
+    n = ANALYSIS_CPU_GRID
+    models = [JetModel(example_params((n,) * 3), dtype=torch.float32,
+                       device=dev) for dev in ('cuda', 'cpu')]
+    for m in models:
+        m.time = EPOCHS_YR[-1] * YEAR
+    errs = {}
+    for name, fn in calls.items():
+        got, want = (fn(m) for m in models)
+        if isinstance(want, dict):
+            got, want = ([d[key] for key in sorted(d)] for d in (got, want))
+        elif isinstance(want, tuple):
+            got, want = list(got), list(want)
+        else:
+            got, want = [got], [want]
+        errs[name] = max(check_host(f"{name}, {n}^3 card vs CPU [{i}]", g,
+                                    w, ANALYSIS_RTOL)[0]
+                         for i, (g, w) in enumerate(zip(got, want)))
+    del models
+    torch.cuda.empty_cache()
+    return launches, {'ms': times_ms, 'peak_gb': peak_gb, 'errs': errs,
+                      'light_curve_first_ms': lc_ms}
 
 
 def check_emergent(jm, em):
@@ -2405,6 +2563,15 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout.strip()
     smi = smi.splitlines()[0]
     t_script = time.perf_counter()
+    try:
+        import matplotlib
+        plot = True
+        print(f"matplotlib {matplotlib.__version__}: phase 2e draws the "
+              f"figures of execute(plot=True)")
+    except ImportError:
+        plot = False
+        print("matplotlib cannot be imported: phase 2e runs "
+              "execute(plot=False) and skips the figures")
 
     with tempfile.TemporaryDirectory() as tmp:
         log = Log(os.path.join(tmp, 'smoke.log'), verbose=False)
@@ -2427,8 +2594,10 @@ def main() -> int:
         by_path = {'continuum': cont_launches, 'rrl': rrl_launches,
                    'emergent': em_launches,
                    'pipeline': run_pipeline(jm, log, tmp, smi)}
-        by_path['synthobs'], synthobs = run_synthobs(jm, log, tmp, smi)
+        by_path['synthobs'], synthobs = run_synthobs(jm, log, tmp, smi,
+                                                     plot)
         by_path['cube'], cube = run_cube_observation(jm, log, tmp, smi)
+        by_path['analysis'], ana = run_analysis(jm, smi)
         # the pipeline is what a user runs: its counts stand for the two
         # kernels it launches
         launches.update({k: by_path['pipeline'][k] for k in PIPELINE_KERNELS})
@@ -2592,6 +2761,11 @@ def main() -> int:
               f"channel-iterations per second, peak memory "
               f"{cube['peak_gb']:.3f} GB; card vs CPU: " + ', '.join(
                   f"{k} {v:.3e}" for k, v in cube['errs'].items()))
+        print(f"  diagnostics and analysis (phase 2g): " + ', '.join(
+            f"{k} {v:.4f} ms" for k, v in ana['ms'].items()) +
+            f"; peak memory {ana['peak_gb']:.3f} GB; {ANALYSIS_CPU_GRID}^3 "
+            f"card vs CPU: " + ', '.join(
+                f"{k} {v:.3e}" for k, v in ana['errs'].items()))
         print(f"  RRL run {rrl['wall_s']:.4f} s (tiles, LTE and non-LTE "
               f"{RRL_NCHAN}-channel products, 16-channel tau and flux, the "
               f"jet-free grid); peak memory {rrl['peak_gb']:.3f} GB")
@@ -2727,7 +2901,8 @@ def main() -> int:
             k: cube[k] for k in ('wall_s', 'peak_gb', 'chan_block',
                                  'iterations', 'loop_iterations',
                                  'channel_iterations', 'it_s', 'chan_it_s',
-                                 'stages_ms')}}))
+                                 'stages_ms')},
+            'analysis': {k: ana[k] for k in ('ms', 'peak_gb', 'errs')}}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

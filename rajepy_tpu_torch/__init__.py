@@ -3,18 +3,36 @@ through ionised jets from young stellar objects, run on an NVIDIA GPU.
 
 The package mirrors rajepy_tpu's module paths and names.  It imports
 ``torch`` and never ``jax`` or ``rajepy_tpu``, so it runs where JAX is not
-installed.  Ported so far: ``JetModel`` (construction, the grid fill, the
-free-free continuum products, the radio-recombination-line products in LTE
-and non-LTE, the ordered emergent intensity, FITS products and
-checkpoints), the run descriptors, ``Pipeline`` with ``execute(plot=False)``
-(the run matrix, per-run FITS products under ``Day<d>/<freq|line>/``,
-resume, clobber and dryrun), and the synthetic observations of continuum
-runs (``synthobs``: uv tracks, visibility sampling, Briggs gridding, Hogbom
-CLEAN, restoration and imfit), which ``execute(simobserve=True)`` runs.
+installed.  Ported so far:
+
+- ``JetModel``: construction, the grid fill, the free-free continuum
+  products, the radio-recombination-line products in LTE and non-LTE, the
+  ordered emergent intensity, FITS products and checkpoints, the field
+  views (``number_density``, ``temperature``, ``vel``, ``ts``,
+  ``chi_xyz``, ...) and the diagnostic reductions on the device
+  (``diagnostic_maps``, ``occupancy_projections``,
+  ``conservation_profiles``, ``velocity_midplane``);
+- ``models.analysis``: SEDs, spectral-index, turnover and moment maps, and
+  multi-epoch light curves;
+- the run descriptors and ``Pipeline``: ``execute()`` with its defaults
+  (the run matrix, per-run FITS products under ``Day<d>/<freq|line>/``,
+  synthetic observations, the diagnostic figures, resume, clobber and
+  dryrun) and ``radio_plot``;
+- ``synthobs``: synthetic observations of continuum runs and of line
+  cubes (uv tracks, visibility sampling, Briggs gridding, the Hogbom,
+  Clark, multiscale and mtmfs deconvolvers, restoration and imfit);
+- ``plotting``: the figures of the JAX package (matplotlib, imported only
+  where a figure is drawn).
+
 Every Pallas kernel of rajepy_tpu has a hand-written CUDA counterpart under
-``csrc/``.  Not ported yet: the synthetic observation of line cubes, the
-other deconvolvers, calibration and UVFITS export, plotting, fitting, the
-multi-device fan-out and the CLI.
+``csrc/``.  Not ported yet: the CLI (``main``), calibration (antenna gain
+corruption, self-calibration and gain transfer: the ``params['synthobs']``
+options ``corruption``, ``selfcal`` and ``applycal_gains``), UVFITS export
+(``export_uvfits=True``), the exact-DFT visibility samplers,
+``casa_compat``, ``fit``, ``parallel`` (the multi-device fan-out,
+``device_fanout=True`` of ``Pipeline.execute``, and channel-sharded
+imaging, ``shard_imaging=True``) and the examples.  The options named
+here raise ``NotImplementedError`` before any work is done.
 
 Package layout
 --------------
@@ -25,12 +43,14 @@ Package layout
                 versions (``ops/kernels.py``)
 - ``csrc``      the CUDA kernels: epoch maps, RRL maps, emergent maps
 - ``models``    grid construction, field evaluation, ejection bursts,
-                the ``JetModel`` API, run descriptors
+                the ``JetModel`` API, run descriptors, analysis products
 - ``pipeline``  the multi-epoch, multi-frequency orchestrator
-- ``synthobs``  CASA-free synthetic observations of continuum runs:
-                antenna configurations and uv tracks, visibility sampling
-                and noise, imaging and CLEAN, source fitting (a subpackage,
-                imported where used)
+- ``synthobs``  CASA-free synthetic observations of continuum runs and
+                line cubes: antenna configurations and uv tracks,
+                visibility sampling and noise, imaging and CLEAN, source
+                fitting (a subpackage, imported where used)
+- ``plotting``  matplotlib figures of models, RT products, SEDs and
+                observations (imported where used)
 - ``io``        FITS writer/reader, npz/JSON checkpoints
 - ``utils``     logging, validation, profiling, misc helpers
 """

@@ -1,7 +1,7 @@
 """Static grid construction (PyTorch port of rajepy_tpu.models.grid).
 
 * ``lz_to_grid_dims``  — classes.py:90-122, on the host in numpy
-* corner/centred coordinates — classes.py:465-513 (bottom-left-front cell
+* corner/centred coordinates — classes.py:465-523 (bottom-left-front cell
   corners in au, 'ij'-indexed, centred on the grid midpoint)
 
 Coordinates are *broadcastable* rank-3 tensors of shapes (nx, 1, 1),
@@ -70,3 +70,11 @@ def grid_corner_coords(nx: int, ny: int, nz: int, csize: float,
     return (csize * (ix - nx // 2),
             csize * (iy - ny // 2),
             csize * (iz - nz // 2))
+
+
+def grid_centre_coords(nx: int, ny: int, nz: int, csize: float,
+                       dtype: torch.dtype = torch.float64, device='cpu'):
+    """Cell-centre coordinates (corner + csize/2; classes.py:521-523)."""
+    xx, yy, zz = grid_corner_coords(nx, ny, nz, csize, dtype, device)
+    half = csize / 2.0
+    return xx + half, yy + half, zz + half

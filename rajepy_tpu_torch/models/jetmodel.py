@@ -33,7 +33,11 @@ the emergent tile kernel (or, when no tile is active, the full grid through
 the emergent full-grid kernel); a float64 model takes the plain
 flip-and-cumsum scan per channel.
 
-The diagnostic and velocity members of the JAX model are not ported yet.
+The field views (``number_density``, ``temperature``, ``vel``, ...) are
+host numpy arrays, NaN outside the jet, as in the JAX model; the
+diagnostic reductions (``diagnostic_maps``, ``occupancy_projections``,
+``conservation_profiles``, ``velocity_midplane``) run on the model's device
+and copy only their maps and profiles to the host.
 """
 from __future__ import annotations
 
@@ -61,7 +65,9 @@ from ..utils.profiling import KernelTimer
 from ..utils.validation import check_model_params
 from . import ejection as ej
 from . import grid as mgrid
-from .fields import StaticFields, compute_static_fields
+from .fields import (Geometry, StaticFields, centre_rwp,
+                     compute_static_fields, effective_radius,
+                     travel_time_years, velocity)
 
 
 class RTStatic(NamedTuple):
@@ -421,7 +427,96 @@ class JetModel:
             self._fields = None
             self._host_ff_cache = None
 
-    def _nan_view(self, arr, mask) -> np.ndarray:
+    # ------------------------------------------------------------------ #
+    # Coordinate grids (classes.py:465-569) — NaN-free by construction
+    # ------------------------------------------------------------------ #
+    @property
+    def indices(self):
+        return tuple(np.meshgrid(np.arange(self.nx), np.arange(self.ny),
+                                 np.arange(self.nz), indexing='ij'))
+
+    @property
+    def ix(self):
+        return self.indices[0]
+
+    @property
+    def iy(self):
+        return self.indices[1]
+
+    @property
+    def iz(self):
+        return self.indices[2]
+
+    def _full_numpy(self, arrs):
+        """Broadcast (nx, ny, nz) read-only numpy views of tensors."""
+        shape = (self.nx, self.ny, self.nz)
+        return tuple(np.broadcast_to(a.cpu().numpy(), shape) for a in arrs)
+
+    @property
+    def grid(self):
+        return self._full_numpy(self._grid_coords)
+
+    @property
+    def xx(self):
+        return self.grid[0]
+
+    @property
+    def yy(self):
+        return self.grid[1]
+
+    @property
+    def zz(self):
+        return self.grid[2]
+
+    @property
+    def xs(self):
+        return self._grid_coords[0].cpu().numpy().ravel()
+
+    @property
+    def ys(self):
+        return self._grid_coords[1].cpu().numpy().ravel()
+
+    @property
+    def zs(self):
+        return self._grid_coords[2].cpu().numpy().ravel()
+
+    def _centre_rwp(self, y_slice: slice = slice(None)):
+        """Jet-frame (r, w, phi) of the cell centres as broadcast tensors on
+        the model's device, for the y rows ``y_slice``."""
+        xx, yy, zz = self._grid_coords
+        half = self.csize / 2.0
+        gm = Geometry.from_params(self._static_params())
+        return centre_rwp(gm, xx + half, yy[:, y_slice, :] + half, zz + half)
+
+    @property
+    def grid_rwp(self):
+        return self._full_numpy(self._centre_rwp())
+
+    @property
+    def rr(self):
+        return self.grid_rwp[0]
+
+    @property
+    def ww(self):
+        return self.grid_rwp[1]
+
+    @property
+    def pp(self):
+        return self.grid_rwp[2]
+
+    @property
+    def rreff(self):
+        rr, ww, _ = self._centre_rwp()
+        rr, ww = torch.broadcast_tensors(rr, ww)
+        gm = Geometry.from_params(self._static_params())
+        return effective_radius(gm, rr, ww).cpu().numpy()
+
+    # ------------------------------------------------------------------ #
+    # Cached field views — NaN outside the jet, as the reference's API
+    # ------------------------------------------------------------------ #
+    def _nan_view(self, arr, mask=None) -> np.ndarray:
+        if mask is None:
+            mask = self._ensure_fields().inside
         nan = torch.full((), float('nan'), dtype=arr.dtype,
                          device=arr.device)
         return torch.where(mask, arr, nan).cpu().numpy()
@@ -437,6 +532,172 @@ class JetModel:
         """classes.py:771-784."""
         f = self._ensure_fields()
         return self._nan_view(f.area, f.area > FF_MIN)
+
+    @property
+    def ts(self) -> np.ndarray:
+        """Launch time of each cell's material: model time minus travel
+        time [s], for every cell like the reference (classes.py:838-855 —
+        unmasked).  A burst-free model fills its fields without travel
+        times, so they are evaluated here instead."""
+        f = self._ensure_fields()
+        travel = f.ts
+        if not self._has_bursts:
+            rr, ww, _ = self._centre_rwp()
+            travel = travel_time_years(
+                Geometry.from_params(self._static_params()),
+                self._static_params(), rr, ww) * cnsts.YEAR
+            travel = travel.expand(f.ff.shape)
+        return (self.time - travel).cpu().numpy()
+
+    @property
+    def chi_xyz(self) -> np.ndarray:
+        """Burst factor per cell (classes.py:861-870) at the model time."""
+        f = self._ensure_fields()
+        return ej.chi_field(f.red, self.time - f.ts, self._spec_r,
+                            self._spec_b).cpu().numpy()
+
+    @property
+    def number_density(self) -> np.ndarray:
+        """Time-modulated number density [cm^-3] (classes.py:872-899)."""
+        return self._nan_view(self._nd_chi(self._ensure_fields(), self.time))
+
+    @property
+    def mass_density(self) -> np.ndarray:
+        """[g cm^-3] (classes.py:901-908)."""
+        av_m = self.params['properties']['mu'] * cnsts.atomic_mass('H')
+        return av_m * 1e3 * self.number_density
+
+    @property
+    def ion_fraction(self) -> np.ndarray:
+        """classes.py:910-936."""
+        return self._nan_view(self._ensure_fields().xi)
+
+    @property
+    def temperature(self) -> np.ndarray:
+        """[K] (classes.py:942-996; au/cm slip fixed, see models.fields)."""
+        return self._nan_view(self._ensure_fields().temp)
+
+    @property
+    def pressure(self) -> np.ndarray:
+        """[Ba] (classes.py:1002-1007)."""
+        return self.number_density * self.temperature * cnsts.K_B * 1e7
+
+    @property
+    def vel(self):
+        """(vx, vy, vz) [km/s] (classes.py:1009-1099).  The full 3-D
+        velocity is evaluated on demand (only the LOS component is part of
+        the cached RT working set)."""
+        f = self._ensure_fields()
+        sp = self._static_params()
+        gm = Geometry.from_params(sp)
+        rr, ww, pp = self._centre_rwp()
+        return tuple(self._nan_view(v) for v in velocity(
+            gm, sp, rr, pp, effective_radius(gm, rr, ww), f.inside))
+
+    # ------------------------------------------------------------------ #
+    # Diagnostic reductions on the model's device: only the small maps and
+    # profiles are copied to the host
+    # ------------------------------------------------------------------ #
+    def diagnostic_maps(self) -> Dict[str, np.ndarray]:
+        """LOS diagnostics for the standard plots: nan-mean maps of number
+        density, temperature, ionisation fraction and LOS velocity, plus
+        the LOS fill-factor sum — ``np.nanmean(jm.<field>,
+        axis=jm.los_axis)`` and so on, reduced on the device."""
+        f = self._ensure_fields()
+        los = rt.LOS_AXIS
+        cnt = f.inside.sum(dim=los)
+        pos = cnt > 0
+        safe = cnt.clamp_min(1).to(f.temp.dtype)
+        zero = torch.zeros((), dtype=f.temp.dtype, device=self._device)
+        nan = torch.full_like(zero, float('nan'))
+
+        def mean(v):
+            return torch.where(pos, torch.where(f.inside, v, zero).sum(
+                dim=los) / safe, nan)
+
+        ffs = torch.where(f.ff > FF_MIN, f.ff, zero).sum(dim=los)
+        maps = (mean(self._nd_chi(f, self.time)), mean(f.temp), mean(f.xi),
+                mean(f.vy), ffs)
+        return dict(zip(('n_e', 'T', 'x_i', 'v_los', 'ff_sum'),
+                        (m.cpu().numpy() for m in maps)))
+
+    def occupancy_projections(self) -> Dict[str, np.ndarray]:
+        """Fill-factor sums along each grid axis — the three projected
+        silhouettes of :func:`plotting.functions.geometry_plot`
+        (functions.py:1019-1023)."""
+        f = self._ensure_fields()
+        ff = torch.where(f.ff > FF_MIN, f.ff, torch.zeros_like(f.ff))
+        return {key: ff.sum(dim=axis).cpu().numpy()
+                for axis, key in enumerate(('yz', 'xz', 'xy'))}
+
+    def conservation_profiles(self) -> Dict[str, np.ndarray]:
+        """Mass and angular momentum per signed-r slice along the jet —
+        the conservation diagnostics behind ``diagnostic_plot``
+        (plotting/functions.py:368-458), valid for any inclination and
+        position angle: the per-cell mass and angular momentum about the
+        jet axis (the azimuthal speed from the rotation law) are binned by
+        signed jet radius with one ``index_add_``.  On a card that sum uses
+        atomics, so its last bits depend on the order of the adds.
+
+        Returns ``{'r': bin centres [au], 'mass': kg per csize-thick
+        slice, 'angmom': kg m^2 s^-1 per slice}``.
+        """
+        f = self._ensure_fields()
+        sp = self._static_params()
+        gm = Geometry.from_params(sp)
+        csize = self.csize
+        # static bin layout: |r| is bounded by the grid's half-diagonal
+        r_max = 0.5 * csize * float(np.sqrt(self._nx ** 2 + self._ny ** 2 +
+                                            self._nz ** 2)) + csize
+        nbins = 2 * int(np.ceil(r_max / csize))
+        r_lo = -0.5 * nbins * csize
+        cell_vol_cm3 = (csize * cnsts.AU * 1e2) ** 3
+        m_part_kg = sp['properties']['mu'] * cnsts.atomic_mass('H')
+
+        rr, ww, _ = self._centre_rwp()
+        rr, ww, _ = torch.broadcast_tensors(rr, ww, f.ff)
+        reff = effective_radius(gm, rr, ww)
+        m = self._nd_chi(f, self.time) * f.ff * (cell_vol_cm3 * m_part_kg)
+        vphi = mphys.v_rot(rr, reff, mgeom.rho(rr, gm.r_0, gm.mod_r_0),
+                           gm.epsilon, sp['target']['M_star'])     # km/s
+        ang = m * (vphi * 1e3) * (ww * cnsts.AU)                   # kg m^2/s
+        zero = torch.zeros((), dtype=m.dtype, device=self._device)
+        m = torch.where(f.inside, m, zero).ravel()
+        ang = torch.where(f.inside, ang, zero).ravel()
+        seg = torch.floor((rr - r_lo) / csize).clamp(0, nbins - 1).to(
+            torch.int64).ravel()
+
+        def binned(v):
+            return torch.zeros(nbins, dtype=v.dtype,
+                               device=self._device).index_add_(0, seg, v)
+
+        rs = r_lo + csize * (np.arange(nbins) + 0.5)
+        return {'r': rs, 'mass': binned(m).cpu().numpy(),
+                'angmom': binned(ang).cpu().numpy()}
+
+    def velocity_midplane(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(v_x, v_z) [km/s] on the mid-LOS plane (y index ny//2), computed
+        on that plane alone; NaN outside the jet.  Feeds the velocity
+        quiver of :func:`plotting.functions.model_plot` (the reference's
+        own quiver overlay is disabled as broken,
+        plotting/functions.py:594-637)."""
+        f = self._ensure_fields()
+        sp = self._static_params()
+        gm = Geometry.from_params(sp)
+        mid = self._ny // 2
+        rr, ww, pp = self._centre_rwp(slice(mid, mid + 1))
+        ins = f.inside[:, mid:mid + 1, :]
+        vx, _, vz = velocity(gm, sp, rr, pp, effective_radius(gm, rr, ww),
+                             ins)
+        return self._nan_view(vx[:, 0, :], ins[:, 0, :]), \
+            self._nan_view(vz[:, 0, :], ins[:, 0, :])
+
+    def _rt_inputs(self):
+        """(fields, n_es, ds) — building blocks for custom RT compositions
+        (the sharding layer and tests)."""
+        f = self._ensure_fields()
+        n_es = self._nd_chi(f, self.time) * f.xi
+        return f, n_es, rt.path_length_cm(f.ff, f.area, self.csize)
 
     # ------------------------------------------------------------------ #
     # Radiative transfer

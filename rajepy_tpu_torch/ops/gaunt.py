@@ -1,5 +1,6 @@
 """Free-free Gaunt factors of van Hoof et al. (2014): the 81x146 log-log
-table with a Catmull-Rom bicubic interpolation on tensors (PyTorch port of
+table with a Catmull-Rom bicubic interpolation on tensors, and its
+companion uncertainty table looked up at the nearest node (PyTorch port of
 rajepy_tpu.ops.gaunt).
 
 The table is the port's own copy of the data file (``data/vanHoofetal2014.data``
@@ -88,6 +89,19 @@ def interp_bicubic(table: torch.Tensor, x0: float, y0: float, step: float,
     return out
 
 
+def _log_axes(freq: torch.Tensor, temp, z: float):
+    """(log g2, log u) of the table's axes at (freq, temp), broadcast, in
+    float64 on ``freq``'s device."""
+    dev = freq.device
+    freq = freq.to(torch.float64)
+    temp = torch.as_tensor(temp, dtype=torch.float64, device=dev)
+    # log-sum form, not log-of-ratio (as the JAX module, for f32 safety)
+    log_t = torch.log10(temp)
+    logg2 = math.log10(z ** 2 * _RY_INF / cnsts.K_B) - log_t
+    logu = math.log10(cnsts.H / cnsts.K_B) + torch.log10(freq) - log_t
+    return torch.broadcast_tensors(logg2, logu)
+
+
 def gff(freq: torch.Tensor, temp, z: float = 1.0) -> torch.Tensor:
     """Thermally averaged free-free Gaunt factor (physics.py:666-698).
 
@@ -96,13 +110,47 @@ def gff(freq: torch.Tensor, temp, z: float = 1.0) -> torch.Tensor:
     float64, as the JAX version's table is float64.
     """
     x0, y0, step, table = load_vanhoof_table()
-    dev = freq.device
-    table = torch.as_tensor(table, dtype=torch.float64, device=dev)
-    freq = freq.to(torch.float64)
-    temp = torch.as_tensor(temp, dtype=torch.float64, device=dev)
-    # log-sum form, not log-of-ratio (as the JAX module, for f32 safety)
-    log_t = torch.log10(temp)
-    logg2 = math.log10(z ** 2 * _RY_INF / cnsts.K_B) - log_t
-    logu = math.log10(cnsts.H / cnsts.K_B) + torch.log10(freq) - log_t
-    logg2, logu = torch.broadcast_tensors(logg2, logu)
+    table = torch.as_tensor(table, dtype=torch.float64, device=freq.device)
+    logg2, logu = _log_axes(freq, temp, z)
     return interp_bicubic(table, x0, y0, step, logg2, logu)
+
+
+@lru_cache(maxsize=1)
+def load_vanhoof_uncertainties():
+    """Parse the table's companion uncertainty block (same layout, data
+    file lines 193+; the reference reads it at physics.py:640-641 via
+    ``import_vanHoof2014(errors=True)``)."""
+    with open(_DATA_FILE, "rt") as f:
+        lines = f.readlines()
+    n_gam2, n_u = (int(v) for v in lines[29].split('#')[0].split())
+    unc = np.array([[float(v) for v in ln.split()]
+                    for ln in lines[192:192 + n_u]])
+    if unc.shape != (n_u, n_gam2):
+        raise ValueError(f"van Hoof uncertainty table has shape "
+                         f"{unc.shape}, header says {(n_u, n_gam2)}")
+    return unc
+
+
+def gff_uncertainty(freq: torch.Tensor, temp, z: float = 1.0
+                    ) -> torch.Tensor:
+    """1-sigma uncertainty of the van Hoof et al. (2014) Gaunt factor at
+    the query point (nearest-node lookup of the companion uncertainty
+    table — the published uncertainties are themselves node estimates,
+    so interpolating them adds nothing).  Float64 on ``freq``'s device."""
+    x0, y0, step, _ = load_vanhoof_table()
+    unc = torch.as_tensor(load_vanhoof_uncertainties(), dtype=torch.float64,
+                          device=freq.device)
+    ny, nx = unc.shape
+    logg2, logu = _log_axes(freq, temp, z)
+    # round half to even, as jnp.round
+    ix = torch.round((logg2 - x0) / step).long().clamp(0, nx - 1)
+    iy = torch.round((logu - y0) / step).long().clamp(0, ny - 1)
+    return unc[iy, ix]
+
+
+def gff_with_uncertainty(freq: torch.Tensor, temp, z: float = 1.0):
+    """(gff, sigma_gff): the reference's value-with-uncertainty form of
+    the van Hoof table (physics.py:659, ``uf(gff, unc_lines...)``) as a
+    plain tensor pair; a relative gaunt error propagates one-to-one into
+    tau_ff and the optically-thin flux."""
+    return gff(freq, temp, z), gff_uncertainty(freq, temp, z)

@@ -97,3 +97,13 @@ def hyp2f1_a1_series(a: float, c: float, u: torch.Tensor, *,
               + coef_b * v ** s * u_hi ** (1.0 - c))
 
     return torch.where(hi, f_conn, f_series)
+
+
+def hyp2f1_pfaff_product(a: float, b: float, z: torch.Tensor, *,
+                         max_terms: int = 8192,
+                         rtol: float = 1e-15) -> torch.Tensor:
+    """``(1 - z)^a * 2F1(a, b; b+1; z)`` for ``z <= 0`` — the exact factor
+    ``p3 * p4`` of the reference's travel-time integrand (geometry.py:165-171,
+    where p3 = (1-z)^q_vd and p4 = hyp2f1(q_vd, b, b+1, z))."""
+    u = z / (z - 1.0)
+    return hyp2f1_a1_series(a, b + 1.0, u, max_terms=max_terms, rtol=rtol)

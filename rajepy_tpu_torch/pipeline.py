@@ -13,12 +13,14 @@ package's.
 ``execute(simobserve=True)`` runs the synthetic observations of continuum
 and RRL runs (``synthobs``: uv tracks, visibilities, Briggs gridding,
 CLEAN, restoration; imfit for continuum runs, restored cubes for RRL runs)
-after each run's radiative transfer.
+after each run's radiative transfer.  ``execute(plot=True)`` draws the
+diagnostic figures of :mod:`.plotting` (matplotlib, imported only then):
+the grid and mass-loss figures at the start, a model figure per epoch
+directory and a radio SED per continuum epoch after the observations.
 
-Not ported yet, and refused before any work is done: the diagnostic
-figures (``plot=True``, ``radio_plot``), the multi-device fan-out
-(``device_fanout=True``) and the ``params['synthobs']`` options that need
-unported parts of synthobs (see ``synthobs.check_ported``).
+Not ported yet, and refused before any work is done: the multi-device
+fan-out (``device_fanout=True``) and the ``params['synthobs']`` options
+that need unported parts of synthobs (see ``synthobs.check_ported``).
 
 The products of a run leave the device in one copy: on a CUDA model the
 three tensors go into pinned host buffers that the pipeline keeps from run
@@ -359,15 +361,16 @@ class Pipeline:
         every run configured with a telescope
         (``synthobs.simulate_observation``, with the keyword overrides of
         ``params['synthobs']``; for RRL runs without the continuum-only
-        ones, as in the JAX package).  Not ported yet, and refused with
-        ``NotImplementedError`` before any work is done: ``plot=True``,
-        ``device_fanout`` other than None or False, and with
-        ``simobserve=True`` a ``params['synthobs']`` option that needs an
-        unported part of synthobs."""
-        if plot:
-            raise NotImplementedError(
-                "execute(plot=True): plotting is not ported yet; pass "
-                "plot=False")
+        ones, as in the JAX package).  ``plot=True`` writes
+        ``GridPlot.pdf`` and ``JMLPlot.pdf`` under the pipeline directory,
+        ``ModelPlot.pdf`` in each epoch's directory and, after synthetic
+        observations, ``RadioSED<year>yrPlot.{png,pdf}`` per continuum
+        epoch; their time, less a grid fill they start, is recorded as the
+        stage ``plots``.  Not ported yet, and refused with
+        ``NotImplementedError`` before any work is done: ``device_fanout``
+        other than None or False, and with ``simobserve=True`` a
+        ``params['synthobs']`` option that needs an unported part of
+        synthobs."""
         if simobserve:
             # an option of params['synthobs'] that needs an unported part
             # of synthobs raises here, before any work
@@ -398,6 +401,16 @@ class Pipeline:
                                              dtype=self.model.dtype,
                                              device=self.model.device)
 
+        if plot:
+            from .plotting import functions as pfunc
+            with profiling.KernelTimer("plots"):
+                pfunc.geometry_plot(
+                    self.model, show_plot=False,
+                    savefig=os.sep.join([self.dcy, 'GridPlot.pdf']))
+                pfunc.jml_profile_plot(
+                    self, show_plot=False,
+                    savefig=os.sep.join([self.dcy, 'JMLPlot.pdf']))
+
         for idx, run in enumerate(self.runs):
             self.model.time = run.year * cnsts.YEAR
             self.log.add_entry(
@@ -414,6 +427,15 @@ class Pipeline:
                         "INFO", f"{run.rt_dcy} doesn't exist, creating",
                         timestamp=False)
                     os.makedirs(run.rt_dcy)
+
+                if plot and run.rt_dcy:
+                    model_plotfile = os.sep.join(
+                        [os.path.dirname(run.rt_dcy), "ModelPlot.pdf"])
+                    if not os.path.exists(model_plotfile) or clobber:
+                        with profiling.KernelTimer("plots"):
+                            pfunc.model_plot(self.model,
+                                             savefig=model_plotfile,
+                                             show_plot=False)
 
                 if not dryrun and run.radiative_transfer:
                     self.log.add_entry(
@@ -573,6 +595,17 @@ class Pipeline:
             if rt_done and so_done:
                 self.runs[idx].completed = True
 
+        if not dryrun and simobserve and plot:
+            for year in self.params['continuum']['times']:
+                save_file = os.sep.join(
+                    [self.dcy, f'RadioSED{year:.1f}yrPlot.png'])
+                self.log.add_entry(
+                    "INFO", "Saving radio SED figure to "
+                            f"{save_file.replace('png', '(png,pdf)')} for "
+                            f"time {year}yr")
+                with profiling.KernelTimer("plots"):
+                    pfunc.sed_plot(self, year, savefig=save_file)
+
         ckpt_t0 = _time.perf_counter()
         self.save(self.save_file)
         self.model.save(self.model_file)
@@ -582,6 +615,7 @@ class Pipeline:
 
     def radio_plot(self, run, percentile: float = 5.0, savefig: str = ''):
         """Plot flux/tau/EM from a run's FITS products
-        (classes.py:3015-3183).  Not ported yet."""
-        raise NotImplementedError(
-            "radio_plot: plotting is not ported yet")
+        (classes.py:3015-3183)."""
+        from .plotting import functions as pfunc
+        return pfunc.radio_plot(self.model, run, percentile=percentile,
+                                savefig=savefig)

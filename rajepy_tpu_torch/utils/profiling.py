@@ -4,20 +4,40 @@
   a completion barrier (``torch.cuda.synchronize`` when the registered
   result lives on a card), optionally logged through a ``Log``;
 * :func:`record_stage` — opt-in per-stage aggregation of the timers'
-  exclusive seconds (:func:`collect_stage_times`, :func:`stage_times`).
+  exclusive seconds (:func:`collect_stage_times`, :func:`stage_times`,
+  :func:`split_stage_times`);
+* :func:`trace` — context manager capturing a ``torch.profiler`` trace of
+  a block and writing it as a Chrome trace (Perfetto, chrome://tracing);
+* :func:`timed_call` — time a callable's steady-state execution.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 
-def _sync(result: torch.Tensor) -> None:
-    """Wait for the device work that produces ``result`` to finish."""
-    if result.is_cuda:
-        torch.cuda.synchronize(result.device)
+def _tensors(result):
+    """The tensors of a result: a tensor, or (nested) tuples, lists and
+    dict values of them."""
+    if torch.is_tensor(result):
+        yield result
+    elif isinstance(result, (tuple, list)):
+        for r in result:
+            yield from _tensors(r)
+    elif isinstance(result, dict):
+        for r in result.values():
+            yield from _tensors(r)
+
+
+def _sync(result) -> None:
+    """Wait for the device work that produces ``result`` (a tensor or a
+    nest of them) to finish: one synchronisation per card it lies on."""
+    for dev in {t.device for t in _tensors(result) if t.is_cuda}:
+        torch.cuda.synchronize(dev)
 
 
 _STAGE_TIMES: dict = {}
@@ -45,6 +65,31 @@ def stage_times() -> dict:
     return dict(_STAGE_TIMES)
 
 
+#: stage-name substrings whose time is device compute (launch to sync of
+#: device work; the imaging timers include their host drains)
+DEVICE_STAGE_MARKERS = ('grid fill', 'device compute', 'uv tracks',
+                        'vis sampling', 'gain corruption', 'applycal',
+                        'imaging', 'selfcal round')
+#: stage-name substrings whose time is device->host product transfer
+#: plus disk IO
+TRANSFER_STAGE_MARKERS = ('write', 'product transfer')
+
+
+def split_stage_times(times: Optional[dict] = None):
+    """(device_compute_s, transfer_io_s, other_s) totals of a stage-time
+    dict per the marker lists above."""
+    times = stage_times() if times is None else times
+    dev = tr = other = 0.0
+    for name, s in times.items():
+        if any(m in name for m in TRANSFER_STAGE_MARKERS):
+            tr += s
+        elif any(m in name for m in DEVICE_STAGE_MARKERS):
+            dev += s
+        else:
+            other += s
+    return dev, tr, other
+
+
 #: live KernelTimer nesting stack: a nested timer's seconds are subtracted
 #: from its parent's recorded stage so the registry totals stay disjoint
 _TIMER_STACK: list = []
@@ -70,9 +115,9 @@ class KernelTimer:
         _TIMER_STACK.append(self)
         return self
 
-    def set_result(self, result: torch.Tensor):
-        """Register a device output to wait for before stopping the
-        clock."""
+    def set_result(self, result):
+        """Register a device output (a tensor or a nest of them) to wait
+        for before stopping the clock."""
         self._result = result
 
     def __exit__(self, exc_type, exc, tb):
@@ -91,3 +136,35 @@ class KernelTimer:
                 "INFO", f"[timing] {self.name}: {self.elapsed:.3f}s",
                 timestamp=False)
         return False
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Capture a ``torch.profiler`` trace of the enclosed block (host
+    activity, and the card's where one is present) and write it to
+    ``logdir/trace.json`` as a Chrome trace.  Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(logdir, 'trace.json'))
+
+
+def timed_call(fn: Callable, *args, n_rep: int = 3, **kwargs):
+    """(result, seconds-per-call) for the steady state of a callable: one
+    warm-up call, then ``n_rep`` timed calls with a final synchronisation
+    of the result's card."""
+    out = fn(*args, **kwargs)
+    _sync(out)
+    t0 = time.perf_counter()
+    for _ in range(n_rep):
+        out = fn(*args, **kwargs)
+    _sync(out)
+    return out, (time.perf_counter() - t0) / n_rep

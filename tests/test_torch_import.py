@@ -34,7 +34,10 @@ def test_port_imports_without_jax():
         "from rajepy_tpu_torch import synthobs\n"
         "from rajepy_tpu_torch.synthobs import atmosphere, imaging, imfit\n"
         "from rajepy_tpu_torch.synthobs import observatories, sampler, uvgen\n"
+        "from rajepy_tpu_torch.models import analysis\n"
+        "from rajepy_tpu_torch.plotting import functions\n"
         "for name in ('_config', 'pipeline', 'models.runs',\n"
+        "             'models.analysis', 'plotting.functions',\n"
         "             'io.checkpoint', 'synthobs', 'synthobs.atmosphere',\n"
         "             'synthobs.imaging', 'synthobs.imfit',\n"
         "             'synthobs.observatories', 'synthobs.sampler',\n"
@@ -49,6 +52,47 @@ def test_port_imports_without_jax():
         env_extra={'PATH': os.path.dirname(sys.executable)})
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == 'ok'
+
+
+# what the package docstring lists as not ported, each with the keyword
+# that asks for it: of Pipeline.execute, or of params['synthobs']
+_NOT_PORTED = {
+    'device_fanout=True': ({'device_fanout': True}, None),
+    'corruption': ({}, {'corruption': {'amp_rms': 0.1}}),
+    'selfcal': ({}, {'selfcal': 'phase'}),
+    'applycal_gains': ({}, {'applycal_gains': 'gains.npz'}),
+    'export_uvfits=True': ({}, {'export_uvfits': True}),
+    'shard_imaging=True': ({}, {'shard_imaging': True}),
+}
+
+
+@pytest.mark.parametrize("option", list(_NOT_PORTED))
+def test_what_the_docstring_calls_not_ported_still_raises(option,
+                                                          model_params,
+                                                          tmp_path):
+    """Each option the package docstring lists as not ported is named
+    there and raises ``NotImplementedError`` before any work."""
+    import numpy as np
+    import rajepy_tpu_torch
+    doc = ' '.join(rajepy_tpu_torch.__doc__.split())
+    not_ported = doc[doc.index('Not ported yet:'):doc.index('Package layout')]
+    assert f'``{option}``' in not_ported
+    kwargs, synthobs = _NOT_PORTED[option]
+    model_params['grid'].update(n_x=16, n_y=40, n_z=16)
+    none = {'t_obs': None, 'tscps': None, 't_ints': None, 'bws': None,
+            'chanws': None}
+    params = {'min_el': 20., 'dcys': {'model_dcy': str(tmp_path / 'out')},
+              'continuum': dict(none, times=np.array([1.0]),
+                                freqs=np.array([6e9])),
+              'rrls': dict(none, times=np.array([]), lines=None)}
+    if synthobs is not None:
+        params['synthobs'] = synthobs
+    pl = rajepy_tpu_torch.Pipeline(
+        rajepy_tpu_torch.JetModel(model_params, device='cpu'), params)
+    with pytest.raises(NotImplementedError, match='not ported'):
+        pl.execute(verbose=False, plot=False, **kwargs)
+    assert pl.model._fields is None
+    assert os.listdir(pl.dcy) == [os.path.basename(pl.log.filename)]
 
 
 def _port_sources():

@@ -323,8 +323,9 @@ def test_cpu_pipeline_resumes_on_the_cpu_at_its_precision(
 
 # simobserve=True (the default) with what synthobs does not port yet: an
 # option of params['synthobs'].  An RRL run configured for a synthetic
-# observation (line-cube imaging) and deconvolver='clark' were refused
-# until they were ported; they now run
+# observation (line-cube imaging), deconvolver='clark' and the figures
+# (plot=True, the default) were refused until they were ported; they now
+# run
 _OBSERVED_RRL = {'rrls': dict(t_obs=np.array([3600]), t_ints=np.array([60]),
                               tscps=np.array([('VLA', 'A')]))}
 
@@ -346,9 +347,9 @@ _OBSERVED_RRL = {'rrls': dict(t_obs=np.array([3600]), t_ints=np.array([60]),
 ])
 def test_unported_stages_raise_before_any_work(kwargs, match, model_params,
                                                tmp_path):
-    """What is not ported raises before any work; the observed RRL runs and
-    deconvolver='clark', refused until they were ported, complete and
-    write their products."""
+    """What is not ported raises before any work; the observed RRL runs,
+    deconvolver='clark' and the figures, refused until they were ported,
+    complete and write their products."""
     kwargs = dict(kwargs)
     pline = kwargs.pop('pline', {})
     params = _pline_params(tmp_path / 'out', rrl='rrls' in pline)
@@ -356,6 +357,19 @@ def test_unported_stages_raise_before_any_work(kwargs, match, model_params,
     if 'synthobs' in pline:
         params['synthobs'] = pline['synthobs']
     pl = rajepy_tpu_torch.Pipeline(_torch_model(_small(model_params)), params)
+    if match == 'plotting':
+        pl.execute(verbose=False, **kwargs)
+        assert all(r.completed for r in pl.runs)
+        figures = ['GridPlot.pdf', 'JMLPlot.pdf'] + [
+            os.path.join(os.path.dirname(r.rt_dcy), 'ModelPlot.pdf')
+            for r in pl.runs]
+        assert len(set(figures)) == 2 + len(EPOCHS)
+        for name in figures:
+            path = os.path.join(pl.dcy, name)
+            assert os.path.getsize(path) > 1000, path
+        for run in pl.runs:
+            assert all(os.path.isfile(getattr(run, p)) for p in PRODUCTS)
+        return
     if match in ('line cubes', "deconvolver='clark'"):
         pl.execute(verbose=False, **kwargs)
         assert all(r.completed for r in pl.runs)
@@ -372,8 +386,6 @@ def test_unported_stages_raise_before_any_work(kwargs, match, model_params,
         pl.execute(verbose=False, **kwargs)
     assert pl.model._fields is None
     assert sorted(os.listdir(pl.dcy)) == [os.path.basename(pl.log.filename)]
-    with pytest.raises(NotImplementedError, match='plotting'):
-        pl.radio_plot(pl.runs[0])
     with pytest.raises(TypeError, match='JetModel'):
         rajepy_tpu_torch.Pipeline(
             rajepy_tpu.JetModel(_small(model_params)),
