@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's continuum, RRL, emergent, pipeline,
-synthetic-observation, line-cube observation and analysis main paths once
-on one NVIDIA GPU.
+synthetic-observation, line-cube observation, analysis and command-line
+main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -124,6 +124,36 @@ Phases (any failure exits non-zero; nothing is caught):
       peak memory; each held at 128^3 against the same call of a float32
       CPU model (1e-5 of the CPU's largest magnitude, NaN in the same
       cells).
+   h. the CLI with calibration and export: ``rajepy_tpu_torch.main.main(
+      ['-rt', '-so', '-c', model, pipeline])`` in this process, with a
+      model param file of the example jet at 512^3 (``dtype='auto'``) and
+      the bundled ``example-pipeline-params.py`` as shipped (six
+      continuum runs, VLA A, 6 GHz, 59,400 s of 5 s integrations, 2
+      channels) plus its documented ``params['synthobs']`` block
+      (tsys-atm noise, Briggs 0.5, 500 iterations, phase corruption of 30
+      deg rms with a 600 s coherence time, two rounds of phase-only
+      selfcal at a 300 s solution interval) and ``export_uvfits``.  The
+      dual-base epoch kernel must have been launched 6 times; every run
+      must complete with its clean, noisy and selfcal sets, its gains
+      (198 intervals, unit modulus), two UVFITS files, restored image and
+      imfit, a finite dynamic range before and after each round; the
+      param files and the ``ModelRun_*.log`` in ``model_dcy``; run 1's
+      UVFITS files equal to its npz sets to float32 rounding.  On run 1's
+      corrupted noisy set and the CLEAN model of its first imaging, card
+      against CPU from the same inputs (1e-10 of the largest magnitude):
+      ``model_vis``, ``solve_gains`` (phase, amp+phase, per channel),
+      ``correct_vis``, ``closure_phases``, ``log_closure_amplitudes``,
+      ``sample_vis_dft`` and ``sample_vis_dft_w`` on the model's 64^2
+      centre at 4,096 visibilities; two solves on the card bit-identical
+      (a solve's device operations are counted by the profiler at the end
+      of phase 3, after its other sessions).  Run 1 again through
+      ``reuse_vis`` must give the same gains and image bit for bit; run 2
+      with run 1's gains transferred must complete and log it; and
+      ``python -m rajepy_tpu_torch.main`` with no arguments (the bundled
+      files' dry run, ``HOME`` in the script's temporary directory) must
+      exit 0 and write no FITS file.  Prints the CLI's wall time, each
+      run's new stages, each calibration call's time on both devices and
+      peak memory.
    Outputs must be finite, non-zero where the jet is (all-zero on the
    jet-free grid), equal to the plain versions on the same card tensors
    (2e-4), and a small model at float32 must agree with the float64 plain
@@ -163,7 +193,8 @@ Phases (any failure exits non-zero; nothing is caught):
    (no spill allowed).
 
 The line before the last is a JSON object with one entry per kernel, the
-line-cube observation's numbers and phase 2g's times; the last line is
+line-cube observation's numbers, phase 2g's times and phase 2h's numbers
+(``cli``); the last line is
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --time-paths DIR
@@ -283,6 +314,24 @@ ANALYSIS_RTOL = 1e-5
 # the figures of Pipeline.execute(plot=True) that phase 2e checks, besides
 # each epoch's ModelPlot.pdf
 PIPELINE_FIGURES = ('GridPlot.pdf', 'JMLPlot.pdf')
+# phase 2h: params['synthobs'] of the CLI's pipeline file, the block that
+# the bundled example-pipeline-params.py documents, with UVFITS export
+CLI_SYNTHOBS = {'thermalnoise': 'tsys-atm', 'user_pwv': 2.0,
+                'weighting': 'briggs', 'robust': 0.5, 'niter': 500,
+                'corruption': {'phase_rms_deg': 30., 'coherence_s': 600.},
+                'selfcal': 'phase', 'selfcal_solint_s': 300.,
+                'selfcal_rounds': 2, 'export_uvfits': True}
+# the stages a run of the CLI adds to phase 2e's, by their names' starts
+CLI_STAGES = ('synthobs: gain corruption', 'synthobs: selfcal round 1 ',
+              'synthobs: selfcal round 2 ', 'synthobs: uvfits_clean write',
+              'synthobs: uvfits_noisy write', 'synthobs: selfcal npz write',
+              'synthobs: vis npz write', 'host source fit (imfit)')
+CLI_IMAGING = ('', ', selfcal 1', ', selfcal 2')   # mfs imaging labels
+CLI_PRODUCTS = ('ms_clean', 'ms_noisy', 'ms_selfcal', 'gains',
+                'uvfits_clean', 'uvfits_noisy', 'clean_image', 'estimates',
+                'imfit')
+CLI_DFT_PIX = 64          # the cut-out around the source the DFTs take
+CLI_DFT_NVIS = 4096
 
 
 def rel_err(got, want):
@@ -2077,6 +2126,351 @@ def run_cube_observation(jm, log, tmp, smi):
                       'errs': errs}
 
 
+def cli_card_vs_cpu(run, smi):
+    """The calibration functions on run 1's corrupted noisy set and the
+    CLEAN model of its first imaging, on the card and on the CPU from the
+    same inputs (phase 2h); two solves on the card bit-identical.  Returns
+    the errors, the times and a solve on the card's inputs for
+    :func:`stefcal_numbers`."""
+    import torch
+    from rajepy_tpu_torch import constants as cnsts
+    from rajepy_tpu_torch.io import fits as fitsio
+    from rajepy_tpu_torch.synthobs import calibration as cal
+    from rajepy_tpu_torch.synthobs import imaging, observatories, sampler
+    sky, sky_hdr = fitsio.read_fits(run.fits_flux)
+    _, img_hdr = fitsio.read_fits(run.products['clean_image'])
+    with np.load(run.products['ms_noisy']) as f:
+        uvw, freqs = f['uvw'], f['freqs']
+        noisy = f['vis_re'] + 1j * f['vis_im']
+    mask, cell_as = synthobs_mask(sky_hdr, img_hdr, *sky.shape[-2:])
+    cell = cell_as * cnsts.ARCSEC
+    lam = cnsts.C / freqs
+    us = (uvw[None, :, 0] / lam[:, None]).ravel()
+    vs = (uvw[None, :, 1] / lam[:, None]).ravel()
+    ant = observatories.read_antenna_config(
+        observatories.cfg_file(*run.tscop))
+    n_ant = ant['xyz'].shape[0]
+    pairs = np.stack(np.triu_indices(n_ant, k=1), axis=1)
+    n_t = uvw.shape[0] // pairs.shape[0]
+    meta = cal.vis_metadata(n_t, pairs)
+    n_sol = run.results['selfcal']['n_sol']
+
+    # the first imaging's CLEAN model, on the card
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device='cuda')
+    vis_g = torch.as_tensor(noisy, device='cuda')
+    wb = imaging.briggs_weights(t(us), t(vs), t(np.ones_like(us)),
+                                SYNTHOBS_IMSIZE, cell, robust=0.5)
+    dirty, psf = imaging.grid_and_image(t(us), t(vs), vis_g.reshape(-1), wb,
+                                        SYNTHOBS_IMSIZE, cell)
+    thr = 3.0 * float(dirty.cpu().numpy()[mask == 0].std())
+    mdl = imaging.hogbom_clean(dirty, psf, mask, niter=500,
+                               threshold=thr)[0]
+    mv = cal.model_vis(mdl, cell, us, vs).reshape(len(freqs), -1)
+    c0 = SYNTHOBS_IMSIZE // 2
+    h = CLI_DFT_PIX // 2
+    cut = mdl[c0 - h:c0 + h, c0 - h:c0 + h]
+    n = CLI_DFT_NVIS
+    ws = uvw[:n, 2] / lam[0]
+    print(f"  card vs CPU inputs: run 1's corrupted noisy set "
+          f"{noisy.shape}, the CLEAN model of its first imaging "
+          f"({int((mdl != 0).sum())} components, {float(mdl.sum()):.6e} "
+          f"Jy), {n_sol} solution intervals of {n_t} time samples; the "
+          f"DFTs on its {CLI_DFT_PIX}^2 centre ({float(cut.sum()):.6e} Jy) "
+          f"at its first {n} channel-0 visibilities")
+    calls = {
+        'model_vis': lambda d, m, v, g: cal.model_vis(m, cell, us, vs),
+        'solve_gains (phase)': lambda d, m, v, g: cal.solve_gains(
+            v, g, *meta, n_ant=n_ant, n_t=n_t, n_sol=n_sol, mode='phase'),
+        'solve_gains (amp+phase)': lambda d, m, v, g: cal.solve_gains(
+            v, g, *meta, n_ant=n_ant, n_t=n_t, n_sol=n_sol,
+            mode='amp+phase'),
+        'solve_gains (per_channel)': lambda d, m, v, g: cal.solve_gains(
+            v, g, *meta, n_ant=n_ant, n_t=n_t, n_sol=n_sol,
+            per_channel=True),
+        'correct_vis': lambda d, m, v, g: cal.correct_vis(
+            v, cal.solve_gains(v, g, *meta, n_ant=n_ant, n_t=n_t,
+                               n_sol=n_sol, mode='phase'), *meta, n_t),
+        'closure_phases': lambda d, m, v, g: cal.closure_phases(
+            v, n_ant, n_t),
+        'log_closure_amplitudes': lambda d, m, v, g:
+            cal.log_closure_amplitudes(v, n_ant, n_t),
+        'sample_vis_dft': lambda d, m, v, g: sampler.sample_vis_dft(
+            m[c0 - h:c0 + h, c0 - h:c0 + h], cell, us[:n], vs[:n]),
+        'sample_vis_dft_w': lambda d, m, v, g: sampler.sample_vis_dft_w(
+            m[c0 - h:c0 + h, c0 - h:c0 + h], cell, us[:n], vs[:n], ws),
+    }
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def real(x):
+        return torch.view_as_real(x) if x.is_complex() else x
+
+    errs, ms = {}, {}
+    inputs = {'cuda': (mdl, vis_g, mv),
+              'cpu': (mdl.cpu(), vis_g.cpu(), mv.cpu())}
+    for name, fn in calls.items():
+        out = {}
+        for dev, (m, v, g) in inputs.items():
+            fn(dev, m, v, g)              # warm
+            out[dev], ms[name, dev] = timed(lambda: fn(dev, m, v, g))
+        errs[name] = check(f"{name}, card vs CPU", real(out['cuda']).cpu(),
+                           real(out['cpu']), SYNTHOBS_RTOL)[0]
+        print(f"    {name}: card {ms[name, 'cuda']:.4f} ms, CPU "
+              f"{ms[name, 'cpu']:.4f} ms (one warm call each, host clock) "
+              f"[{smi}]")
+    solve = calls['solve_gains (phase)']
+    a, b = solve(*(('cuda',) + inputs['cuda'])), \
+        solve(*(('cuda',) + inputs['cuda']))
+    if not torch.equal(a, b):
+        raise AssertionError("two solve_gains calls on the card differ")
+    print("  two solve_gains calls on the card (phase, "
+          f"{n_sol} intervals): bit-identical")
+    return errs, {f"{name} {dev}": v for (name, dev), v in ms.items()}, \
+        (f"phase, {n_sol} x {n_ant} x {n_ant}",
+         lambda: solve(*(('cuda',) + inputs['cuda'])))
+
+
+def stefcal_numbers(solve, smi):
+    """One StEFCal solve of phase 2h under torch.profiler (run after the
+    other phases' profiler sessions): its device operations, busy time
+    and wall time."""
+    what, fn = solve
+    busy_ms, wall_ms, n_ops, top = device_busy(fn, n=3)
+    warm_ms = cuda_ms(fn, n_rep=10, n_warm=1)
+    print(f"  one StEFCal solve ({what}, 50 iterations) under "
+          f"torch.profiler: {n_ops:g} device operations, device busy "
+          f"{busy_ms:.4f} ms of {wall_ms:.4f} ms (idle share "
+          f"{1.0 - busy_ms / wall_ms:.3f}); busiest: " + ', '.join(
+              f"{k[:40]} {c}x {m:.4f} ms" for k, c, m in top[:3]) +
+          f"; {warm_ms:.4f} ms a solve without the profiler (CUDA events, "
+          f"median of 10) [{smi}]")
+    return {'ops': n_ops, 'busy_ms': busy_ms, 'wall_ms': wall_ms,
+            'ms': warm_ms}
+
+
+def run_cli(log, tmp, smi):
+    """The CLI with calibration and export, counted (phase 2h):
+    ``rajepy_tpu_torch.main.main(['-rt', '-so', '-c', model, pipeline])``
+    in this process on the flagship model file (512^3, ``dtype='auto'``)
+    and the bundled campaign with its documented ``params['synthobs']``
+    block and UVFITS export; every run's products and selfcal summary; run
+    1's UVFITS files against its npz sets; the calibration functions card
+    against CPU; a repeat of run 1 through ``reuse_vis``; run 2 with run
+    1's gains transferred; and the no-argument dry run in a subprocess."""
+    import glob
+    import shutil
+    import torch
+    from rajepy_tpu_torch.main import main as cli
+    from rajepy_tpu_torch.io import fits as fitsio
+    from rajepy_tpu_torch.ops import kernels as kn
+    from rajepy_tpu_torch.synthobs import observatories, uvfits
+    from rajepy_tpu_torch.synthobs import simulate_observation
+    from rajepy_tpu_torch.utils import profiling
+    data = os.path.join(HERE, 'rajepy_tpu_torch', 'data')
+    dcy = os.path.join(tmp, 'cli')
+    mf = os.path.join(tmp, 'cli-model-params.py')
+    pf = os.path.join(tmp, 'cli-pipeline-params.py')
+    with open(os.path.join(data, 'example-model-params.py')) as f:
+        text = f.read()
+    with open(mf, 'w') as f:
+        f.write(text + f"\nparams['grid'].update(n_x={N_GRID}, "
+                f"n_y={N_GRID}, n_z={N_GRID}, l_z=None)\n")
+    with open(os.path.join(data, 'example-pipeline-params.py')) as f:
+        text = f.read()
+    with open(pf, 'w') as f:
+        f.write(text + f"\nparams['dcys']['model_dcy'] = {dcy!r}\n"
+                f"params['synthobs'] = {CLI_SYNTHOBS!r}\n")
+    print(f"phase 2h: the CLI, main(['-rt', '-so', '-c', model, pipeline]) "
+          f"on the example jet at {N_GRID}^3 (dtype='auto') and the "
+          f"bundled campaign with params['synthobs'] = {CLI_SYNTHOBS}")
+
+    events = []
+    record = profiling.record_stage
+
+    def recording(name, seconds):
+        events.append((name, seconds))
+        record(name, seconds)
+
+    profiling.record_stage = recording
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        profiling.collect_stage_times(True)
+        kn.reset_launches()
+        t_wall = time.perf_counter()
+        pline = cli(['-rt', '-so', '-c', mf, pf])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t_wall
+    finally:
+        profiling.record_stage = record
+    launches = read_launches('cli')
+    totals = profiling.stage_times()
+    profiling.collect_stage_times(False)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    runs = pline.runs
+    if pline.model.dtype != torch.float32 or \
+            pline.model.device.type != 'cuda' or \
+            [r.obs_type for r in runs] != ['continuum'] * 6:
+        raise AssertionError(f"the CLI built {pline.model.dtype} on "
+                             f"{pline.model.device}, runs "
+                             f"{[r.obs_type for r in runs]}")
+    if launches['epoch_base_maps2_tiles'] != len(runs):
+        raise AssertionError(f"the CLI must launch the dual-base epoch "
+                             f"kernel once per run ({len(runs)}): "
+                             f"{launches}")
+    with open(pline.log.filename) as f:
+        logged = f.read()
+    figures = 'the pipeline\'s figures are skipped' not in logged
+    print(f"  CLI wall time {wall_s:.4f} s for {len(runs)} runs; figures "
+          f"{'drawn' if figures else 'skipped (no matplotlib)'}; peak "
+          f"device memory {peak_gb:.3f} GB [{smi}]")
+
+    # one line per run: its stages between two device-compute records
+    per_run = []
+    for name, seconds in events:
+        if name == STAGE_COMPUTE:
+            per_run.append({})
+        if per_run:
+            per_run[-1][name] = per_run[-1].get(name, 0.0) + seconds
+    stage_ms = []
+    for i, (run, st) in enumerate(zip(runs, per_run)):
+        row = {k: 1e3 * sum(v for n, v in st.items() if n.startswith(k))
+               for k in CLI_STAGES}
+        row.update({f'mfs imaging{lab}': 1e3 * st.get(
+            f'synthobs: mfs imaging ({SYNTHOBS_IMSIZE}px{lab})', 0.0)
+            for lab in CLI_IMAGING})
+        if not all(v > 0 for v in row.values()):
+            raise AssertionError(f"run {i + 1} recorded these stages: {st}")
+        stage_ms.append(row)
+        print(f"  run {i + 1} ({run.year:g} yr): " + ', '.join(
+            f"{k.replace('synthobs: ', '').strip()} {v:.4f} ms"
+            for k, v in row.items()) + f" [{smi}]")
+    print("  stage totals: " + ', '.join(
+        f"{k} {v:.4f} s" for k, v in sorted(totals.items())))
+
+    # every run's products and selfcal summary
+    n_ant = observatories.read_antenna_config(
+        observatories.cfg_file(*runs[0].tscop))['xyz'].shape[0]
+    with np.load(runs[0].products['ms_noisy']) as f:
+        n_t = f['uvw'].shape[0] // (n_ant * (n_ant - 1) // 2)
+    n_sol = int(np.clip(round(runs[0].t_obs /
+                              CLI_SYNTHOBS['selfcal_solint_s']), 1, n_t))
+    for i, run in enumerate(runs):
+        if not run.completed:
+            raise AssertionError(f"run {i + 1} did not complete")
+        for key in CLI_PRODUCTS:
+            if not os.path.isfile(run.products.get(key, '')):
+                raise AssertionError(f"run {i + 1}: no {key} product")
+        sc = run.results['selfcal']
+        drs = [sc['dynamic_range_before']] + sc['dynamic_range_rounds']
+        if sc['n_sol'] != n_sol or sc['rounds'] != 2 or \
+                sc['mode'] != 'phase' or not sc['gain_amp_rms'] < 1e-6 or \
+                not all(np.isfinite(drs)) or len(drs) != 3:
+            raise AssertionError(f"run {i + 1}: selfcal {sc}")
+        with np.load(run.products['gains']) as f:
+            g = f['g_re'] + 1j * f['g_im']
+        if g.shape != (n_sol, n_ant) or \
+                not np.allclose(np.abs(g), 1.0, atol=1e-12, rtol=0):
+            raise AssertionError(f"run {i + 1}: gains {g.shape}, |g| "
+                                 f"{np.abs(g).min()}-{np.abs(g).max()}")
+        img, _ = fitsio.read_fits(run.products['clean_image'])
+        if not np.all(np.isfinite(img)) or not img.max() > 0:
+            raise AssertionError(f"run {i + 1}: restored image")
+        print(f"  run {i + 1}: selfcal n_sol {sc['n_sol']}, rounds "
+              f"{sc['rounds']}, gain amp rms {sc['gain_amp_rms']:.3e}, "
+              f"phase rms {sc['gain_phase_rms_deg']:.4f} deg; dynamic "
+              f"range {' -> '.join(f'{d:.4f}' for d in drs)}; imfit peak "
+              f"{run.results['imfit']['Peak']['val']:.6e} "
+              f"{run.results['imfit']['Peak']['unit']}")
+    model_dcy = pline.dcy
+    for name in (os.path.basename(mf), os.path.basename(pf)):
+        if not os.path.isfile(os.path.join(model_dcy, name)):
+            raise AssertionError(f"the CLI did not copy {name}")
+    logs = glob.glob(os.path.join(model_dcy, 'ModelRun_*.log'))
+    if len(logs) != 1:
+        raise AssertionError(f"ModelRun logs in model_dcy: {logs}")
+    print(f"  model_dcy holds the two param files and "
+          f"{os.path.basename(logs[0])}")
+
+    # run 1's UVFITS files against its npz sets (float32 in UVFITS)
+    run = runs[0]
+    for tag, key in (('uvfits_clean', 'ms_clean'),
+                     ('uvfits_noisy', 'ms_noisy')):
+        back = uvfits.read_uvfits(run.products[tag])
+        with np.load(run.products[key]) as f:
+            for part in ('vis_re', 'vis_im'):
+                if not np.array_equal(back[part],
+                                      f[part].astype(np.float32)):
+                    raise AssertionError(f"{tag} {part} is not {key}'s "
+                                         f"to float32 rounding")
+        print(f"  {tag} ({os.path.getsize(run.products[tag])} bytes): "
+              f"{back['vis_re'].shape} visibilities, {key}'s to float32 "
+              f"rounding")
+
+    errs, card_cpu_ms, solve = cli_card_vs_cpu(run, smi)
+
+    # run 1 again through reuse_vis: the same gains and image, bit for bit
+    kw = dict(CLI_SYNTHOBS, min_el=pline.params['min_el'])
+
+    def gains_and_image():
+        with np.load(run.products['gains']) as f:
+            return [f['g_re'], f['g_im'],
+                    fitsio.read_fits(run.products['clean_image'])[0]]
+
+    first = gains_and_image()
+    simulate_observation(pline, run, reuse_vis=True, **kw)
+    if not all(np.array_equal(a, b) for a, b in
+               zip(first, gains_and_image())):
+        raise AssertionError("run 1 again through reuse_vis gave other "
+                             "gains or another restored image")
+    print("  run 1 again through reuse_vis: the same gains and restored "
+          "image bit for bit")
+    # run 2 with run 1's gains transferred
+    t0 = time.perf_counter()
+    prods = simulate_observation(pline, runs[1],
+                                 applycal_gains=run.products['gains'], **kw)
+    transfer_s = time.perf_counter() - t0
+    with open(pline.log.filename) as f:
+        if 'Applied transferred gain solutions from ' \
+                f"{os.path.basename(run.products['gains'])}" not in f.read():
+            raise AssertionError("run 2's gain transfer is not logged")
+    if not os.path.isfile(prods['clean_image']):
+        raise AssertionError("run 2 with transferred gains: no image")
+    print(f"  run 2 with run 1's gains transferred: {transfer_s:.4f} s, "
+          f"logged [{smi}]")
+
+    # the no-argument dry run of the bundled files, in its own process
+    home = os.path.join(tmp, 'home')
+    os.makedirs(home)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, '-m', 'rajepy_tpu_torch.main'],
+                         cwd=HERE, env=dict(os.environ, HOME=home),
+                         capture_output=True, text=True, timeout=600)
+    dry_s = time.perf_counter() - t0
+    fits = glob.glob(os.path.join(home, '**', '*.fits'), recursive=True)
+    if res.returncode != 0 or fits:
+        raise AssertionError(f"python -m rajepy_tpu_torch.main: exit "
+                             f"{res.returncode}, {len(fits)} FITS files; "
+                             f"{res.stderr[-2000:]}")
+    print(f"  python -m rajepy_tpu_torch.main (no arguments, the bundled "
+          f"files' dry run on the card): exit 0 in {dry_s:.4f} s, no FITS "
+          f"file [{smi}]")
+    del pline
+    shutil.rmtree(dcy)
+    torch.cuda.empty_cache()
+    return launches, {'wall_s': wall_s, 'peak_gb': peak_gb,
+                      'stages_ms': stage_ms, 'card_cpu_ms': card_cpu_ms,
+                      'transfer_s': transfer_s, 'dry_run_s': dry_s,
+                      'errs': errs,
+                      'selfcal': [r.results['selfcal'] for r in runs]}, \
+        solve
+
+
 def run_analysis(jm, smi):
     """Diagnostics and analysis, counted (phase 2g): the light curve of the
     flagship model over ANALYSIS_EPOCHS_YR and the 16 continuum channels
@@ -2598,6 +2992,7 @@ def main() -> int:
                                                      plot)
         by_path['cube'], cube = run_cube_observation(jm, log, tmp, smi)
         by_path['analysis'], ana = run_analysis(jm, smi)
+        by_path['cli'], cli, cli_solve = run_cli(log, tmp, smi)
         # the pipeline is what a user runs: its counts stand for the two
         # kernels it launches
         launches.update({k: by_path['pipeline'][k] for k in PIPELINE_KERNELS})
@@ -2883,6 +3278,14 @@ def main() -> int:
         for name, err in full_errs.items():
             errs[name] = max(errs[name], err)
 
+        cli['solve'] = stefcal_numbers(cli_solve, smi)
+        del cli_solve
+        print(f"  the CLI (phase 2h): {cli['wall_s']:.4f} s for six runs "
+              f"with corruption, two selfcal rounds and UVFITS export; a "
+              f"StEFCal solve {cli['solve']['ops']:g} device operations, "
+              f"{cli['solve']['ms']:.4f} ms; peak memory "
+              f"{cli['peak_gb']:.3f} GB; card vs CPU: " + ', '.join(
+                  f"{k} {v:.3e}" for k, v in cli['errs'].items()))
         print(f"  script time before the summary "
               f"{time.perf_counter() - t_script:.1f} s")
         print(smi)
@@ -2902,7 +3305,8 @@ def main() -> int:
                                  'iterations', 'loop_iterations',
                                  'channel_iterations', 'it_s', 'chan_it_s',
                                  'stages_ms')},
-            'analysis': {k: ana[k] for k in ('ms', 'peak_gb', 'errs')}}))
+            'analysis': {k: ana[k] for k in ('ms', 'peak_gb', 'errs')},
+            'cli': cli}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -19,20 +19,23 @@ installed.  Ported so far:
   synthetic observations, the diagnostic figures, resume, clobber and
   dryrun) and ``radio_plot``;
 - ``synthobs``: synthetic observations of continuum runs and of line
-  cubes (uv tracks, visibility sampling, Briggs gridding, the Hogbom,
-  Clark, multiscale and mtmfs deconvolvers, restoration and imfit);
+  cubes (uv tracks, visibility sampling and the exact-DFT samplers, Briggs
+  gridding, the Hogbom, Clark, multiscale and mtmfs deconvolvers,
+  restoration and imfit), antenna gain corruption, StEFCal
+  self-calibration, gain transfer and closure quantities
+  (``synthobs.calibration``) and UVFITS export (``synthobs.uvfits``);
 - ``plotting``: the figures of the JAX package (matplotlib, imported only
-  where a figure is drawn).
+  where a figure is drawn);
+- ``casa_compat``: the CASA script-export layer;
+- ``main``: the command line, ``python -m rajepy_tpu_torch.main [-v] [-rt]
+  [-so] [-r] [-c] model.py pipeline.py`` (``main(argv, device='cpu')``
+  runs it on the CPU).
 
 Every Pallas kernel of rajepy_tpu has a hand-written CUDA counterpart under
-``csrc/``.  Not ported yet: the CLI (``main``), calibration (antenna gain
-corruption, self-calibration and gain transfer: the ``params['synthobs']``
-options ``corruption``, ``selfcal`` and ``applycal_gains``), UVFITS export
-(``export_uvfits=True``), the exact-DFT visibility samplers,
-``casa_compat``, ``fit``, ``parallel`` (the multi-device fan-out,
-``device_fanout=True`` of ``Pipeline.execute``, and channel-sharded
-imaging, ``shard_imaging=True``) and the examples.  The options named
-here raise ``NotImplementedError`` before any work is done.
+``csrc/``.  Not ported yet: ``fit``, ``parallel`` (the multi-device
+fan-out, ``device_fanout=True`` of ``Pipeline.execute``, and
+channel-sharded imaging, ``shard_imaging=True``) and the examples.  The
+options named here raise ``NotImplementedError`` before any work is done.
 
 Package layout
 --------------
@@ -48,7 +51,10 @@ Package layout
 - ``synthobs``  CASA-free synthetic observations of continuum runs and
                 line cubes: antenna configurations and uv tracks,
                 visibility sampling and noise, imaging and CLEAN, source
-                fitting (a subpackage, imported where used)
+                fitting, calibration, UVFITS (a subpackage, imported
+                where used)
+- ``casa_compat`` CASA task wrappers and script export
+- ``main``      the command-line entry point
 - ``plotting``  matplotlib figures of models, RT products, SEDs and
                 observations (imported where used)
 - ``io``        FITS writer/reader, npz/JSON checkpoints

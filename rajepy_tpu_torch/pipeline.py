@@ -19,8 +19,9 @@ the grid and mass-loss figures at the start, a model figure per epoch
 directory and a radio SED per continuum epoch after the observations.
 
 Not ported yet, and refused before any work is done: the multi-device
-fan-out (``device_fanout=True``) and the ``params['synthobs']`` options
-that need unported parts of synthobs (see ``synthobs.check_ported``).
+fan-out (``device_fanout=True``) and channel-sharded cube imaging
+(``params['synthobs']`` ``shard_imaging=True``; see
+``synthobs.check_ported``).
 
 The products of a run leave the device in one copy: on a CUDA model the
 three tensors go into pinned host buffers that the pipeline keeps from run
@@ -368,9 +369,8 @@ class Pipeline:
         epoch; their time, less a grid fill they start, is recorded as the
         stage ``plots``.  Not ported yet, and refused with
         ``NotImplementedError`` before any work is done: ``device_fanout``
-        other than None or False, and with ``simobserve=True`` a
-        ``params['synthobs']`` option that needs an unported part of
-        synthobs."""
+        other than None or False, and with ``simobserve=True``
+        ``params['synthobs']`` ``shard_imaging=True``."""
         if simobserve:
             # an option of params['synthobs'] that needs an unported part
             # of synthobs raises here, before any work
@@ -568,14 +568,20 @@ class Pipeline:
                 # failure reuses the pre-imaging visibility sets (same
                 # model/plan/seed signature) instead of resampling
                 so_kwargs.setdefault('reuse_vis', resume and not clobber)
-                if run.obs_type != 'continuum' and so_kwargs.get(
-                        'deconvolver') in ('multiscale', 'clark', 'mtmfs'):
-                    # cube runs always use the channel-batched Hogbom; the
-                    # continuum-only deconvolver knobs are stripped rather
-                    # than failing the line runs
-                    for k in ('deconvolver', 'scales', 'smallscalebias',
-                              'nterms', 'reffreq', 'cycleniter'):
+                if run.obs_type != 'continuum':
+                    # continuum-only knobs are stripped rather than
+                    # failing the line runs: a params file asking for
+                    # selfcal means "where applicable", and cube runs
+                    # always use the channel-batched Hogbom
+                    for k in ('selfcal', 'selfcal_solint_s',
+                              'selfcal_rounds'):
                         so_kwargs.pop(k, None)
+                    if so_kwargs.get('deconvolver') in (
+                            'multiscale', 'clark', 'mtmfs'):
+                        for k in ('deconvolver', 'scales',
+                                  'smallscalebias', 'nterms', 'reffreq',
+                                  'cycleniter'):
+                            so_kwargs.pop(k, None)
                 products = simulate_observation(self, run, **so_kwargs)
                 run.products.update(products)
                 if run.obs_type == 'continuum' and \

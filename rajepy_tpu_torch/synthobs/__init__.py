@@ -11,11 +11,15 @@ High-level entry point mirroring the reference's simobserve/tclean/imfit stage
 2. FFT sampling of the model FITS sky image at the uv points plus
    radiometer-equation thermal noise (:mod:`.sampler`) — the measurement
    set becomes an npz visibility set;
+   Optionally antenna gain corruption, the transfer of another run's
+   gain solutions and UVFITS copies of the sets (:mod:`.calibration`,
+   :mod:`.uvfits`);
 3. Briggs-weighted gridding, FFT dirty imaging, CLEAN (Hogbom, Clark,
    multiscale or multi-term MFS for continuum runs; the channel-batched
    Hogbom for line cubes; niter=500, nsigma=3, briggs robust=0.5 as
    tclean's defaults at classes.py:2771-2782) and Gaussian restoration
-   (:mod:`.imaging`);
+   (:mod:`.imaging`), with optional StEFCal self-calibration rounds on
+   continuum runs (:mod:`.calibration`);
 4. for continuum runs, elliptical-Gaussian source fitting with
    CASA-imfit-compatible summary files (:mod:`.imfit`), estimates seeded
    from the Reynolds tau=1 surface exactly like the reference
@@ -23,13 +27,12 @@ High-level entry point mirroring the reference's simobserve/tclean/imfit stage
 
 Steps 2 and 3 run on the device of the pipeline's model, in float64 and
 complex128 whatever the model's precision (the JAX package computes this
-chain in float64 everywhere but on a TPU); the uv plan, the beam fit, the
-beam image, the source fit and the file writes are host numpy, as in the
-JAX package.
+chain in float64 everywhere but on a TPU); the uv plan, the gain tracks,
+the beam fit, the beam image, the source fit and the file writes are host
+numpy, as in the JAX package.
 
 Not ported yet, and refused before any work by :func:`check_ported`:
-antenna gain corruption, self-calibration, gain transfer, UVFITS export
-and channel-sharded imaging.
+channel-sharded cube imaging (``shard_imaging=True``).
 """
 from __future__ import annotations
 
@@ -50,39 +53,25 @@ from ..ops import physics as mphys
 from ..utils.misc import atomic_write, casa_imfit_file_to_dict
 from ..utils import profiling
 from ..utils.profiling import KernelTimer
-from . import imaging, imfit as imfit_mod, observatories, sampler, uvgen
+from . import calibration, imaging, imfit as imfit_mod, observatories, \
+    sampler, uvgen
 
 __all__ = ["simulate_observation", "check_ported", "observatories", "uvgen",
-           "sampler", "imaging", "imfit_mod"]
+           "sampler", "imaging", "imfit_mod", "calibration"]
 
 #: the precision of the uv/imaging chain on every device
 _RDT = torch.float64
 
 
-def check_ported(corruption: Optional[Dict] = None,
-                 selfcal: Optional[str] = None,
-                 applycal_gains: Optional[str] = None,
-                 export_uvfits: bool = False,
-                 shard_imaging: Optional[bool] = None, **_ignored) -> None:
+def check_ported(shard_imaging: Optional[bool] = None, **_ignored) -> None:
     """Raise ``NotImplementedError`` for an observation that needs a part
-    of the JAX package's synthobs that is not ported yet: antenna gain
-    corruption, self-calibration and gain transfer (its ``calibration``
-    module), UVFITS export (``uvfits``) and channel-sharded cube imaging.
-    Takes :func:`simulate_observation`'s keywords (others are ignored)."""
-    missing = []
-    if corruption:
-        missing.append("corruption (antenna gain errors, calibration)")
-    if selfcal:
-        missing.append("selfcal (self-calibration, calibration)")
-    if applycal_gains:
-        missing.append("applycal_gains (gain transfer, calibration)")
-    if export_uvfits:
-        missing.append("export_uvfits=True (uvfits)")
+    of the JAX package's synthobs that is not ported yet: channel-sharded
+    cube imaging (its ``parallel`` package).  Takes
+    :func:`simulate_observation`'s keywords (others are ignored)."""
     if shard_imaging:
-        missing.append("shard_imaging=True (channel-sharded imaging)")
-    if missing:
         raise NotImplementedError(
-            "synthobs: not ported yet: " + "; ".join(missing))
+            "synthobs: not ported yet: shard_imaging=True (channel-sharded "
+            "imaging)")
 
 
 def _product_path(fitsfile: str, suffix: str) -> str:
@@ -141,12 +130,13 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
                          t_ground: float = 270.0,
                          corruption: Optional[Dict] = None,
                          selfcal: Optional[str] = None,
+                         selfcal_solint_s: Optional[float] = None,
+                         selfcal_rounds: int = 1,
                          applycal_gains: Optional[str] = None,
                          save_products: tuple = (),
                          shard_imaging: Optional[bool] = None,
                          reuse_vis: bool = False,
-                         export_uvfits: bool = False,
-                         **unported) -> Dict[str, str]:
+                         export_uvfits: bool = False) -> Dict[str, str]:
     """Synthesise an interferometric observation of ``run``'s sky model.
 
     Writes (under ``run.rt_dcy``): the visibility sets
@@ -167,17 +157,34 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
     thermal-noise seed, tasks.py:205) seeds a ``torch.Generator`` on the
     model's device, so the noise is torch's stream, not ``jax.random``'s.
     ``reuse_vis=True`` reuses saved visibility sets whose signature (sky
-    model, uv plan, noise model, seed, primary beam) matches, which the
-    JAX package's sets do too: the two packages' sets interchange.
+    model, uv plan, noise model, seed, primary beam, corruption and gain
+    transfer) matches, which the JAX package's sets do too: the two
+    packages' sets interchange.
+
+    ``corruption`` (a dict of ``amp_rms``, ``phase_rms_deg``,
+    ``coherence_s``, ``seed``) multiplies the noisy set by antenna gain
+    tracks (:func:`calibration.simulate_gain_errors`, the JAX package's
+    draws bit for bit); ``applycal_gains`` divides out a gains product of
+    another run (``SynObs.<cfg>.selfcal.gains.npz``, of either package),
+    stretched over this run's time axis.  ``selfcal='phase'`` or
+    ``'amp+phase'`` runs ``selfcal_rounds`` StEFCal rounds on a continuum
+    run (phase-only but the last, which uses the requested mode; one
+    solution per ``selfcal_solint_s`` seconds), each solving against the
+    previous CLEAN model and re-imaging: the restored image is the last
+    round's, ``SynObs.<cfg>.selfcal.vis.npz`` (``ms_selfcal``) holds the
+    corrected set and ``SynObs.<cfg>.selfcal.gains.npz`` (``gains``) the
+    cumulative solutions, summarised in ``run.results['selfcal']``.
+    ``export_uvfits=True`` also writes the clean and noisy sets as
+    random-groups UVFITS files (``uvfits_clean``, ``uvfits_noisy``).
 
     Raises ``ValueError`` before anything is sampled or written for what
     the JAX package refuses (a deconvolver other than Hogbom or ``selfcal``
     on a line run, mtmfs with ``nterms`` outside 2-4 or fewer channels
-    than terms, ``selfcal`` with mtmfs), and ``NotImplementedError`` before
-    any work for what is not ported yet (:func:`check_ported`):
-    ``corruption``, ``selfcal`` (with
-    ``selfcal_solint_s``, ``selfcal_rounds``), ``applycal_gains``,
-    ``export_uvfits=True`` and ``shard_imaging=True``.
+    than terms, ``selfcal`` with mtmfs, an unknown ``selfcal`` mode,
+    ``selfcal_rounds < 1``); for gain transfer, after sampling and before
+    any write, a gains product of another antenna count or with a zero
+    gain.  ``shard_imaging=True`` is not ported yet and raises
+    ``NotImplementedError`` before any work (:func:`check_ported`).
     """
     cube_mode = run.obs_type != 'continuum'
     if deconvolver not in ('hogbom', 'clark', 'multiscale', 'mtmfs'):
@@ -196,16 +203,16 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
                              "per-Taylor-order, not a flat sky); "
                              "selfcal with clark/hogbom/multiscale, or "
                              "transfer gains via applycal_gains")
+    if selfcal not in (None, 'phase', 'amp+phase'):
+        raise ValueError(f"unknown selfcal mode {selfcal!r}")
+    selfcal_rounds = int(selfcal_rounds)
+    if selfcal and selfcal_rounds < 1:
+        raise ValueError("selfcal_rounds must be >= 1")
     if selfcal and cube_mode:
         raise ValueError("selfcal is continuum (mfs) only: line cubes "
                          "lack the per-solint SNR for a gain solve; "
                          "transfer continuum solutions instead")
-    check_ported(corruption, selfcal, applycal_gains, export_uvfits,
-                 shard_imaging)
-    knobs = {'selfcal_solint_s', 'selfcal_rounds'}
-    if set(unported) - knobs:
-        raise TypeError("simulate_observation: unexpected keyword(s) "
-                        f"{sorted(set(unported) - knobs)}")
+    check_ported(shard_imaging=shard_imaging)
     if pb_model not in ('gaussian', 'airy'):
         raise ValueError(f"unknown pb_model {pb_model!r} (gaussian/airy)")
     if isinstance(save_products, str):
@@ -386,6 +393,10 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
         parts = [sky.shape, int(seed), bool(apply_pb), pb_model,
                  float(pb_blockage_m), int(w_planes), mean_dish,
                  sorted((corruption or {}).items()), 'centre-fits']
+        if applycal_gains:
+            st = os.stat(applycal_gains)
+            parts.append((os.path.abspath(applycal_gains),
+                          st.st_size, st.st_mtime_ns))
         h.update(repr(parts).encode())
         return h.hexdigest()
 
@@ -411,7 +422,7 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
             log.add_entry(
                 "INFO",
                 "Reusing sampled visibilities from {} (signature match — "
-                "skipping the sampling stage)".format(
+                "skipping the sampling/corruption stages)".format(
                     os.path.basename(noisy_vis_file)), timestamp=False)
     else:
         # every channel FFTs its own sky plane, applies its own primary
@@ -426,8 +437,69 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
                 centre='fits')
             kt.set_result(noisy)
         re_cn, im_cn = clean.real.cpu().numpy(), clean.imag.cpu().numpy()
-        re_nn, im_nn = noisy.real.cpu().numpy(), noisy.imag.cpu().numpy()
         del clean
+
+    # --- antenna gain corruption (sm.setgain analogue) ------------------- #
+    n_ant = ant['xyz'].shape[0]
+    # per-visibility (ant1, ant2, t_index), copied to the device once for
+    # the corruption, the gain transfer and every selfcal round
+    vis_meta = [torch.as_tensor(a, device=dev)
+                for a in calibration.vis_metadata(n_samp, _pairs)]
+    if corruption and not reused:
+        g_re, g_im = calibration.simulate_gain_errors(
+            int(corruption.get('seed', seed + 1)), n_samp, n_ant,
+            amp_rms=float(corruption.get('amp_rms', 0.0)),
+            phase_rms_deg=float(corruption.get('phase_rms_deg', 0.0)),
+            coherence_s=corruption.get('coherence_s'),
+            t_int_s=t_int_eff)
+        with KernelTimer("synthobs: gain corruption", log) as kt:
+            noisy = calibration.apply_gains(
+                noisy, torch.complex(torch.from_numpy(g_re),
+                                     torch.from_numpy(g_im)), *vis_meta)
+            kt.set_result(noisy)
+        if log:
+            log.add_entry(
+                "INFO",
+                "Applied antenna gain corruption: amp_rms={:.3f}, "
+                "phase_rms={:.1f}deg, coherence={}s over {} antennas x "
+                "{} integrations".format(
+                    float(corruption.get('amp_rms', 0.0)),
+                    float(corruption.get('phase_rms_deg', 0.0)),
+                    corruption.get('coherence_s'), n_ant, n_samp),
+                timestamp=False)
+
+    # --- gain transfer (applycal with a gains product) ------------------- #
+    if applycal_gains and not reused:
+        with np.load(applycal_gains) as gt:
+            g_re_t = np.asarray(gt['g_re'], dtype=float)
+            g_im_t = np.asarray(gt['g_im'], dtype=float)
+        if g_re_t.shape[-1] != n_ant:
+            raise ValueError(
+                f"applycal_gains has {g_re_t.shape[-1]} antennas, this "
+                f"run's array has {n_ant} — gain transfer needs the "
+                "same antenna configuration")
+        if not np.all(np.hypot(g_re_t, g_im_t) > 0.0):
+            raise ValueError(
+                "applycal_gains contains zero gains (applycal divides "
+                "by g_i conj(g_j) — a zero would produce inf/NaN "
+                "visibilities); flag the dead antenna's solutions to "
+                "1+0j before transfer")
+        with KernelTimer("synthobs: applycal (gain transfer)", log) as kt:
+            noisy = calibration.correct_vis(
+                noisy, torch.complex(torch.from_numpy(g_re_t),
+                                     torch.from_numpy(g_im_t)),
+                *vis_meta, n_samp)
+            kt.set_result(noisy)
+        if log:
+            log.add_entry(
+                "INFO",
+                "Applied transferred gain solutions from {} "
+                "({} solution interval(s) stretched over {} "
+                "integrations)".format(os.path.basename(applycal_gains),
+                                       g_re_t.shape[0], n_samp),
+                timestamp=False)
+    if not reused:
+        re_nn, im_nn = noisy.real.cpu().numpy(), noisy.imag.cpu().numpy()
 
     # --- visibility products, written BEFORE imaging ---------------------- #
     # the measurement-set analogue hits disk as soon as it exists, so an
@@ -444,6 +516,34 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
                 np.savez(f, uvw=uvw, vis_re=re_nn, vis_im=im_nn,
                          freqs=freqs, sigma=sigma, resume_sig=vis_sig)
 
+    uvfits_files = {}
+    if export_uvfits:
+        # standard-format copies of the visibility sets, openable by real
+        # CASA (importuvfits), AIPS and difmap: host numpy, the JAX
+        # package's writer
+        from . import uvfits as uvfits_mod
+        a1, a2, t_idx = calibration.vis_metadata(n_samp, _pairs)
+        time_s = (t_idx + 0.5) * t_int_eff
+        for tag, (vr, vi, sg) in {
+                'uvfits_clean': (re_cn, im_cn, 0.0),
+                'uvfits_noisy': (re_nn, im_nn, sigma)}.items():
+            suffix = '.uvfits' if tag.endswith('clean') else \
+                '.noisy.uvfits'
+            fname = os.path.join(synobs_dcy, f'SynObs.{base}{suffix}')
+            with KernelTimer(f"synthobs: {tag} write", log):
+                uvfits_mod.write_uvfits(
+                    fname, uvw, vr, vi, freqs, ant['xyz'], a1, a2,
+                    time_s, ra_deg, dec_deg, sigma=sg,
+                    ant_names=ant.get('names'), source='TARGET',
+                    telescope=str(tscop))
+            uvfits_files[tag] = fname
+        if log:
+            log.add_entry(
+                "INFO",
+                "Exported UVFITS visibility sets (clean + noisy) to "
+                f"{os.path.basename(uvfits_files['uvfits_noisy'])}",
+                timestamp=False)
+
     # --- imaging (classes.py:2761-2788) ---------------------------------- #
     # multi-frequency synthesis: all channels on one grid (continuum) or a
     # per-channel cube (RRL)
@@ -458,23 +558,34 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
         return np.exp(-4.0 * np.log(2.0) * (us ** 2 + vs ** 2) /
                       fwhm_uv ** 2)
 
-    def image_channels(chan_idx):
-        """Dirty image and PSF of the channels ``chan_idx`` gridded
-        together, on the device."""
+    # imaging weights depend on uv only, not on the visibility values:
+    # selfcal re-images every round, so they are kept on the device per
+    # channel selection
+    _wb_cache: Dict = {}
+
+    def image_channels(chan_idx, vis=None):
+        """Dirty image and PSF of the channels ``chan_idx`` of ``vis``
+        (default: the noisy set) gridded together, on the device."""
+        chan_idx = np.asarray(chan_idx)
         us = (uvw[None, :, 0] / lam[chan_idx, None]).ravel()
         vs = (uvw[None, :, 1] / lam[chan_idx, None]).ravel()
         us_d = torch.as_tensor(us, dtype=_RDT, device=dev)
         vs_d = torch.as_tensor(vs, dtype=_RDT, device=dev)
-        w0 = torch.as_tensor(uvtaper_weights(us, vs), dtype=_RDT,
-                             device=dev)
-        if weighting == 'natural':
-            wb = w0
-        else:
-            wb = imaging.briggs_weights(
-                us_d, vs_d, w0, imsize, cell_rad,
-                robust=robust if weighting == 'briggs' else -2.0)
-        return imaging.grid_and_image(us_d, vs_d,
-                                      noisy[chan_idx].reshape(-1), wb,
+        key = np.ascontiguousarray(chan_idx).tobytes()
+        wb = _wb_cache.get(key)
+        if wb is None:
+            w0 = torch.as_tensor(uvtaper_weights(us, vs), dtype=_RDT,
+                                 device=dev)
+            if weighting == 'natural':
+                wb = w0
+            else:
+                wb = imaging.briggs_weights(
+                    us_d, vs_d, w0, imsize, cell_rad,
+                    robust=robust if weighting == 'briggs' else -2.0)
+            _wb_cache[key] = wb
+        src = noisy if vis is None else vis
+        sel = torch.as_tensor(chan_idx, device=src.device)
+        return imaging.grid_and_image(us_d, vs_d, src[sel].reshape(-1), wb,
                                       imsize, cell_rad)
 
     # CLEAN mask: the model's bounding box mapped into the new image
@@ -492,7 +603,7 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
         beam = imaging.fit_psf_beam(psf, cell_rad)
         return beam, imaging.gaussian_beam_kernel(imsize, cell_rad, *beam)
 
-    extra_maps = {}                 # save_products captures
+    extra_maps = {}                 # save_products captures (last imaging)
     mtmfs_maps: Dict[str, np.ndarray] = {}   # tt1/alpha (mtmfs only)
     if cube_mode:
         # common restoring beam fitted to the central channel's PSF
@@ -573,38 +684,132 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
             restored_cube = tt[:1]
         del dirty_t, psf_m, mdl_t, res_t, tt_d
     else:
-        with KernelTimer(f"synthobs: mfs imaging ({imsize}px)", log) as kt:
-            dirty_d, psf_d = image_channels(np.arange(n_chan))
-            dirty, psf = dirty_d.cpu().numpy(), psf_d.cpu().numpy()
-            outside = dirty[mask == 0]
-            threshold = nsigma * (float(np.std(outside)) if outside.size
-                                  else 0.0)
-            if deconvolver == 'multiscale':
-                mdl, resid, _its = imaging.multiscale_clean(
-                    dirty_d, psf_d, mask, scales=tuple(scales), gain=0.1,
-                    niter=niter, threshold=threshold,
-                    smallscalebias=smallscalebias)
-            elif deconvolver == 'clark':
-                mdl, resid, _its = imaging.clark_clean(
-                    dirty_d, psf_d, mask, gain=0.1, niter=niter,
-                    threshold=threshold, cycleniter=cycleniter)
-            else:
-                mdl, resid, _its = imaging.hogbom_clean(
-                    dirty_d, psf_d, mask, gain=0.1, niter=niter,
-                    threshold=threshold)
-            beam, beam_kernel = beam_of(psf)
-            restored_d = imaging.restore(mdl, resid, beam_kernel)
-            kt.set_result(restored_d)
-            restored_cube = restored_d.cpu().numpy()[None]
-            if save_products:
-                extra_maps.update(psf=psf, dirty=dirty,
-                                  model=mdl.cpu().numpy(),
-                                  residual=resid.cpu().numpy())
-        del dirty_d, psf_d, mdl, resid, restored_d
+        # multi-frequency synthesis: all channels on one grid
+        def mfs_image(vis, label=''):
+            """Image, CLEAN and restore ``vis``: the restored image (host),
+            the CLEAN model (device) and the beam."""
+            with KernelTimer(f"synthobs: mfs imaging ({imsize}px{label})",
+                             log) as kt:
+                dirty_d, psf_d = image_channels(np.arange(n_chan), vis)
+                dirty, psf = dirty_d.cpu().numpy(), psf_d.cpu().numpy()
+                outside = dirty[mask == 0]
+                threshold = nsigma * (float(np.std(outside))
+                                      if outside.size else 0.0)
+                if deconvolver == 'multiscale':
+                    mdl, resid, _its = imaging.multiscale_clean(
+                        dirty_d, psf_d, mask, scales=tuple(scales),
+                        gain=0.1, niter=niter, threshold=threshold,
+                        smallscalebias=smallscalebias)
+                elif deconvolver == 'clark':
+                    mdl, resid, _its = imaging.clark_clean(
+                        dirty_d, psf_d, mask, gain=0.1, niter=niter,
+                        threshold=threshold, cycleniter=cycleniter)
+                else:
+                    mdl, resid, _its = imaging.hogbom_clean(
+                        dirty_d, psf_d, mask, gain=0.1, niter=niter,
+                        threshold=threshold)
+                beam, beam_kernel = beam_of(psf)
+                restored_d = imaging.restore(mdl, resid, beam_kernel)
+                kt.set_result(restored_d)
+                restored = restored_d.cpu().numpy()
+                if save_products:
+                    extra_maps.update(psf=psf, dirty=dirty,
+                                      model=mdl.cpu().numpy(),
+                                      residual=resid.cpu().numpy())
+            return restored, mdl, beam
+
+        def dynamic_range(img):
+            noise = img[mask == 0]
+            sd = float(np.std(noise)) if noise.size else 0.0
+            return float(np.nanmax(img)) / sd if sd > 0 else np.inf
+
+        restored, mdl, beam = mfs_image(noisy)
+        if selfcal:
+            if not bool(torch.any(mdl != 0)):
+                raise ValueError("selfcal needs a CLEAN component model "
+                                 "to solve against (niter=0 produced an "
+                                 "empty one)")
+            n_sol = 1
+            if selfcal_solint_s:
+                n_sol = int(np.clip(round(run.t_obs / selfcal_solint_s),
+                                    1, n_samp))
+            us = (uvw[None, :, 0] / lam[:, None]).ravel()
+            vs = (uvw[None, :, 1] / lam[:, None]).ravel()
+            # wide-field runs sample the DATA with w-stacking: the model
+            # degrid must carry the same w phases (see model_vis)
+            ws = (uvw[None, :, 2] / lam[:, None]).ravel() \
+                if w_planes >= 1 else None
+            dr_before = dynamic_range(restored)
+            dr_rounds = []
+            vis_sc = noisy
+            # cumulative gain product across rounds (what applycal of a
+            # single 'gain table' must divide out)
+            g_tot = np.ones((n_sol, n_ant), complex)
+            for rnd in range(selfcal_rounds):
+                # the CASA reduction ladder: phase-only rounds against
+                # progressively better models, the requested mode last
+                mode = (selfcal if rnd == selfcal_rounds - 1 else 'phase')
+                with KernelTimer(f"synthobs: selfcal round {rnd + 1} "
+                                 f"({mode}, {n_sol} solint)", log) as kt:
+                    mv = calibration.model_vis(
+                        mdl, cell_rad, us, vs, w_wav=ws,
+                        n_wplanes=w_planes).reshape(n_chan, -1)
+                    g_sol = calibration.solve_gains(
+                        vis_sc, mv, *vis_meta, n_ant=n_ant, n_t=n_samp,
+                        n_sol=n_sol, mode=mode)
+                    vis_sc = calibration.correct_vis(vis_sc, g_sol,
+                                                     *vis_meta, n_samp)
+                    kt.set_result(vis_sc)
+                    g_sol = g_sol.cpu().numpy()
+                    del mv
+                g_tot = g_tot * g_sol
+                restored, mdl, beam = mfs_image(vis_sc,
+                                                f', selfcal {rnd + 1}')
+                dr_rounds.append(dynamic_range(restored))
+            g_amp = np.abs(g_sol)
+            g_phs = np.degrees(np.angle(g_sol))
+            run.results['selfcal'] = {
+                'mode': selfcal, 'n_sol': n_sol,
+                'rounds': selfcal_rounds,
+                'gain_amp_rms': float(np.std(g_amp)),
+                'gain_phase_rms_deg': float(np.std(g_phs)),
+                'dynamic_range_before': dr_before,
+                'dynamic_range_rounds': dr_rounds,
+                'dynamic_range_after': dr_rounds[-1]}
+            if log:
+                log.add_entry(
+                    "INFO",
+                    "selfcal ({}, {} round(s), {} solution interval(s)): "
+                    "final-round gain rms amp={:.3f} phase={:.1f}deg; "
+                    "image dynamic range {:.1f} -> {}".format(
+                        selfcal, selfcal_rounds, n_sol,
+                        float(np.std(g_amp)), float(np.std(g_phs)),
+                        dr_before,
+                        ' -> '.join(f'{d:.1f}' for d in dr_rounds)),
+                    timestamp=False)
+        restored_cube = restored[None]
+        del mdl
     del noisy
     bmaj_rad, bmin_rad, bpa_deg = beam
 
     # --- products -------------------------------------------------------- #
+    # (the clean/noisy visibility sets were written before imaging)
+    if selfcal:
+        with KernelTimer("synthobs: selfcal npz write", log):
+            selfcal_vis_file = os.path.join(
+                synobs_dcy, f'SynObs.{base}.selfcal.vis.npz')
+            with atomic_write(selfcal_vis_file) as f:
+                np.savez(f, uvw=uvw, vis_re=vis_sc.real.cpu().numpy(),
+                         vis_im=vis_sc.imag.cpu().numpy(), freqs=freqs,
+                         sigma=sigma)
+            gains_file = os.path.join(
+                synobs_dcy, f'SynObs.{base}.selfcal.gains.npz')
+            with atomic_write(gains_file) as f:
+                np.savez(f, g_re=g_tot.real, g_im=g_tot.imag,
+                         n_ant=n_ant, mode=str(selfcal),
+                         t_obs=float(run.t_obs))
+        del vis_sc
+
     dcy = run.rt_dcy
     fitsfile = os.path.join(dcy, f'SynObs.{base}.noisy.imaging.fits')
     out_hdr = fitsio.Header()
@@ -638,6 +843,10 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
 
     products = {'ms_clean': clean_vis_file, 'ms_noisy': noisy_vis_file,
                 'clean_image': fitsfile}
+    products.update(uvfits_files)
+    if selfcal:
+        products['ms_selfcal'] = selfcal_vis_file
+        products['gains'] = gains_file
 
     if mtmfs_maps:
         # mtmfs Taylor/spectral-index products (tclean writes .tt0/.tt1/

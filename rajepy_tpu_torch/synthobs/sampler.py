@@ -300,6 +300,101 @@ def n_wplanes_for(uvw_m, freq_hz: float, field_radius_rad: float,
     return int(min(np.ceil(span_phase / dphi_max) + 1, max_planes))
 
 
+#: bytes of one visibility chunk's (chunk, n_pix) float64 phase matrix in
+#: the exact-DFT samplers; its cosine and sine make three such matrices
+#: live at a time
+DFT_CHUNK_BYTES = 1 << 28
+
+
+def _dft(flat_i, phase_terms, coords):
+    """sum_p flat_i[p] e^{i phase(k, p)} over the pixel list, in fixed
+    chunks of visibilities: phase(k, p) = -2 pi sum_a coords[a][k]
+    phase_terms[a][p], formed and taken through cos/sin in float64.  Every
+    chunk is padded to the same length, so each visibility meets the same
+    matrix product whatever the number of visibilities."""
+    n_vis, n_pix = coords[0].shape[0], flat_i.shape[0]
+    chunk = max(1, min(n_vis, DFT_CHUNK_BYTES // (8 * max(n_pix, 1))))
+    out = torch.empty((2, n_vis), dtype=torch.float64, device=flat_i.device)
+    for lo in range(0, n_vis, chunk):
+        hi = min(lo + chunk, n_vis)
+        cs = [c[lo:hi] for c in coords]
+        if hi - lo < chunk:
+            cs = [torch.cat((c, c.new_zeros(chunk - (hi - lo)))) for c in cs]
+        phase = cs[0][:, None] * phase_terms[0][None, :]
+        for c, t in zip(cs[1:], phase_terms[1:]):
+            phase = phase + c[:, None] * t[None, :]
+        phase = (-2.0 * np.pi) * phase
+        out[0, lo:hi] = (torch.cos(phase) @ flat_i)[:hi - lo]
+        out[1, lo:hi] = (torch.sin(phase) @ flat_i)[:hi - lo]
+    return out
+
+
+def _pixel_offsets(image: torch.Tensor, cell_rad: float, centre: str):
+    """(l, m) [rad] of every pixel from the phase centre, float64,
+    (ny, nx) each."""
+    ny, nx = image.shape
+    kw = dict(dtype=torch.float64, device=image.device)
+    cx = nx // 2 + _centre_shift(nx, centre)
+    cy = ny // 2 + _centre_shift(ny, centre)
+    l_ax = (torch.arange(nx, **kw) - cx) * float(cell_rad)
+    m_ax = (torch.arange(ny, **kw) - cy) * float(cell_rad)
+    mm, ll = torch.meshgrid(m_ax, l_ax, indexing='ij')
+    return ll, mm
+
+
+def _f64(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float64,
+                           device=like.device).reshape(-1)
+
+
+def _complex_of(out: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
+    vis = torch.complex(out[0], out[1])
+    return vis if image.dtype == torch.float64 else vis.to(torch.complex64)
+
+
+def sample_vis_dft(image: torch.Tensor, cell_rad: float, u_wav, v_wav,
+                   centre: str = 'pixel'):
+    """Exact direct-Fourier-transform visibilities.
+
+    V(u, v) = sum_lm I[m, l] exp(-2 pi i (u l + v m)) over the image pixels
+    with offsets (l, m) from the image centre in radians — the accuracy
+    oracle for the FFT+degrid path.  The phases are formed in float64
+    whatever the image's precision (they reach tens of radians and more on
+    long baselines); the cos/sin factors meet the pixel list in one matrix
+    product per chunk of visibilities, each chunk's phase matrix at most
+    :data:`DFT_CHUNK_BYTES`.  ``centre``: see :func:`_centre_shift`.  Returns
+    complex visibilities on the image's device (complex64 for a float32
+    image).
+    """
+    ll, mm = _pixel_offsets(image, cell_rad, centre)
+    out = _dft(image.to(torch.float64).reshape(-1),
+               (ll.reshape(-1), mm.reshape(-1)),
+               (_f64(u_wav, image), _f64(v_wav, image)))
+    return _complex_of(out, image)
+
+
+def sample_vis_dft_w(image: torch.Tensor, cell_rad: float, u_wav, v_wav,
+                     w_wav, centre: str = 'pixel'):
+    """Exact non-coplanar (w-term) direct-Fourier-transform visibilities:
+
+        V(u,v,w) = sum_lm I[m,l] e^{-2 pi i (u l + v m + w (n - 1))} / n,
+        n = sqrt(1 - l^2 - m^2)
+
+    — the full measurement equation the 2-D FFT path approximates by
+    dropping the ``w (n - 1)`` phase (and the 1/n Jacobian): the accuracy
+    oracle for the small-field approximation (see
+    :func:`w_term_max_phase_error`).  Float64 phases and chunks as in
+    :func:`sample_vis_dft`.
+    """
+    ll, mm = _pixel_offsets(image, cell_rad, centre)
+    nn = torch.sqrt(torch.clamp(1.0 - ll ** 2 - mm ** 2, min=1e-12))
+    out = _dft((image.to(torch.float64) / nn).reshape(-1),
+               (ll.reshape(-1), mm.reshape(-1), (nn - 1.0).reshape(-1)),
+               (_f64(u_wav, image), _f64(v_wav, image),
+                _f64(w_wav, image)))
+    return _complex_of(out, image)
+
+
 def w_term_max_phase_error(uvw_m, freq_hz: float,
                            field_radius_rad: float) -> float:
     """A-priori bound on the phase error [rad] of the coplanar (no-w)

@@ -323,11 +323,17 @@ def test_cpu_pipeline_resumes_on_the_cpu_at_its_precision(
 
 # simobserve=True (the default) with what synthobs does not port yet: an
 # option of params['synthobs'].  An RRL run configured for a synthetic
-# observation (line-cube imaging), deconvolver='clark' and the figures
-# (plot=True, the default) were refused until they were ported; they now
-# run
+# observation (line-cube imaging), deconvolver='clark', the figures
+# (plot=True, the default) and the calibration and export options were
+# refused until they were ported; they now run
 _OBSERVED_RRL = {'rrls': dict(t_obs=np.array([3600]), t_ints=np.array([60]),
                               tscps=np.array([('VLA', 'A')]))}
+# the calibration and export options, on observed continuum runs (VLA B,
+# 1,200 s, noise-free), with the products each writes
+_CALIBRATION = {'corruption': ('ms_noisy',),
+                'selfcal': ('ms_selfcal', 'gains'),
+                'applycal_gains': ('ms_noisy',),
+                'export_uvfits': ('uvfits_clean', 'uvfits_noisy')}
 
 
 @pytest.mark.parametrize('kwargs,match', [
@@ -348,15 +354,36 @@ _OBSERVED_RRL = {'rrls': dict(t_obs=np.array([3600]), t_ints=np.array([60]),
 def test_unported_stages_raise_before_any_work(kwargs, match, model_params,
                                                tmp_path):
     """What is not ported raises before any work; the observed RRL runs,
-    deconvolver='clark' and the figures, refused until they were ported,
-    complete and write their products."""
+    deconvolver='clark', the figures and the calibration and export
+    options, refused until they were ported, complete and write their
+    products."""
     kwargs = dict(kwargs)
     pline = kwargs.pop('pline', {})
     params = _pline_params(tmp_path / 'out', rrl='rrls' in pline)
     params['rrls'].update(pline.get('rrls', {}))
     if 'synthobs' in pline:
-        params['synthobs'] = pline['synthobs']
+        params['synthobs'] = dict(pline['synthobs'])
+    if match in _CALIBRATION:
+        params['continuum'].update(t_obs=np.array([1200]),
+                                   t_ints=np.array([60]),
+                                   tscps=np.array([('VLA', 'B')]))
+        params['synthobs'].update(sefd=0.0, niter=20)
+        if match == 'applycal_gains':
+            # a gains product of the array's 27 antennas, unit modulus
+            gains = str(tmp_path / 'g.npz')
+            phase = np.linspace(0.0, 1.0, 27)[None]
+            np.savez(gains, g_re=np.cos(phase), g_im=np.sin(phase))
+            params['synthobs']['applycal_gains'] = gains
     pl = rajepy_tpu_torch.Pipeline(_torch_model(_small(model_params)), params)
+    if match in _CALIBRATION:
+        pl.execute(verbose=False, **kwargs)
+        assert len(pl.runs) == len(EPOCHS)
+        for run in pl.runs:
+            assert run.completed and run.simobserve
+            for key in _CALIBRATION[match] + ('clean_image', 'imfit'):
+                assert os.path.isfile(run.products[key]), key
+        assert ('selfcal' in pl.runs[0].results) == (match == 'selfcal')
+        return
     if match == 'plotting':
         pl.execute(verbose=False, **kwargs)
         assert all(r.completed for r in pl.runs)

@@ -15,9 +15,10 @@ The conftest jet at 24 x 60 x 24 cells, one continuum run (VLA A, 6 GHz,
   them, and its restored image and imfit then match the port's (1e-9,
   1e-6);
 * ``resume=True`` skips completed runs, ``clobber=True`` recomputes them;
-  the options that need unported parts of synthobs raise before any work,
-  and what was refused before it was ported (line cubes, the Clark and
-  multiscale deconvolvers) runs and writes its image.
+  the option that needs an unported part of synthobs (``shard_imaging``)
+  raises before any work, and what was refused before it was ported (line
+  cubes, the Clark and multiscale deconvolvers, gain corruption, selfcal,
+  gain transfer, UVFITS export) runs and writes its products.
 """
 import copy
 import os
@@ -240,7 +241,8 @@ def test_resume_skips_and_clobber_recomputes(model_params, root):
 
 
 NOW_PORTED = ('line cubes', "deconvolver='clark'",
-              "deconvolver='multiscale'")
+              "deconvolver='multiscale'", 'corruption', 'selfcal',
+              'applycal_gains', 'export_uvfits')
 
 
 @pytest.mark.parametrize('synthobs,rrl,match', [
@@ -258,19 +260,55 @@ def test_simulate_observation_refuses_unported_options(
     """Called directly, simulate_observation refuses what is not ported
     before it reads or writes anything; the cases that were refused until
     they were ported (an RRL run's line cube, deconvolver='clark' and
-    'multiscale') now observe the run and write its restored image."""
+    'multiscale', gain corruption, selfcal, gain transfer and UVFITS
+    export) now observe the run and write its restored image and the
+    option's products."""
     pl = rajepy_tpu_torch.Pipeline(
         rajepy_tpu_torch.JetModel(_small(model_params), device='cpu'),
         _params(tmp_path / 'out', rrl=rrl))
     run = pl.runs[-1]
     if match in NOW_PORTED:
+        synthobs = dict(synthobs or {})
+        if match == 'applycal_gains':
+            # a gains product of the array's 27 antennas, unit modulus
+            synthobs['applycal_gains'] = str(tmp_path / 'gains.npz')
+            phase = np.linspace(0.0, 2.0, 27)[None]
+            np.savez(synthobs['applycal_gains'], g_re=np.cos(phase),
+                     g_im=np.sin(phase))
         pl.execute(simobserve=False, **QUIET)
-        prods = tsyn.simulate_observation(pl, run, **(synthobs or {}))
+        prods = tsyn.simulate_observation(pl, run, **synthobs)
         img, hdr = read_fits(prods['clean_image'])
         assert img.shape == ((len(run.chan_freqs), 500, 500) if rrl else
                              (500, 500))
         assert np.all(np.isfinite(img)) and hdr['BUNIT'] == 'Jy/beam'
         assert os.path.isfile(prods['ms_noisy'])
+        with np.load(prods['ms_noisy']) as f:
+            noisy = f['vis_re'] + 1j * f['vis_im']
+        if match == 'selfcal':
+            sc = run.results['selfcal']
+            assert sc['mode'] == 'phase' and sc['n_sol'] == 1
+            assert sc['gain_amp_rms'] < 1e-6
+            with np.load(prods['gains']) as f:
+                assert f['g_re'].shape == (1, 27)
+            assert os.path.isfile(prods['ms_selfcal'])
+        elif match == 'export_uvfits':
+            for tag in ('uvfits_clean', 'uvfits_noisy'):
+                back = tsyn.uvfits.read_uvfits(prods[tag])
+                want = prods['ms_clean' if tag == 'uvfits_clean' else
+                             'ms_noisy']
+                with np.load(want) as f:
+                    np.testing.assert_array_equal(
+                        back['vis_re'], f['vis_re'].astype(np.float32))
+        elif match == 'applycal_gains':
+            with open(pl.log.filename) as f:
+                assert 'Applied transferred gain solutions from ' \
+                    'gains.npz' in f.read()
+            assert np.all(np.isfinite(noisy))
+        elif match == 'corruption':
+            with np.load(prods['ms_clean']) as f:
+                clean = f['vis_re'] + 1j * f['vis_im']
+            # amplitude errors: the noisy set is far off the clean one
+            assert _rel(noisy, clean) > 0.05
         return
     with pytest.raises(NotImplementedError, match=match):
         tsyn.simulate_observation(pl, run, **(synthobs or {}))
