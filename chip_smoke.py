@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's continuum, RRL, emergent, pipeline,
-synthetic-observation, line-cube observation, analysis and command-line
-main paths once on one NVIDIA GPU.
+synthetic-observation, line-cube observation, analysis, command-line and
+fitting main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -154,6 +154,27 @@ Phases (any failure exits non-zero; nothing is caught):
       exit 0 and write no FITS file.  Prints the CLI's wall time, each
       run's new stages, each calibration call's time on both devices and
       peak memory.
+   i. the fits (``rajepy_tpu_torch.fit``) at the flagship's width, the
+      model float32: ``fit_joint`` with one ``sed`` component of the 16
+      continuum channels, ``dtype=torch.float32``, mlr_bj and T_0 free,
+      20 Adam steps from mlr_bj x 1.3, T_0 x 0.7 of the truth, with its
+      step-0 gradient against the card's float64 gradient (1e-3); the
+      same fit in float64 at 64^3, card against CPU (loss history, final
+      theta and gradient to 1e-10); ``fit_light_curve`` over the 50
+      epochs x 16 channels, 20 steps; ``fit_rrl_spectrum`` (H58a, 9
+      channels across the line, float64 with remat), 3 steps;
+      ``fit_visibilities`` on phase 2e's run 1 uv tracks (one channel),
+      3 steps, and ``closure_uncertainties`` on its first 64 integrations
+      at 64^3, card (theta a tensor there) against CPU (1e-8);
+      ``laplace_uncertainties`` at the first fit's end, theta as numpy and
+      as a tensor on the card (1e-12), and a ``sweep`` of 8 combos (the
+      truth's combo equal to the forward).  Every loss must fall; the
+      steps are timed by CUDA events recorded by the optimizer (median),
+      with each fit's own peak memory above what was resident before
+      it.  The fits
+      launch no hand-written kernel (``launches_by_path.fit``): their
+      forwards are plain torch, as the JAX package's fit forwards are
+      XLA (the Pallas kernels have no VJP).
    Outputs must be finite, non-zero where the jet is (all-zero on the
    jet-free grid), equal to the plain versions on the same card tensors
    (2e-4), and a small model at float32 must agree with the float64 plain
@@ -193,8 +214,8 @@ Phases (any failure exits non-zero; nothing is caught):
    (no spill allowed).
 
 The line before the last is a JSON object with one entry per kernel, the
-line-cube observation's numbers, phase 2g's times and phase 2h's numbers
-(``cli``); the last line is
+line-cube observation's numbers, phase 2g's times, phase 2h's numbers
+(``cli``) and phase 2i's (``fit``); the last line is
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --time-paths DIR
@@ -332,6 +353,23 @@ CLI_PRODUCTS = ('ms_clean', 'ms_noisy', 'ms_selfcal', 'gains',
                 'imfit')
 CLI_DFT_PIX = 64          # the cut-out around the source the DFTs take
 CLI_DFT_NVIS = 4096
+# phase 2i: the fits.  The free parameters and the start (mlr_bj x 1.3,
+# T_0 x 0.7 of the truth); Adam's steps of the SED and light-curve fits
+# and of the RRL and visibility fits; the float32 step-0 gradient against
+# float64 on the card; the float64 card-vs-CPU grid and tolerance; the RRL
+# fit's channels across the line (nu0 (1 +- 4e-4)); the sweep's factors
+FIT_FREE = ('properties.mlr_bj', 'properties.T_0')
+FIT_START = {'mlr_bj': 1.3, 'T_0': 0.7}
+FIT_STEPS, FIT_SHORT_STEPS = 20, 3
+FIT_GRAD_RTOL = 1e-3
+FIT_CPU_GRID, FIT_CPU_RTOL = 64, 1e-10
+FIT_RRL_NCHAN = 9
+FIT_SWEEP = {'mlr_bj': (0.5, 1.0, 2.0, 4.0), 'T_0': (1.0, 1.25)}
+# the Laplace sigmas from a tensor on the card against those from numpy;
+# closure_uncertainties on the first integrations of run 1's tracks,
+# float64 at FIT_CPU_GRID^3, card against CPU
+FIT_SAME_RTOL = 1e-12
+FIT_CLOSURE_NT, FIT_CLOSURE_RTOL = 64, 1e-8
 
 
 def rel_err(got, want):
@@ -1725,7 +1763,7 @@ def run_synthobs(jm, log, tmp, smi, plot):
     from rajepy_tpu_torch import Pipeline
     from rajepy_tpu_torch.io import fits as fitsio
     from rajepy_tpu_torch.ops import kernels as kn
-    from rajepy_tpu_torch.synthobs import simulate_observation
+    from rajepy_tpu_torch.synthobs import observatories, simulate_observation
     from rajepy_tpu_torch.utils import profiling
     params = Pipeline.py_to_dict(os.path.join(
         HERE, 'rajepy_tpu_torch', 'data', 'example-pipeline-params.py'))
@@ -1887,11 +1925,18 @@ def run_synthobs(jm, log, tmp, smi, plot):
                              f"rewrote products: {dict(kn.LAUNCHES)}")
     print(f"  second execute (resume=True) {resume_s:.4f} s: no launch, "
           f"none of the {len(before)} products rewritten [{smi}]")
+    # run 1's uv tracks and first channel: phase 2i fits visibilities
+    # on them
+    with np.load(run.products['ms_noisy']) as fn:
+        uv1 = {'uvw': fn['uvw'], 'freq': float(run.chan_freqs[0]),
+               'time': run.year * YEAR, 'cfg': ' '.join(run.tscop),
+               'n_ant': observatories.read_antenna_config(
+                   observatories.cfg_file(*run.tscop))['xyz'].shape[0]}
     del pline
     shutil.rmtree(dcy)
     torch.cuda.empty_cache()
     return launches, {'wall_s': wall_s, 'it_s': it_s, 'peak_gb': peak_gb,
-                      'errs': errs}
+                      'errs': errs, 'uv1': uv1}
 
 
 def cube_card_vs_cpu(run, img_hdr, smi):
@@ -2568,6 +2613,334 @@ def run_analysis(jm, smi):
                       'light_curve_first_ms': lc_ms}
 
 
+def timed_adam(lr, events):
+    """``optimizer=`` for a fit: the port's Adam recording a CUDA event
+    after each step, so that the steps are timed on the card inside the
+    fit (forward, backward and update)."""
+    import torch
+    from rajepy_tpu_torch.fit import Adam
+
+    class TimedAdam(Adam):
+        def step(self, closure=None):
+            super().step(closure)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+    return lambda params: TimedAdam(params, lr=lr)
+
+
+def step_ms(events):
+    """Median milliseconds between consecutive steps' events."""
+    import torch
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b)
+                             for a, b in zip(events, events[1:]))
+
+
+def sed_loss_grad(fwd, theta, observed):
+    """The gradient of fit_sed's log-flux loss at ``theta``."""
+    import torch
+    th = torch.as_tensor(np.asarray(theta, np.float64)).requires_grad_(True)
+    log_obs = torch.log(torch.as_tensor(np.asarray(observed, np.float64)))
+    model = fwd(th)                 # the forward moves th to its device
+    loss = torch.mean((torch.log(model) - log_obs.to(model.device)) ** 2)
+    return torch.autograd.grad(loss, th)[0].cpu().numpy()
+
+
+def start_model(jm, log, dtype='auto', device='cuda', n=None):
+    """The flagship's parameters with mlr_bj and T_0 moved by FIT_START
+    (the fits' start), on its grid or an n^3 one, at jm's epoch."""
+    from rajepy_tpu_torch import JetModel
+    p = example_params((jm.nx, jm.ny, jm.nz) if n is None else (n,) * 3)
+    for key, f in FIT_START.items():
+        p['properties'][key] *= f
+    m = JetModel(p, log=log, dtype=dtype, device=device)
+    m.time = jm.time
+    return m
+
+
+def fit_peak(fn):
+    """(result, ms, (own GB, resident GB)) of one fit: CUDA events around
+    it; the device memory resident just before it (what earlier phases
+    left) and the fit's own peak above that."""
+    import torch
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = timed_once(fn)
+    own = torch.cuda.max_memory_allocated() - resident
+    return out, ms, (own / 1e9, resident / 1e9)
+
+
+def peak_text(peak):
+    own, resident = peak
+    return f"peak memory {own:.3f} GB above {resident:.3f} GB resident"
+
+
+def require_falls(res, what):
+    loss = np.asarray(res.loss)
+    if not (np.all(np.isfinite(loss)) and loss[-1] < loss[0]):
+        raise AssertionError(f"{what}: the loss did not fall, or is not "
+                             f"finite: {loss}")
+
+
+def run_fits(jm, log, smi, uv1):
+    """The fits on the card, counted (phase 2i): ``rajepy_tpu_torch.fit``
+    at the flagship's width (the example jet at N_GRID^3, float32 model).
+
+    a. ``fit_joint`` with one ``sed`` component (the 16 continuum
+       channels), float32, mlr_bj and T_0 free, FIT_STEPS Adam steps from
+       FIT_START; the step-0 gradient against float64 on the card;
+    b. the same fit in float64 at FIT_CPU_GRID^3, card against CPU: loss
+       history, final theta and step-0 gradient to FIT_CPU_RTOL;
+    c. ``fit_light_curve`` over ANALYSIS_EPOCHS_YR x 16 channels, the four
+       bursts' 12 parameters, FIT_STEPS steps;
+    d. ``fit_rrl_spectrum`` (H58a, FIT_RRL_NCHAN channels across the
+       line, float64 with remat), T_0 and v_lsr, FIT_SHORT_STEPS steps;
+    e. ``fit_visibilities`` on phase 2e's run 1 uv tracks and first
+       channel, float64, FIT_SHORT_STEPS steps; ``closure_uncertainties``
+       on the first FIT_CLOSURE_NT integrations, float64 at
+       FIT_CPU_GRID^3, card against CPU to FIT_CLOSURE_RTOL;
+    f. ``laplace_uncertainties`` at a's end, theta as numpy and as a
+       tensor on the card (FIT_SAME_RTOL), and a ``sweep`` of 8 combos.
+
+    Each fit's steps are timed by CUDA events (median), with its own peak
+    memory above what was resident before it; every loss must fall.  The fits launch no hand-written kernel:
+    their forwards are plain torch (the kernels have no backward)."""
+    import torch
+    from rajepy_tpu_torch import fit
+    from rajepy_tpu_torch.ops import kernels as kn
+    from rajepy_tpu_torch.ops import radtrans as rt
+    print(f"phase 2i: fits, {N_GRID}^3 example jet (float32 model): "
+          f"fit_joint (sed, {len(FREQS)} ch, float32, {FIT_STEPS} steps), "
+          f"float64 at {FIT_CPU_GRID}^3 card vs CPU, fit_light_curve "
+          f"({len(ANALYSIS_EPOCHS_YR)} epochs x {len(FREQS)} ch, "
+          f"{FIT_STEPS} steps), fit_rrl_spectrum ({RRL_LINE}, "
+          f"{FIT_RRL_NCHAN} ch, {FIT_SHORT_STEPS} steps), fit_visibilities "
+          f"({uv1['cfg']}, {uv1['uvw'].shape[0]} visibilities, 1 ch, "
+          f"{FIT_SHORT_STEPS} steps), closure_uncertainties, "
+          f"laplace_uncertainties, sweep of 8")
+    out = {}
+    t_wall = time.perf_counter()
+    kn.reset_launches()
+
+    # a. the float32 SED fit of the flagship
+    jm.time = EPOCHS_YR[-1] * YEAR
+    truth, th_true = fit.build_sed_forward(jm, FREQS, FIT_FREE,
+                                           dtype=torch.float32)
+    with torch.no_grad():
+        observed = truth(th_true).cpu().numpy()
+    start = start_model(jm, log)
+    comps = [{'kind': 'sed', 'freqs': FREQS, 'observed': observed}]
+    ev = []
+    res_a, ms_a, peak_a = fit_peak(lambda: fit.fit_joint(
+        start, comps, free=FIT_FREE, steps=FIT_STEPS, dtype=torch.float32,
+        optimizer=timed_adam(0.05, ev)))
+    out['sed_f32_step_ms'] = step_ms(ev)
+    out['sed_f32_peak_gb'], out['sed_f32_resident_gb'] = peak_a
+    require_falls(res_a, 'the float32 SED fit')
+    print(f"  a. float32 SED fit: {out['sed_f32_step_ms']:.4f} ms per step "
+          f"(CUDA events, median of {FIT_STEPS - 1}), {ms_a:.1f} ms for the "
+          f"fit; {peak_text(peak_a)}; loss {res_a.loss[0]:.6e} -> "
+          f"{res_a.loss[-1]:.6e}; mlr_bj {res_a.values[FIT_FREE[0]]:.6e} "
+          f"(truth {jm.params['properties']['mlr_bj']:.6e}), T_0 "
+          f"{res_a.values[FIT_FREE[1]]:.6e} (truth "
+          f"{jm.params['properties']['T_0']:.6e}) [{smi}]")
+    f32, th0 = fit.build_sed_forward(start, FREQS, FIT_FREE,
+                                     dtype=torch.float32)
+    f64, _ = fit.build_sed_forward(start, FREQS, FIT_FREE)
+    g32 = sed_loss_grad(f32, th0.cpu().numpy(), observed)
+    g64, _, peak64 = fit_peak(
+        lambda: sed_loss_grad(f64, th0.cpu().numpy(), observed))
+    err = float(np.max(np.abs(g32 - g64)) / np.max(np.abs(g64)))
+    out['grad_f32_vs_f64'] = err
+    print(f"  a. step-0 gradient, float32 {g32} vs float64 {g64} on the "
+          f"card: {err:.3e} of its largest component (float64 forward "
+          f"and backward: {peak_text(peak64)})")
+    if not err <= FIT_GRAD_RTOL:
+        raise AssertionError(f"the float32 gradient is {err:.3e} off the "
+                             f"float64 one")
+    del f64
+    torch.cuda.empty_cache()
+
+    # f. the Laplace sigmas at a's end (theta as numpy, then as a tensor
+    # on the card) and a sweep of 8 combos
+    def laplace(theta):
+        return fit.laplace_uncertainties(f32, theta, observed, FIT_FREE)
+
+    (sig, cov), lap_ms = timed_once(lambda: laplace(res_a.theta))
+    if not (np.all(np.isfinite(cov)) and all(v > 0 for v in sig.values())):
+        raise AssertionError(f"laplace_uncertainties: {sig}, {cov}")
+    sig_t, cov_t = laplace(torch.as_tensor(res_a.theta, device='cuda'))
+    check_host("laplace_uncertainties, theta on the card vs numpy: cov",
+               cov_t, cov, FIT_SAME_RTOL)
+    check_host("laplace_uncertainties, theta on the card vs numpy: sigma",
+               [sig_t[k] for k in FIT_FREE], [sig[k] for k in FIT_FREE],
+               FIT_SAME_RTOL)
+    out['laplace_ms'] = lap_ms
+    print(f"  f. laplace_uncertainties at a's end: {lap_ms:.1f} ms (two "
+          f"forward-mode products); sigma " + ', '.join(
+              f"{k} {v:.6e}" for k, v in sig.items()))
+    props = jm.params['properties']
+    grid = {'properties.' + k: [props[k] * f for f in fs]
+            for k, fs in FIT_SWEEP.items()}
+    sw, sw_ms = timed_once(lambda: fit.sweep(jm, FREQS, grid,
+                                             dtype=torch.float32))
+    if sw.values.shape != (8, len(FREQS)) or \
+            not np.all(np.isfinite(sw.values)) or np.any(sw.values <= 0):
+        raise AssertionError(f"sweep: {sw.values.shape}, finite and "
+                             f"positive {np.all(np.isfinite(sw.values))}")
+    check_host("sweep combo at the truth vs the forward",
+               sw.reshaped()[1, 0], observed, 1e-6)
+    out['sweep_ms'] = sw_ms
+    print(f"  f. sweep of 8 combos (mlr_bj x {FIT_SWEEP['mlr_bj']}, T_0 x "
+          f"{FIT_SWEEP['T_0']}): {sw_ms:.1f} ms (CUDA events)")
+    del start, f32, truth
+    torch.cuda.empty_cache()
+
+    # b. float64 at FIT_CPU_GRID^3: the card against the CPU
+    n = FIT_CPU_GRID
+    pair = [start_model(jm, log, torch.float64, d, n) for d in ('cuda',
+                                                                 'cpu')]
+    truth_s, th_s = fit.build_sed_forward(
+        start_model(jm, log, torch.float64, 'cuda', n), FREQS, FIT_FREE)
+    with torch.no_grad():
+        obs_s = truth_s(th_s.cpu().numpy() - np.log(
+            [FIT_START['mlr_bj'], FIT_START['T_0']])).cpu().numpy()
+    comps_s = [{'kind': 'sed', 'freqs': FREQS, 'observed': obs_s}]
+    res_b = [fit.fit_joint(m, comps_s, free=FIT_FREE, steps=FIT_STEPS)
+             for m in pair]
+    grads = []
+    for m in pair:
+        fwd, th = fit.build_sed_forward(m, FREQS, FIT_FREE)
+        grads.append(sed_loss_grad(fwd, th.cpu().numpy(), obs_s))
+    errs_b = {k: rel_err(torch.from_numpy(np.asarray(a)),
+                         torch.from_numpy(np.asarray(b)))[0]
+              for k, a, b in (('loss', res_b[0].loss, res_b[1].loss),
+                              ('theta', res_b[0].theta, res_b[1].theta),
+                              ('grad', *grads))}
+    require_falls(res_b[0], f'the float64 {n}^3 SED fit')
+    out['small_card_vs_cpu'] = errs_b
+    print(f"  b. float64 {n}^3 SED fit, card vs CPU: " + ', '.join(
+        f"{k} {v:.3e}" for k, v in errs_b.items()))
+    if not max(errs_b.values()) <= FIT_CPU_RTOL:
+        raise AssertionError(f"float64 fit, card vs CPU: {errs_b}")
+    del pair, truth_s
+
+    # c. the light curve: the four bursts' parameters
+    times = ANALYSIS_EPOCHS_YR * YEAR
+    lc, lc_th0, _ = fit.build_light_curve_forward(jm, times, FREQS)
+    shift = np.tile([0.05, 0.1, -0.1], lc_th0.numel() // 3)
+    with torch.no_grad():
+        obs_c = lc(lc_th0.cpu().numpy() + shift).cpu().numpy()
+    del lc
+    ev = []
+    res_c, ms_c, peak_c = fit_peak(lambda: fit.fit_light_curve(
+        jm, times, FREQS, obs_c, steps=FIT_STEPS,
+        optimizer=timed_adam(0.05, ev)))
+    require_falls(res_c, 'the light-curve fit')
+    out['lc_step_ms'] = step_ms(ev)
+    out['lc_peak_gb'], out['lc_resident_gb'] = peak_c
+    print(f"  c. light-curve fit ({len(times)} epochs x {len(FREQS)} ch, "
+          f"{lc_th0.numel()} parameters): {out['lc_step_ms']:.4f} ms per "
+          f"step (median of {FIT_STEPS - 1}), {ms_c:.1f} ms for the fit; "
+          f"{peak_text(peak_c)}; loss {res_c.loss[0]:.6e} -> "
+          f"{res_c.loss[-1]:.6e} [{smi}]")
+
+    # d. the RRL spectrum, float64 with remat
+    jm.time = RRL_EPOCH_YR * YEAR
+    nu0 = rt.RRLCoeffs(RRL_LINE).nu0
+    rfreqs = nu0 * (1.0 + np.linspace(-4e-4, 4e-4, FIT_RRL_NCHAN))
+    rfree = ('properties.T_0', 'target.v_lsr')
+    rrl, r_th0 = fit.build_rrl_spectrum_forward(jm, RRL_LINE, rfreqs, rfree)
+    with torch.no_grad():
+        obs_d = rrl(r_th0.cpu().numpy() + np.array([np.log(1.1), 5.0]))
+        obs_d = obs_d.cpu().numpy()
+    del rrl
+    ev = []
+    res_d, ms_d, peak_d = fit_peak(lambda: fit.fit_rrl_spectrum(
+        jm, RRL_LINE, rfreqs, obs_d, free=rfree, steps=FIT_SHORT_STEPS,
+        optimizer=timed_adam(0.05, ev)))
+    require_falls(res_d, 'the RRL fit')
+    out['rrl_step_ms'] = step_ms(ev)
+    out['rrl_peak_gb'], out['rrl_resident_gb'] = peak_d
+    print(f"  d. RRL fit ({RRL_LINE}, {FIT_RRL_NCHAN} ch, float64, remat): "
+          f"{out['rrl_step_ms']:.4f} ms per step (median of "
+          f"{FIT_SHORT_STEPS - 1}), {ms_d:.1f} ms for the fit; "
+          f"{peak_text(peak_d)}; loss {res_d.loss[0]:.6e} -> "
+          f"{res_d.loss[-1]:.6e} [{smi}]")
+    torch.cuda.empty_cache()
+
+    # e. visibilities on run 1's uv tracks, one channel, float64
+    jm.time = uv1['time']
+    vf, v_th = fit.build_vis_forward(jm, [uv1['freq']], uv1['uvw'],
+                                     FIT_FREE)
+    with torch.no_grad():
+        obs_e = vf(v_th).cpu().numpy()
+    del vf
+    start = start_model(jm, log)
+    ev = []
+    res_e, ms_e, peak_e = fit_peak(lambda: fit.fit_visibilities(
+        start, [uv1['freq']], uv1['uvw'], obs_e, free=FIT_FREE,
+        steps=FIT_SHORT_STEPS, optimizer=timed_adam(0.05, ev)))
+    require_falls(res_e, 'the visibility fit')
+    out['vis_step_ms'] = step_ms(ev)
+    out['vis_peak_gb'], out['vis_resident_gb'] = peak_e
+    print(f"  e. visibility fit ({uv1['uvw'].shape[0]} visibilities at "
+          f"{uv1['freq']:.4e} Hz, float64): {out['vis_step_ms']:.4f} ms per "
+          f"step (median of {FIT_SHORT_STEPS - 1}), {ms_e:.1f} ms for the "
+          f"fit; {peak_text(peak_e)}; loss {res_e.loss[0]:.6e} -> "
+          f"{res_e.loss[-1]:.6e} [{smi}]")
+    del start
+    torch.cuda.empty_cache()
+
+    # e. closure_uncertainties on run 1's first FIT_CLOSURE_NT
+    # integrations, float64 at FIT_CPU_GRID^3: the card (theta a tensor
+    # there) against the CPU (theta numpy)
+    n_ant = uv1['n_ant']
+    uvw_c = uv1['uvw'][:FIT_CLOSURE_NT * (n_ant * (n_ant - 1) // 2)]
+    pair = [start_model(jm, log, torch.float64, d, FIT_CPU_GRID)
+            for d in ('cuda', 'cpu')]
+    cf, c_th = fit.build_vis_forward(pair[0], [uv1['freq']], uvw_c,
+                                     FIT_FREE)
+    with torch.no_grad():
+        obs_cl = cf(c_th.cpu().numpy() - np.log(
+            [FIT_START['mlr_bj'], FIT_START['T_0']])).cpu().numpy()
+    del cf
+    closure = [fit.closure_uncertainties(
+        m, [uv1['freq']], uvw_c, obs_cl, th, FIT_FREE, n_ant=n_ant,
+        n_t=FIT_CLOSURE_NT) for m, th in zip(pair, (c_th,
+                                                    c_th.cpu().numpy()))]
+    (sig_g, cov_g), (sig_c, cov_c) = closure
+    if not (np.all(np.isfinite(cov_g)) and
+            all(v > 0 for v in sig_g.values())):
+        raise AssertionError(f"closure_uncertainties: {sig_g}, {cov_g}")
+    errs_cl = {
+        'cov': check_host("closure_uncertainties card vs CPU: cov", cov_g,
+                          cov_c, FIT_CLOSURE_RTOL)[0],
+        'sigma': check_host("closure_uncertainties card vs CPU: sigma",
+                            [sig_g[k] for k in FIT_FREE],
+                            [sig_c[k] for k in FIT_FREE],
+                            FIT_CLOSURE_RTOL)[0]}
+    out['closure_card_vs_cpu'] = errs_cl
+    print(f"  e. closure_uncertainties ({uvw_c.shape[0]} visibilities, "
+          f"{n_ant} antennas, {FIT_CLOSURE_NT} integrations, float64 "
+          f"{FIT_CPU_GRID}^3), card vs CPU: cov {errs_cl['cov']:.3e}, "
+          f"sigma {errs_cl['sigma']:.3e}; sigma " + ', '.join(
+              f"{k} {v:.6e}" for k, v in sig_g.items()))
+    del pair
+    launches = read_launches('fit')
+    if any(launches.values()):
+        raise AssertionError(f"the fits launched hand-written kernels: "
+                             f"{launches}")
+    out['wall_s'] = time.perf_counter() - t_wall
+    print(f"  the fits launched no hand-written kernel (their forwards "
+          f"are plain torch); phase 2i took {out['wall_s']:.1f} s")
+    torch.cuda.empty_cache()
+    return launches, out
+
+
 def check_emergent(jm, em):
     """Phase 2c's comparisons on the card: the main path against the plain
     versions, each kernel against its plain version at the main path's
@@ -2993,6 +3366,8 @@ def main() -> int:
         by_path['cube'], cube = run_cube_observation(jm, log, tmp, smi)
         by_path['analysis'], ana = run_analysis(jm, smi)
         by_path['cli'], cli, cli_solve = run_cli(log, tmp, smi)
+        by_path['fit'], fits = run_fits(jm, log, smi,
+                                        synthobs.pop('uv1'))
         # the pipeline is what a user runs: its counts stand for the two
         # kernels it launches
         launches.update({k: by_path['pipeline'][k] for k in PIPELINE_KERNELS})
@@ -3306,7 +3681,7 @@ def main() -> int:
                                  'channel_iterations', 'it_s', 'chan_it_s',
                                  'stages_ms')},
             'analysis': {k: ana[k] for k in ('ms', 'peak_gb', 'errs')},
-            'cli': cli}))
+            'cli': cli, 'fit': fits}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -29,13 +29,18 @@ installed.  Ported so far:
 - ``casa_compat``: the CASA script-export layer;
 - ``main``: the command line, ``python -m rajepy_tpu_torch.main [-v] [-rt]
   [-so] [-r] [-c] model.py pipeline.py`` (``main(argv, device='cpu')``
-  runs it on the CPU).
+  runs it on the CPU);
+- ``fit``: gradient fitting of SEDs, maps, visibilities, closures, RRL
+  spectra and cubes, light curves and joint observables on
+  ``torch.autograd``, with Laplace and MALA uncertainties and parameter
+  sweeps, on the model's device.
 
 Every Pallas kernel of rajepy_tpu has a hand-written CUDA counterpart under
-``csrc/``.  Not ported yet: ``fit``, ``parallel`` (the multi-device
-fan-out, ``device_fanout=True`` of ``Pipeline.execute``, and
-channel-sharded imaging, ``shard_imaging=True``) and the examples.  The
-options named here raise ``NotImplementedError`` before any work is done.
+``csrc/``.  Not ported yet: ``parallel`` (the multi-device fan-out,
+``device_fanout=True`` of ``Pipeline.execute``, channel-sharded imaging,
+``shard_imaging=True``, and the sharding of ``fit``'s starts and sweeps,
+``mesh=``) and the examples.  The options named here raise
+``NotImplementedError`` before any work is done.
 
 Package layout
 --------------
@@ -47,6 +52,8 @@ Package layout
 - ``csrc``      the CUDA kernels: epoch maps, RRL maps, emergent maps
 - ``models``    grid construction, field evaluation, ejection bursts,
                 the ``JetModel`` API, run descriptors, analysis products
+- ``fit``       differentiable parameter inference (a subpackage,
+                imported where used)
 - ``pipeline``  the multi-epoch, multi-frequency orchestrator
 - ``synthobs``  CASA-free synthetic observations of continuum runs and
                 line cubes: antenna configurations and uv tracks,

@@ -97,12 +97,21 @@ def chi_field(red: torch.Tensor, launch_time: torch.Tensor,
     bursts = torch.tensor(np.stack([t0, sigma, rel_amp], axis=1),
                           dtype=launch_time.dtype,
                           device=launch_time.device)
+    return chi_scan(red, launch_time, bursts[:, 0], bursts[:, 1],
+                    bursts[:, 2], is_red)
 
+
+def chi_scan(red: torch.Tensor, launch_time: torch.Tensor, t0, sigma,
+             rel_amp, is_red) -> torch.Tensor:
+    """Burst factor per cell with the burst parameters given as tensors
+    (``t0`` [s], ``sigma`` [s], ``rel_amp``: 1-D, one entry per burst;
+    ``is_red``: a sequence of bools), so that a fit can differentiate
+    through them (the JAX package's ``fit._chi_scan``).  :func:`chi_field`
+    runs this loop on its rounded burst scalars."""
     chi = torch.ones_like(launch_time)
-    blue = torch.logical_not(red)
-    for (t0_i, sig_i, amp_i), red_i in zip(bursts, is_red):
-        g = amp_i * torch.exp(-(launch_time - t0_i) ** 2 /
-                              (2.0 * sig_i ** 2))
-        chi = chi + torch.where(red if red_i else blue, g,
-                                torch.zeros_like(g))
+    for t0_i, sig_i, amp_i, red_i in zip(t0, sigma, rel_amp, is_red):
+        gauss = amp_i * torch.exp(-(launch_time - t0_i) ** 2 /
+                                  (2.0 * sig_i ** 2))
+        chi = chi + torch.where(red == bool(red_i), gauss,
+                                torch.zeros_like(gauss))
     return chi

@@ -14,7 +14,7 @@ Reference formula sources (RaJePy classes.py):
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
@@ -23,16 +23,21 @@ from ..ops import geometry as geom
 from ..ops import physics as phys
 
 
+Scalar = Union[float, torch.Tensor]
+
+
 class Geometry(NamedTuple):
-    """Static geometric/physical scalars extracted from a params dict."""
-    w_0: float
-    r_0: float
-    mod_r_0: float
-    epsilon: float
-    inc: float
-    pa: float
-    r_1: float
-    r_2: float
+    """Geometric/physical scalars extracted from a params dict: Python
+    floats, or 0-d tensors where a fit frees them (the fill is then
+    differentiable in them)."""
+    w_0: Scalar
+    r_0: Scalar
+    mod_r_0: Scalar
+    epsilon: Scalar
+    inc: Scalar
+    pa: Scalar
+    r_1: Scalar
+    r_2: Scalar
     csize: float
 
     @classmethod
@@ -207,7 +212,9 @@ def compute_static_fields(params: Dict, xx, yy, zz, rb_frac: float,
 
     ``xx, yy, zz`` are *corner* coordinate tensors (broadcastable); centre
     coordinates are corner + csize/2 (classes.py:521-523).  Every returned
-    field is a contiguous (nx, ny, nz) tensor.
+    field is a contiguous (nx, ny, nz) tensor.  The scalar leaves of
+    ``params`` (and ``rb_frac``) may be 0-d tensors: the float fields are
+    then differentiable in them (the masks are not).
     """
     gm = Geometry.from_params(params)
     half = gm.csize / 2.0

@@ -107,7 +107,10 @@ def gff(freq: torch.Tensor, temp, z: float = 1.0) -> torch.Tensor:
 
     ``freq`` [Hz] is a tensor and ``temp`` [K] a tensor or a float; they
     broadcast.  Evaluated in float64 on ``freq``'s device and returned in
-    float64, as the JAX version's table is float64.
+    float64, as the JAX version's table is float64.  Differentiable in a
+    tensor ``temp`` (a fitted ``T_0``): the axes are formed as log sums
+    (:func:`_log_axes`), which keeps a float32 caller's gradient from
+    underflowing.
     """
     x0, y0, step, table = load_vanhoof_table()
     table = torch.as_tensor(table, dtype=torch.float64, device=freq.device)

@@ -14,9 +14,11 @@ RaJePy (maths/geometry.py) as branch-free tensor programs:
 * ``t_rw``              — geometry.py:121-178 (travel time through the
   combined Pfaff-transformed ₂F₁ series of :mod:`.hyp2f1`)
 
-Angles are Python floats in degrees: their cosine and sine are taken in
+Angles are in degrees.  A Python float's cosine and sine are taken in
 double precision on the host and applied to the tensors in the tensors'
-dtype, as JAX does with its weakly typed scalars.
+dtype, as JAX does with its weakly typed scalars; a 0-d tensor (a fitted
+parameter, :mod:`rajepy_tpu_torch.fit`) takes torch's functions, so its
+gradient flows.
 """
 from __future__ import annotations
 
@@ -28,7 +30,10 @@ import torch
 from .hyp2f1 import hyp2f1_a1_series
 
 
-def _cos_sin_deg(deg: float):
+def _cos_sin_deg(deg):
+    if isinstance(deg, torch.Tensor):
+        rad = torch.deg2rad(deg)
+        return torch.cos(rad), torch.sin(rad)
     rad = math.radians(deg)
     return math.cos(rad), math.sin(rad)
 
@@ -37,6 +42,8 @@ def mod_r_0(opang_deg, epsilon, w_0):
     """Modified launching radius: radius at which a Reynolds (1986) jet of
     half-width ``w_0`` maintains opening angle ``opang`` (geometry.py:12-31).
     Returned in the units of ``w_0``."""
+    if isinstance(opang_deg, torch.Tensor):
+        return epsilon * w_0 / torch.tan(torch.deg2rad(opang_deg) / 2.0)
     return epsilon * w_0 / math.tan(math.radians(opang_deg) / 2.0)
 
 
@@ -131,7 +138,9 @@ def t_rw(r_au, w_au, *, w_0, r_0, v_0, mr0, eps, r_1, r_2, q_v, q_vd,
     P = 1 + q_vd/(1 - q_v) (geometry.py:159-164); reproduced exactly.
 
     ``r_au``/``w_au`` are broadcastable tensors in au; the other parameters
-    are Python floats.  Returns time in **years**.
+    are Python floats or 0-d tensors (fitted parameters; a gradient through
+    the series itself is refused, see :func:`.hyp2f1.hyp2f1_a1_series`).
+    Returns time in **years**.
     """
     AU = 149597870700.0
     YEAR = 31536000.0
@@ -164,7 +173,9 @@ def t_rw(r_au, w_au, *, w_0, r_0, v_0, mr0, eps, r_1, r_2, q_v, q_vd,
         u = z / (z - 1.0)
         p34 = hyp2f1_a1_series(a, b + 1.0, u, max_terms=max_terms, rtol=rtol)
         p34_w0 = 1.0 + q_vd / (1.0 - q_v)
-        p34 = torch.where(w_zero, torch.full_like(p34, p34_w0), p34)
+        if not isinstance(p34_w0, torch.Tensor):
+            p34_w0 = torch.full_like(p34, p34_w0)
+        p34 = torch.where(w_zero, p34_w0, p34)
         return const * p1 * p2 * p34
 
     return (indef_m(r_m) - indef_m(torch.full_like(r_m, r0_m))) / YEAR

@@ -16,12 +16,22 @@ Python loop over whole-grid tensors that checks convergence every
 ``_CHUNK`` terms with one ``.item()``.  With the dtype-resolution floor on
 ``rtol`` an f32 series at u <= 0.8 stops after about ten chunks, so the
 loop costs a handful of host syncs per grid fill and needs no kernel.
+
+Derivatives.  ``c`` may be a 0-d tensor (it follows the fitted
+``geometry.epsilon`` and ``power_laws.q_v``).  At ``a == 0`` the series is
+the constant 1 and needs no derivative.  Otherwise a derivative through the
+series in ``u`` or ``c`` is refused with a ``ValueError``: reverse mode would
+keep every term of the data-dependent loop (thousands of grid-sized
+tensors).  The JAX package refuses the same case: its ``lax.while_loop``
+has no reverse-mode derivative (``ValueError``), and a traced ``c`` fails
+its ``float(c)`` (``ConcretizationTypeError``) whatever ``a`` is.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.autograd import forward_ad
 
 _CHUNK = 8        # series terms accumulated between convergence checks
 _SWITCH = 0.8     # u above which the 1-u re-expansion is used
@@ -56,20 +66,36 @@ def _gauss_series_b1(a: float, c: float, u: torch.Tensor, max_terms: int,
     return acc + tail
 
 
-def hyp2f1_a1_series(a: float, c: float, u: torch.Tensor, *,
+def _carries_derivative(t) -> bool:
+    """Whether ``t`` is a tensor that autograd would differentiate, in
+    reverse mode (``requires_grad``) or in forward mode (a dual tensor)."""
+    if not isinstance(t, torch.Tensor):
+        return False
+    return t.requires_grad or forward_ad.unpack_dual(t).tangent is not None
+
+
+def hyp2f1_a1_series(a: float, c, u: torch.Tensor, *,
                      max_terms: int = 8192,
                      rtol: float = 1e-15) -> torch.Tensor:
     """Evaluate ``2F1(a, 1; c; u)`` elementwise for ``0 <= u < 1``.
 
-    ``a`` and ``c`` are Python floats (model power-law exponents); ``u`` is
-    a tensor.  Uses the direct Gauss series for u <= 0.8 and the u -> 1-u
-    connection formula above 0.8.
+    ``a`` is a Python float and ``c`` a Python float or a 0-d tensor (model
+    power-law exponents); ``u`` is a tensor.  Uses the direct Gauss series
+    for u <= 0.8 and the u -> 1-u connection formula above 0.8.  Raises
+    ``ValueError`` where ``a != 0`` and ``u`` or ``c`` carries a
+    derivative (module docstring).
     """
     a = float(a)
-    c = float(c)
 
     if a == 0.0:
         return torch.ones_like(u)
+    if _carries_derivative(u) or _carries_derivative(c):
+        raise ValueError(
+            "no derivative through the 2F1 travel-time series (q^d_v = "
+            f"{a:g} != 0): free no parameter that moves the travel times "
+            "(geometry.inc/pa/opang/epsilon, power_laws.q_v) on a model "
+            "with bursts, or set q^d_v = 0")
+    c = float(c)
 
     if a < 0.0 and a == round(a):
         # Terminating series (polynomial of degree -a): exact for all u

@@ -32,12 +32,14 @@ from .. import constants as cnsts
 from . import geometry as geom
 
 
-def q_n(epsilon: float, q_v: float) -> float:
-    """Mass-conserving density power-law index (physics.py:17-35)."""
+def q_n(epsilon, q_v):
+    """Mass-conserving density power-law index (physics.py:17-35).  Floats
+    or 0-d tensors, as :func:`q_tau`, :func:`n_0_from_mlr` and
+    :func:`doppler_shift` (the fit's derivation chain)."""
     return -q_v - 2.0 * epsilon
 
 
-def q_tau(epsilon: float, q_x: float, q_n_: float, q_T: float) -> float:
+def q_tau(epsilon, q_x, q_n_, q_T):
     """Optical-depth power-law index (physics.py:38-63)."""
     return epsilon + 2.0 * q_x + 2.0 * q_n_ - 1.35 * q_T
 

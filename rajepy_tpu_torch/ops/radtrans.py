@@ -23,6 +23,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import constants as cnsts
 from . import gaunt as _gaunt
@@ -74,8 +75,10 @@ def tau_ff_base(temp, n_es, ds_cm, inside, reynolds_gaunt: bool):
     return torch.where(inside, base, torch.zeros_like(base))
 
 
-def tau_ff_channel_scale(freqs, t_0: float, reynolds_gaunt: bool):
-    """Per-channel scalar multiplier for the factorised free-free opacity."""
+def tau_ff_channel_scale(freqs, t_0, reynolds_gaunt: bool):
+    """Per-channel scalar multiplier for the factorised free-free opacity.
+    ``t_0`` is a float or a 0-d tensor (differentiable through the van
+    Hoof gaunt factor)."""
     if reynolds_gaunt:
         return freqs ** -2.1
     # keep the caller's dtype: the gaunt table is float64
@@ -131,11 +134,14 @@ def intensity_ff_maps(freqs, tau_maps, tbar_map, any_inside):
     return torch.where(any_inside[None], ints, torch.zeros_like(ints))
 
 
-def flux_scale_jy(csize_au: float, dist_pc: float) -> float:
+def flux_scale_jy(csize_au: float, dist_pc):
     """Pixel solid-angle factor arctan(csize/d)^2 / 1e-26 turning intensity
-    into Jy/pixel (classes.py:1519-1521)."""
-    return math.atan((csize_au * cnsts.AU) /
-                     (dist_pc * cnsts.PARSEC)) ** 2 / 1e-26
+    into Jy/pixel (classes.py:1519-1521): a float, or a 0-d tensor for a
+    tensor ``dist_pc`` (a fitted distance)."""
+    arg = (csize_au * cnsts.AU) / (dist_pc * cnsts.PARSEC)
+    if isinstance(arg, torch.Tensor):
+        return torch.atan(arg) ** 2 / 1e-26
+    return math.atan(arg) ** 2 / 1e-26
 
 
 def flux_ff_maps(freqs, tau_maps, tbar_map, any_inside, csize_au, dist_pc):
@@ -186,18 +192,32 @@ def _tau_rrl_channel(coeffs: RRLCoeffs, f, lf, ds_cm, inside):
     return torch.where(inside, tau, torch.zeros_like(tau))
 
 
-def tau_rrl_maps(coeffs: RRLCoeffs, freqs, temp, n_es, vy, ds_cm, inside):
+def tau_rrl_maps(coeffs: RRLCoeffs, freqs, temp, n_es, vy, ds_cm, inside,
+                 remat: bool = False):
     """Collapsed RRL optical-depth maps for all channels: (n_chan, nx, nz).
 
     Per channel (classes.py:1130-1229): Doppler-shift the rest frequency by
     the cell's LOS velocity, thermal + Stark FWHMs, Voigt profile at the
     channel frequency, kappa_L (G&S 2.114), tau = kappa ds, masked sum
     along y.  A Python loop over channels keeps one grid-shaped temporary
-    set live at a time, as the JAX package's ``lax.map`` does."""
+    set live at a time, as the JAX package's ``lax.map`` does.
+
+    ``remat=True`` (the fit forwards) checkpoints each channel
+    (``torch.utils.checkpoint``) where autograd records a graph: the
+    backward pass recomputes the channel's Voigt/kappa temporaries instead
+    of keeping them for every channel, so only the collapsed maps are
+    stored (radtrans.py:182-199).  The values do not change."""
     lf = _line_fields(coeffs, temp, n_es, vy, inside)
-    return torch.stack([
-        torch.sum(_tau_rrl_channel(coeffs, f, lf, ds_cm, inside),
-                  dim=LOS_AXIS) for f in freqs])
+
+    def channel(f, *lf_):
+        return torch.sum(_tau_rrl_channel(coeffs, f, lf_, ds_cm, inside),
+                         dim=LOS_AXIS)
+
+    if remat and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*lf, ds_cm)):
+        return torch.stack([checkpoint(channel, f, *lf, use_reentrant=False)
+                            for f in freqs])
+    return torch.stack([channel(f, *lf) for f in freqs])
 
 
 def tau_rrl_precompute(coeffs: RRLCoeffs, temp, n_es, vy, ds_cm, inside):
@@ -292,7 +312,8 @@ def tau_rrl_maps_nonlte(freqs, tbar_map, any_inside, tau_rrl_maps_,
 def intensity_rrl_maps_nonlte(freqs, tbar_map, tau_ff_maps_, tau_rrl_maps_,
                               any_inside, b_n1, b_n2):
     """Non-LTE RRL intensity maps from departure coefficients
-    (see ops.rrls.line_intensity_nonlte)."""
+    (see ops.rrls.line_intensity_nonlte).  ``b_n1``/``b_n2`` are floats,
+    0-d tensors (fitted, differentiable) or (nx, nz) sightline maps."""
     ints = mrrl.line_intensity_nonlte(freqs[:, None, None],
                                       _safe_tbar(tbar_map, any_inside),
                                       tau_ff_maps_, tau_rrl_maps_,

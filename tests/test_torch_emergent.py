@@ -40,6 +40,16 @@ YEAR = 31536000.0
 F32 = np.float32
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """Small grids: one thread runs them about as fast as eight, and the
+    other test processes keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture()
 def forced_interpret():
     pk.force_interpret(True)

@@ -35,6 +35,16 @@ BURSTS = ((0.5 * YEAR, 1.0 / (2.0 * (0.13 * YEAR) ** 2), 4.0, True),
 RAGGED = (10, 70, 130)              # nz % 4 != 0
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """Small grids: one thread runs them about as fast as eight, and the
+    other test processes keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(got, want):
     got = np.asarray(got, dtype=float)
     want = np.asarray(want, dtype=float)

@@ -15,6 +15,17 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """Small grids: one thread runs them about as fast as eight, and the
+    other test processes keep their cores."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _run(code, cwd=ROOT, env_extra=None):
     env = dict(os.environ, **(env_extra or {}))
     return subprocess.run([sys.executable, '-c', code], cwd=cwd, env=env,
@@ -128,6 +139,114 @@ def test_what_the_docstring_calls_not_ported_still_raises(option,
         pl.execute(verbose=False, plot=False, **kwargs)
     assert pl.model._fields is None
     assert os.listdir(pl.dcy) == [os.path.basename(pl.log.filename)]
+
+
+FIT_SUBMODULES = ('_params', 'forwards', 'driver', 'uncertainty', 'uv',
+                  'rrl', 'joint', 'light_curve', 'survey')
+
+
+def test_fit_imports_without_jax():
+    """``rajepy_tpu_torch.fit`` and each of its submodules import with
+    ``jax`` blocked, and bring in neither JAX nor the JAX package."""
+    res = _run(
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import rajepy_tpu_torch.fit as fit\n"
+        f"for name in {FIT_SUBMODULES!r}:\n"
+        "    __import__('rajepy_tpu_torch.fit.' + name)\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m == 'rajepy_tpu' or m.startswith('rajepy_tpu.')\n"
+        "       or m == 'jax' and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "assert callable(fit.sweep) and callable(fit.fit_sed)\n"
+        "print('ok')\n",
+        env_extra={'PATH': os.path.dirname(sys.executable)})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == 'ok'
+    names = sorted(n[:-3] for n in os.listdir(
+        os.path.join(ROOT, 'rajepy_tpu_torch', 'fit')) if n.endswith('.py'))
+    assert names == sorted(('__init__',) + FIT_SUBMODULES)
+
+
+def test_fit_exports_every_public_name_of_the_jax_module():
+    """Every public name that ``rajepy_tpu.fit`` defines (its functions,
+    classes and constants; not what it imports) is in
+    ``dir(rajepy_tpu_torch.fit)``."""
+    import types
+    import rajepy_tpu.fit as jfit
+    import rajepy_tpu_torch.fit as tfit
+    public = set()
+    for name, obj in vars(jfit).items():
+        if name.startswith('_') or isinstance(obj, types.ModuleType):
+            continue
+        if isinstance(obj, (type, types.FunctionType)):
+            if obj.__module__ == jfit.__name__:
+                public.add(name)
+        elif isinstance(obj, (dict, float, int, str, tuple)):
+            public.add(name)
+    assert {'SUPPORTED_FREE', 'FitResult', 'sweep', 'fit_joint',
+            'rrl_departure_systematic'} <= public
+    assert public <= set(dir(tfit)), sorted(public - set(dir(tfit)))
+    assert tfit.SUPPORTED_FREE == jfit.SUPPORTED_FREE
+
+
+def _fit_entry_calls(tmp_path):
+    """Each entry point of the port's fit that takes ``mesh=``, called with
+    one, on a 16^3 CPU model."""
+    import numpy as np
+    from rajepy_tpu_torch import fit
+    f = np.array([1e11])
+    uvw = np.zeros((3, 3))
+    vis = np.zeros((1, 3), complex)
+    return {
+        'fit_sed': lambda jm, m: fit.fit_sed(jm, f, [1.0], mesh=m),
+        'fit_map': lambda jm, m: fit.fit_map(jm, 1e11, np.ones((16, 16)),
+                                             mesh=m),
+        'fit_visibilities': lambda jm, m: fit.fit_visibilities(
+            jm, f, uvw, vis, mesh=m),
+        'fit_uvfits': lambda jm, m: fit.fit_uvfits(
+            jm, str(tmp_path / 'absent.uvfits'), mesh=m),
+        'fit_closures': lambda jm, m: fit.fit_closures(
+            jm, f, uvw, vis, n_ant=3, n_t=1, use_log_amps=False, mesh=m),
+        'fit_rrl_spectrum': lambda jm, m: fit.fit_rrl_spectrum(
+            jm, 'H58a', f, [1.0], mesh=m),
+        'fit_rrl_cube': lambda jm, m: fit.fit_rrl_cube(
+            jm, 'H58a', f, np.ones((1, 16, 16)), mesh=m),
+        'fit_joint': lambda jm, m: fit.fit_joint(
+            jm, [{'kind': 'sed', 'freqs': f, 'observed': [1.0]}], mesh=m),
+        'sweep': lambda jm, m: fit.sweep(
+            jm, f, {'properties.mlr_bj': [1e-7]}, mesh=m),
+    }
+
+
+@pytest.mark.parametrize('entry', ['fit_sed', 'fit_map', 'fit_visibilities',
+                                   'fit_uvfits', 'fit_closures',
+                                   'fit_rrl_spectrum', 'fit_rrl_cube',
+                                   'fit_joint', 'sweep'])
+def test_fit_mesh_refused_before_any_work(entry, model_params, tmp_path,
+                                          monkeypatch):
+    """``mesh=`` (the JAX package's device sharding) raises
+    ``NotImplementedError`` before any work: no grid fill, no file read
+    (``fit_uvfits`` is given a file that does not exist).  The package
+    docstring names it among what is not ported, and ``fit`` no more."""
+    import rajepy_tpu_torch
+    from rajepy_tpu_torch import JetModel
+    from rajepy_tpu_torch.models import fields
+
+    def no_fill(*args, **kwargs):
+        raise AssertionError('the grid was filled')
+
+    model_params['grid'].update(n_x=16, n_y=16, n_z=16)
+    jm = JetModel(model_params, device='cpu')
+    monkeypatch.setattr(fields, 'compute_static_fields', no_fill)
+    call = _fit_entry_calls(tmp_path)[entry]
+    with pytest.raises(NotImplementedError, match='mesh= is not ported'):
+        call(jm, object())
+    assert jm._fields is None
+    doc = ' '.join(rajepy_tpu_torch.__doc__.split())
+    not_ported = doc[doc.index('Not ported yet:'):doc.index('Package layout')]
+    assert "``fit``'s starts and sweeps, ``mesh=``" in not_ported
+    assert '``fit``,' not in not_ported
 
 
 def _port_sources():

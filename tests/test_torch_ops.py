@@ -27,6 +27,16 @@ BURSTS = ((0.5 * YEAR, 1.0 / (2.0 * (0.13 * YEAR) ** 2), 4.0, True),
           (2.0 * YEAR, 1.0 / (2.0 * (0.42 * YEAR) ** 2), 9.0, False))
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """Small grids: one thread runs them about as fast as eight, and the
+    other test processes keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("a,c", [(0.4, 2.3), (-0.3, 1.75), (0.4, 2.942),
                                  (-2.0, 1.5), (0.0, 2.0)])
 def test_hyp2f1_matches_jax_f64(a, c):

@@ -45,6 +45,16 @@ NU0 = trt.RRLCoeffs(LINE).nu0
 FREQS = np.linspace(NU0 * 0.99998, NU0 * 1.00002, 5)
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """Small grids: one thread runs them about as fast as eight, and the
+    other test processes keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture()
 def forced_interpret():
     pk.force_interpret(True)

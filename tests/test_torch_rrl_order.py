@@ -32,6 +32,16 @@ LINE = 'H58a'
 NU0 = float(trt.RRLCoeffs(LINE).nu0)
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """Small grids: one thread runs them about as fast as eight, and the
+    other test processes keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _walk_maps(parts, order, seg_start, nx, nz):
     """The tile kernel's indexing in numpy: segment s sums its tiles'
     partials into x rows (s // n_zt) * 8 + xr, z columns (s % n_zt) * 128
