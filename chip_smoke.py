@@ -175,6 +175,37 @@ Phases (any failure exits non-zero; nothing is caught):
       launch no hand-written kernel (``launches_by_path.fit``): their
       forwards are plain torch, as the JAX package's fit forwards are
       XLA (the Pallas kernels have no VJP).
+   j. parallel (``rajepy_tpu_torch.parallel``) on the same model: meshes of
+      4 shards, all on the one card (an early line says so: no speed-up
+      is measured, and no copy between cards is made), (n_chan, n_los) =
+      (2, 2) for the LOS and channel functions and 4 along runs, epochs,
+      starts and combos.  ``sharded_static_fields`` must equal the model's
+      fill bit for bit, with ``fill_memory_stats``' per-shard peak below
+      the whole fill's; ``sharded_rt_products`` on the 16 continuum
+      channels the single-device ops to 1e-5 of each map's maximum (the
+      float32 order of the LOS sum); ``sharded_rrl_tau_maps`` on phase
+      2b's 16 H58a channels the cube kernel on the whole grid (1e-5),
+      launching it once per shard; ``sharded_transfer_scan`` on phase 2c's
+      cubes the scan op on the whole cube (2e-4), launching it once per
+      shard; ``sharded_epoch_base_map_tiles`` the single-base epoch
+      kernel's map and ``light_curve_sharded`` over the 50 epochs
+      ``light_curve``, both bit for bit; ``sharded_clean_cube`` on phase
+      2f's 8 channels ``clean_cube`` bit for bit; ``continuum_runs_fanout``
+      over phase 2d's six continuum runs each run's
+      ``continuum_rt_products`` bit for bit (the dual-base kernel launched
+      6 times), and ``rrl_runs_fanout`` of two 1000-channel H58a epochs,
+      LTE and non-LTE, ``rrl_rt_products`` bit for bit.
+      ``Pipeline.execute(simobserve=False, plot=False)`` with the device
+      list replaced (the bundled params, no RRL epoch) must log "Fanned 6
+      continuum runs" and write the direct calls' maps bit for bit; after
+      two runs' flux FITS are deleted a resumed ``execute`` must fan and
+      write those two alone; ``device_fanout=False`` must launch once per
+      run and fan nothing.  ``fit_joint``'s SED fit with 4 starts (3
+      steps) and a ``sweep`` of 8 combos (whole and in batches of 3), each
+      with ``mesh=``, must equal ``mesh=None`` bit for bit.  Each
+      function's launches count as ``launches_by_path.parallel``; prints
+      each one's time, the six runs fanned and one by one, and the peak
+      memory.
    Outputs must be finite, non-zero where the jet is (all-zero on the
    jet-free grid), equal to the plain versions on the same card tensors
    (2e-4), and a small model at float32 must agree with the float64 plain
@@ -215,7 +246,8 @@ Phases (any failure exits non-zero; nothing is caught):
 
 The line before the last is a JSON object with one entry per kernel, the
 line-cube observation's numbers, phase 2g's times, phase 2h's numbers
-(``cli``) and phase 2i's (``fit``); the last line is
+(``cli``), phase 2i's (``fit``) and phase 2j's (``parallel``); the last
+line is
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --time-paths DIR
@@ -370,6 +402,15 @@ FIT_SWEEP = {'mlr_bj': (0.5, 1.0, 2.0, 4.0), 'T_0': (1.0, 1.25)}
 # float64 at FIT_CPU_GRID^3, card against CPU
 FIT_SAME_RTOL = 1e-12
 FIT_CLOSURE_NT, FIT_CLOSURE_RTOL = 64, 1e-8
+# phase 2j: shards on the one card; the sharded LOS sums against the
+# single-device ones (the float32 order of the sum), and the sharded scan
+# against the whole cube's (2e-4, as phase 2c's two scans); the kernels the
+# parallel paths launch
+PARALLEL_SHARDS = 4
+PARALLEL_RTOL, PARALLEL_SCAN_RTOL = 1e-5, 2e-4
+PARALLEL_KERNELS = ('epoch_base_map_tiles', 'epoch_base_maps2_tiles',
+                    'rrl_tiles_pallas', 'rrl_cube_pallas',
+                    'transfer_scan_pallas')
 
 
 def rel_err(got, want):
@@ -2028,7 +2069,9 @@ def cube_card_vs_cpu(run, img_hdr, smi):
         print(f"  clean_cube on the card, {label} ({len(blocks)} "
               f"block(s)): models, residuals, counts, restored and dirty "
               f"cubes bit for bit the first call's [{smi}]")
-    return errs
+    args = (uvw, freqs, torch.as_tensor(noisy, device='cuda'),
+            np.ones(uvw.shape[0]), SYNTHOBS_IMSIZE, cell, mask, kern)
+    return errs, (args, rest_g, dirty_g)
 
 
 def run_cube_observation(jm, log, tmp, smi):
@@ -2157,7 +2200,7 @@ def run_cube_observation(jm, log, tmp, smi):
           f"{img_hdr['BMAJ'] * 3600:.4f}\" x "
           f"{img_hdr['BMIN'] * 3600:.4f}\"")
     del img, cubes
-    errs = cube_card_vs_cpu(run, img_hdr, smi)
+    errs, clean8 = cube_card_vs_cpu(run, img_hdr, smi)
     del pline
     shutil.rmtree(dcy)
     torch.cuda.empty_cache()
@@ -2168,7 +2211,7 @@ def run_cube_observation(jm, log, tmp, smi):
                       'channel_iterations': info['channel_iterations'],
                       'it_s': it_s, 'chan_it_s': chan_it_s,
                       'stages_ms': {k: stage[k] * 1e3 for k in CUBE_STAGES},
-                      'errs': errs}
+                      'errs': errs, 'clean8': clean8}
 
 
 def cli_card_vs_cpu(run, smi):
@@ -2941,6 +2984,360 @@ def run_fits(jm, log, smi, uv1):
     return launches, out
 
 
+def same_bits(name, got, want):
+    """Raise unless ``got`` equals ``want`` bit for bit (tensors or host
+    arrays, or tuples of them)."""
+    import torch
+    if not isinstance(got, (tuple, list)):
+        got, want = (got,), (want,)
+    for g, w in zip(got, want, strict=True):
+        g = g.cpu().numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        w = w.cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
+        if g.shape != w.shape or not np.array_equal(g, w):
+            raise AssertionError(f"{name}: not bit for bit")
+    print(f"  {name}: bit for bit")
+
+
+def fanned_entries(log):
+    return [str(e) for e in log.entries.values() if 'Fanned' in str(e)]
+
+
+def run_parallel(jm, log, tmp, smi, core16, scan_args, clean8):
+    """``rajepy_tpu_torch.parallel`` on the flagship, counted (phase 2j):
+    every sharded function and the fan-out with meshes of PARALLEL_SHARDS
+    shards on the one card, each against its single-device path; the
+    pipeline with the device list replaced; the fits with ``mesh=``.
+    Returns the parallel path's launches (every sharded call's, none of
+    the references') and its numbers."""
+    import contextlib
+    import shutil
+    import torch
+    from rajepy_tpu_torch import Pipeline, fit
+    from rajepy_tpu_torch.io import fits as fitsio
+    from rajepy_tpu_torch.models import analysis
+    from rajepy_tpu_torch.models import fields as mfields
+    from rajepy_tpu_torch.models import grid as mgrid
+    from rajepy_tpu_torch.ops import kernels as kn
+    from rajepy_tpu_torch.ops import radtrans as rt
+    from rajepy_tpu_torch.parallel import fanout, sharding
+    card = jm._ensure_fields().ff.device
+    shards = [card] * PARALLEL_SHARDS
+    mesh22 = sharding.make_mesh(n_los=2, n_chan=2, devices=shards)
+    mesh4 = sharding.make_mesh(n_los=1, n_chan=PARALLEL_SHARDS,
+                               devices=shards)
+    print(f"phase 2j: parallel, {N_GRID}^3 float32: meshes of "
+          f"{PARALLEL_SHARDS} shards, all on the one card "
+          f"({torch.cuda.get_device_name(0)}; the shards share it, so no "
+          f"speed-up is measured and no copy between cards is made): "
+          f"(n_chan, n_los) = (2, 2) for the LOS and channel functions, "
+          f"{PARALLEL_SHARDS} along runs, epochs, starts and combos")
+    launches = {k: 0 for k in kn.LAUNCHES}
+    times = {}
+    t_wall = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def counted(name, fn, parallel=True):
+        """fn() with the counters reset just before it and read just after,
+        added to the parallel path's unless it is a single-device
+        reference; its time by the host clock."""
+        torch.cuda.synchronize()
+        kn.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        if parallel:
+            for k, v in kn.LAUNCHES.items():
+                launches[k] += v
+        return out, dict(kn.LAUNCHES)
+
+    def require(name, got, kernel, n):
+        if got[kernel] != n:
+            raise AssertionError(f"{name} launched {kernel} "
+                                 f"{got[kernel]} times, not {n}")
+
+    # the grid fill, LOS-sharded, and its per-shard memory
+    jm.time = EPOCHS_YR[-1] * YEAR
+    f = jm._ensure_fields()
+    args = (jm._static_params(), jm._ss_jml_rb_frac, jm.nx, jm.ny, jm.nz,
+            jm.csize)
+    shard, _ = counted('sharded_static_fields', lambda: (
+        sharding.sharded_static_fields(mesh22, *args, dtype=jm.dtype,
+                                       with_time=jm._has_bursts)))
+    same_bits("sharded_static_fields (2 LOS slabs) vs the model's fill",
+              [getattr(shard, n).gather() for n in f._fields], list(f))
+    stats = sharding.fill_memory_stats(mesh22, *args, dtype=jm.dtype,
+                                       with_time=jm._has_bursts)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    whole = mfields.compute_static_fields(
+        args[0], *mgrid.grid_corner_coords(jm.nx, jm.ny, jm.nz, jm.csize,
+                                           jm.dtype, card), args[1],
+        with_time=jm._has_bursts)
+    torch.cuda.synchronize()
+    whole_peak = torch.cuda.max_memory_allocated() - resident
+    del whole
+    if not stats['per_device_bytes'] < whole_peak:
+        raise AssertionError(f"fill_memory_stats: a shard's fill peaked at "
+                             f"{stats['per_device_bytes']} bytes, the whole "
+                             f"fill at {whole_peak}")
+    print(f"  fill_memory_stats: a LOS shard's fill peaks at "
+          f"{stats['per_device_bytes']} bytes above what was resident, the "
+          f"whole fill at {whole_peak} bytes; outputs "
+          f"{stats['per_device_output_bytes']} of "
+          f"{stats['full_output_bytes']} bytes a shard")
+
+    # the continuum RT step on the slabs, against the single-device ops
+    errs = {}
+    t_0, reyn, csize, dist = jm._rt_constants()
+    freqs = jm._freqs(FREQS)
+    step = sharding.sharded_rt_products(mesh22, t_0, reyn, csize, dist)
+    (em_s, tau_s, flux_s), _ = counted('sharded_rt_products', lambda: step(
+        freqs, shard.nd, shard.xi, shard.temp, shard.ff, shard.area,
+        shard.inside))
+    del shard
+    ds = rt.path_length_cm(f.ff, f.area, csize)
+    tau_w = rt.tau_ff_maps(freqs, f.temp, f.nd * f.xi, ds, f.inside, t_0,
+                           reyn)
+    want = (rt.emission_measure_map(f.nd, f.xi, f.ff, f.area, csize),
+            tau_w, rt.flux_ff_maps(freqs, tau_w,
+                                   *rt.mean_temperature_map(f.temp,
+                                                            f.inside),
+                                   csize, dist))
+    for name, g, w in zip(('EM', 'tau', 'flux'),
+                          (em_s, tau_s.gather(), flux_s.gather()), want):
+        errs[f'rt_products {name}'] = check(
+            f"sharded_rt_products {name} ({len(FREQS)} ch) vs the "
+            f"single-device ops", g, w, PARALLEL_RTOL)[0]
+    del em_s, tau_s, flux_s, want, tau_w
+
+    # RRL line opacity: K5 per shard against K5 on the whole grid
+    jm.time = RRL_EPOCH_YR * YEAR
+    coeffs = rt.RRLCoeffs(RRL_LINE)
+    f, n_es, ds = jm._rt_inputs()
+    fr16 = jm._freqs(core16)
+    want = rt.tau_rrl_maps_fused(coeffs, fr16, f.temp, n_es, f.vy, ds,
+                                 f.inside)
+    got, n = counted('sharded_rrl_tau_maps', lambda: (
+        sharding.sharded_rrl_tau_maps(mesh22, coeffs, fr16, f.temp, n_es,
+                                      f.vy, ds, f.inside)))
+    require('sharded_rrl_tau_maps', n, 'rrl_cube_pallas', PARALLEL_SHARDS)
+    errs['rrl_tau_maps'] = check(
+        f"sharded_rrl_tau_maps ({len(core16)} {RRL_LINE} ch) vs "
+        f"tau_rrl_maps_fused on the whole grid", got.gather(), want,
+        PARALLEL_RTOL)[0]
+    del got, want, n_es, ds
+
+    # the ordered scan, K8 per shard, composed through the monoid
+    want = kn.transfer_scan_maps(*scan_args)
+    got, n = counted('sharded_transfer_scan', lambda: (
+        sharding.sharded_transfer_scan(mesh22, *scan_args)))
+    require('sharded_transfer_scan', n, 'transfer_scan_pallas',
+            PARALLEL_SHARDS)
+    for name, g, w in zip(('I', 'tau_total'), got, want):
+        errs[f'transfer_scan {name}'] = check(
+            f"sharded_transfer_scan {name} vs transfer_scan_maps on the "
+            f"whole cube", g, w, PARALLEL_SCAN_RTOL)[0]
+    del got, want
+
+    # the epoch tiles and the light curve
+    jm.time = EPOCHS_YR[-1] * YEAR
+    st = jm._rt_static()
+    tile_args = (st.a_t, st.tss_t, st.seg, jm.time, jm._burst_tuple(),
+                 jm.nx, jm.nz, jm._ts_pack_offset)
+    want = kn.epoch_base_map_tiles(*tile_args, walk=st.walk)
+    got, n = counted('sharded_epoch_base_map_tiles', lambda: (
+        sharding.sharded_epoch_base_map_tiles(mesh22, *tile_args,
+                                              walk=st.walk)))
+    if not 1 <= n['epoch_base_map_tiles'] <= PARALLEL_SHARDS:
+        raise AssertionError(f"sharded_epoch_base_map_tiles: {n}")
+    same_bits(f"sharded_epoch_base_map_tiles ({n['epoch_base_map_tiles']} "
+              f"shards with tiles) vs the K1 map", got, want)
+    want = analysis.light_curve(jm, ANALYSIS_EPOCHS_YR, FREQS)
+    got, n = counted('light_curve_sharded', lambda: (
+        sharding.light_curve_sharded(jm, ANALYSIS_EPOCHS_YR, FREQS,
+                                     mesh4)))
+    require('light_curve_sharded', n, 'epoch_base_map_tiles',
+            len(ANALYSIS_EPOCHS_YR))
+    same_bits(f"light_curve_sharded ({len(ANALYSIS_EPOCHS_YR)} epochs over "
+              f"{PARALLEL_SHARDS} shards) vs light_curve", got, want)
+
+    # cube imaging, channel-sharded
+    clean_args, rest_g, dirty_g = clean8
+    (rest, dirty), _ = counted('sharded_clean_cube', lambda: (
+        sharding.sharded_clean_cube(mesh22, *clean_args)))
+    same_bits(f"sharded_clean_cube ({len(clean_args[1])} ch over 2 'chan' "
+              f"shards) vs clean_cube", (rest.gather(), dirty.gather()),
+              (rest_g, dirty_g))
+    del rest, dirty, clean8, clean_args, rest_g, dirty_g
+
+    # the run fan-out: phase 2d's six continuum runs, two H58a epochs
+    params = Pipeline.py_to_dict(os.path.join(
+        HERE, 'rajepy_tpu_torch', 'data', 'example-pipeline-params.py'))
+    dcy = os.path.join(tmp, 'parallel')
+    params['dcys']['model_dcy'] = dcy
+    params['rrls']['times'] = np.array([])
+    pline = Pipeline(jm, params, log=log)
+    runs = pline.runs
+    years = [r.year for r in runs]
+    fmat = np.stack([np.atleast_1d(r.chan_freqs) for r in runs])
+    seq = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for yr, fr in zip(years, fmat):
+        jm.time = yr * YEAR
+        seq.append(jm.continuum_rt_products(fr))
+    times['6 continuum runs one by one'] = (time.perf_counter() - t0) * 1e3
+    got, n = counted('continuum_runs_fanout (6 runs)', lambda: (
+        fanout.continuum_runs_fanout(jm, years, fmat, mesh4)))
+    require('continuum_runs_fanout', n, 'epoch_base_maps2_tiles', len(runs))
+    same_bits(f"continuum_runs_fanout ({len(runs)} runs over "
+              f"{PARALLEL_SHARDS} shards) vs continuum_rt_products",
+              got, tuple(np.stack(p) for p in zip(*seq)))
+    band = rrl_band(coeffs.nu0)[0]
+    years2 = (RRL_EPOCH_YR, EPOCHS_YR[-1])
+    for lte in (True, False):
+        kind = 'LTE' if lte else 'non-LTE'
+        b_pairs = None
+        if not lte:
+            b_pairs = []
+            for yr in years2:
+                jm.time = yr * YEAR
+                b_pairs.append(jm.departure_coefficients(RRL_LINE))
+        got, n = counted(f'rrl_runs_fanout ({kind}, 2 runs)', lambda: (
+            fanout.rrl_runs_fanout(jm, RRL_LINE, years2, [band, band], mesh4,
+                                   b_pairs=b_pairs)))
+        require('rrl_runs_fanout', n, 'rrl_tiles_pallas', 2)
+        for k, yr in enumerate(years2):
+            jm.time = yr * YEAR
+            same_bits(f"rrl_runs_fanout ({kind}, {RRL_NCHAN} ch) run "
+                      f"{k + 1} vs rrl_rt_products",
+                      tuple(a[k] for a in got),
+                      jm.rrl_rt_products(RRL_LINE, band, lte=lte))
+        del got
+    del seq
+
+    # the pipeline with the device list replaced
+    @contextlib.contextmanager
+    def replaced_devices():
+        real = sharding.available_devices
+        sharding.available_devices = lambda device: shards
+        try:
+            yield
+        finally:
+            sharding.available_devices = real
+
+    quiet = dict(simobserve=False, verbose=False, plot=False)
+
+    def stamps():
+        return {p: os.stat(p).st_mtime_ns for r in pline.runs
+                for p in (r.fits_em, r.fits_tau, r.fits_flux)
+                if os.path.exists(p)}
+
+    n_fanned = len(fanned_entries(log))
+    with replaced_devices():
+        _, n = counted('Pipeline.execute (fanned)',
+                       lambda: pline.execute(**quiet))
+        new = fanned_entries(log)[n_fanned:]
+        if len(new) != 1 or f'Fanned {len(runs)} continuum runs' not in \
+                new[0]:
+            raise AssertionError(f"execute with {PARALLEL_SHARDS} shards "
+                                 f"logged {new}")
+        require('Pipeline.execute (fanned)', n, 'epoch_base_maps2_tiles',
+                len(runs))
+        for run, fr, yr in zip(runs, fmat, years):
+            jm.time = yr * YEAR
+            direct = jm.continuum_rt_products(fr)
+            same_bits(f"fanned run {yr:g} yr: FITS EM, tau, flux vs the "
+                      f"direct call", tuple(
+                          fitsio.read_fits(p)[0] for p in
+                          (run.fits_em, run.fits_tau, run.fits_flux)),
+                      tuple(np.swapaxes(a, -1, -2) for a in direct))
+        print(f"  execute: {new[0].split(':: ')[-1].strip()} [{smi}]")
+        gone = (runs[1].fits_flux, runs[4].fits_flux)
+        for p in gone:
+            os.remove(p)
+        before = stamps()
+        n_fanned = len(fanned_entries(log))
+        _, n = counted('Pipeline.execute (resumed, 2 pending)',
+                       lambda: pline.execute(**quiet))
+        new = fanned_entries(log)[n_fanned:]
+        after = stamps()
+        if len(new) != 1 or 'Fanned 2 continuum runs' not in new[0] or \
+                n['epoch_base_maps2_tiles'] != 2 or \
+                any(after[p] != before[p] for p in before) or \
+                not all(p in after for p in gone):
+            raise AssertionError(f"the resumed execute logged {new}, "
+                                 f"launched {n} or rewrote finished runs")
+        print(f"  resumed execute after two runs' flux FITS were deleted: "
+              f"fanned and wrote those two alone")
+        n_fanned = len(fanned_entries(log))
+        _, n = counted('Pipeline.execute (device_fanout=False)',
+                       lambda: pline.execute(clobber=True,
+                                             device_fanout=False, **quiet),
+                       parallel=False)
+        if fanned_entries(log)[n_fanned:]:
+            raise AssertionError("device_fanout=False fanned")
+        require('Pipeline.execute (device_fanout=False)', n,
+                'epoch_base_maps2_tiles', len(runs))
+        print(f"  execute(device_fanout=False): one launch per run, no "
+              f"fan-out")
+    del pline
+    shutil.rmtree(dcy)
+
+    # the fits with mesh=
+    jm.time = EPOCHS_YR[-1] * YEAR
+    truth, th_true = fit.build_sed_forward(jm, FREQS, FIT_FREE,
+                                           dtype=torch.float32)
+    with torch.no_grad():
+        observed = truth(th_true).cpu().numpy()
+    start = start_model(jm, log, device=card)
+    comps = [{'kind': 'sed', 'freqs': FREQS, 'observed': observed}]
+    kw = dict(free=FIT_FREE, steps=FIT_SHORT_STEPS, dtype=torch.float32,
+              n_starts=PARALLEL_SHARDS)
+    res_m, _ = counted(f'fit_joint ({PARALLEL_SHARDS} starts, mesh)',
+                       lambda: fit.fit_joint(start, comps, mesh=mesh4, **kw))
+    res_n, _ = counted(f'fit_joint ({PARALLEL_SHARDS} starts, mesh=None)',
+                       lambda: fit.fit_joint(start, comps, **kw),
+                       parallel=False)
+    same_bits(f"fit_joint SED fit, {PARALLEL_SHARDS} starts x "
+              f"{FIT_SHORT_STEPS} steps, mesh vs mesh=None (theta, loss, "
+              f"model)", (res_m.theta, res_m.loss, *res_m.model),
+              (res_n.theta, res_n.loss, *res_n.model))
+    del start, truth
+    props = jm.params['properties']
+    grid = {'properties.' + k: [props[k] * v for v in fs]
+            for k, fs in FIT_SWEEP.items()}
+    sw_n, _ = counted('sweep (8 combos, mesh=None)', lambda: fit.sweep(
+        jm, FREQS, grid, dtype=torch.float32), parallel=False)
+    for bs in (None, 3):
+        sw_m, _ = counted(f'sweep (8 combos, mesh, batch_size {bs})',
+                          lambda: fit.sweep(jm, FREQS, grid,
+                                            dtype=torch.float32, mesh=mesh4,
+                                            batch_size=bs))
+        same_bits(f"sweep of 8 combos, mesh, batch_size {bs}, vs "
+                  f"mesh=None", sw_m.values, sw_n.values)
+    torch.cuda.empty_cache()
+
+    require_launched(launches, PARALLEL_KERNELS, 'parallel')
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wall_s = time.perf_counter() - t_wall
+    print(f"  launches in the parallel runs: {launches}")
+    print(f"  times (host clock around a synchronise, ms): " + ', '.join(
+        f"{k} {v:.4f}" for k, v in times.items()) + f" [{smi}]")
+    print(f"  six continuum runs fanned over {PARALLEL_SHARDS} shards on "
+          f"one card {times['continuum_runs_fanout (6 runs)']:.4f} ms, one "
+          f"by one {times['6 continuum runs one by one']:.4f} ms (both with "
+          f"the copy-out); peak memory {peak_gb:.3f} GB; phase 2j "
+          f"{wall_s:.1f} s [{smi}]")
+    return launches, {'ms': times, 'errs': errs, 'peak_gb': peak_gb,
+                      'wall_s': wall_s,
+                      'fill_shard_bytes': stats['per_device_bytes'],
+                      'fill_whole_bytes': whole_peak}
+
+
 def check_emergent(jm, em):
     """Phase 2c's comparisons on the card: the main path against the plain
     versions, each kernel against its plain version at the main path's
@@ -3368,6 +3765,9 @@ def main() -> int:
         by_path['cli'], cli, cli_solve = run_cli(log, tmp, smi)
         by_path['fit'], fits = run_fits(jm, log, smi,
                                         synthobs.pop('uv1'))
+        by_path['parallel'], par = run_parallel(
+            jm, log, tmp, smi, rrl['core16'], em['scan_args'],
+            cube.pop('clean8'))
         # the pipeline is what a user runs: its counts stand for the two
         # kernels it launches
         launches.update({k: by_path['pipeline'][k] for k in PIPELINE_KERNELS})
@@ -3681,7 +4081,7 @@ def main() -> int:
                                  'channel_iterations', 'it_s', 'chan_it_s',
                                  'stages_ms')},
             'analysis': {k: ana[k] for k in ('ms', 'peak_gb', 'errs')},
-            'cli': cli, 'fit': fits}))
+            'cli': cli, 'fit': fits, 'parallel': par}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -33,14 +33,16 @@ installed.  Ported so far:
 - ``fit``: gradient fitting of SEDs, maps, visibilities, closures, RRL
   spectra and cubes, light curves and joint observables on
   ``torch.autograd``, with Laplace and MALA uncertainties and parameter
-  sweeps, on the model's device.
+  sweeps, on the model's device;
+- ``parallel``: one process over a list of devices: LOS and channel
+  sharding of the RT products, the grid fill, the epoch tiles, light
+  curves and cube imaging (``parallel.sharding``), the pipeline's run
+  fan-out (``parallel.fanout``, ``device_fanout`` of
+  ``Pipeline.execute``), channel-sharded cube imaging
+  (``shard_imaging``) and ``fit``'s ``mesh=``.
 
 Every Pallas kernel of rajepy_tpu has a hand-written CUDA counterpart under
-``csrc/``.  Not ported yet: ``parallel`` (the multi-device fan-out,
-``device_fanout=True`` of ``Pipeline.execute``, channel-sharded imaging,
-``shard_imaging=True``, and the sharding of ``fit``'s starts and sweeps,
-``mesh=``) and the examples.  The options named here raise
-``NotImplementedError`` before any work is done.
+``csrc/``.  Not ported yet: the examples.
 
 Package layout
 --------------
@@ -55,6 +57,8 @@ Package layout
 - ``fit``       differentiable parameter inference (a subpackage,
                 imported where used)
 - ``pipeline``  the multi-epoch, multi-frequency orchestrator
+- ``parallel``  device meshes, sharded RT products and the run fan-out
+                (a subpackage, imported where used)
 - ``synthobs``  CASA-free synthetic observations of continuum runs and
                 line cubes: antenna configurations and uv tracks,
                 visibility sampling and noise, imaging and CLEAN, source

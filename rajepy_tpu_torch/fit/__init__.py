@@ -36,9 +36,9 @@ and ``vmap`` over starts, MALA chains and sweep combos are Python loops
 ``jax.random`` is a ``torch.Generator`` seeded from ``seed`` on the
 model's device; optax.adam is :class:`Adam` (optax's formulas and
 defaults), and ``optimizer=`` takes None or a callable ``params ->
-torch.optim.Optimizer``.  ``mesh=`` (multi-device sharding) raises
-``NotImplementedError`` before any work: the multi-device layer is not
-ported.  A derivative through the travel times' 2F1 series (a model with
+torch.optim.Optimizer``.  ``mesh=`` (a ``parallel.sharding.Mesh``)
+spreads the starts of a fit and the combos of a sweep over the devices of
+the mesh's first axis, item k to device k mod n.  A derivative through the travel times' 2F1 series (a model with
 bursts and q^d_v != 0, freeing inc/pa/opang/epsilon/q_v) raises
 ``ValueError``, as the JAX package cannot take it either.
 

@@ -87,12 +87,23 @@ def _check_free(free: Sequence[str], allow_nonlte: bool = False):
 
 
 def _check_mesh(mesh):
-    """``mesh=`` shards work over devices in the JAX package; the port's
-    multi-device layer is not written yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported to rajepy_tpu_torch (the multi-device "
-            "layer, parallel/, is not ported yet); pass mesh=None")
+    """``mesh=`` is None or a mesh of ``parallel.sharding`` (a
+    ``Mesh``: ``devices``, ``axis_names``)."""
+    if mesh is not None and not (hasattr(mesh, 'devices') and
+                                 hasattr(mesh, 'axis_names')):
+        raise TypeError(f"mesh= takes a parallel.sharding.Mesh, got "
+                        f"{type(mesh).__name__}")
+
+
+def _mesh_devices(mesh, device) -> list:
+    """The devices that ``mesh=`` spreads a fit's starts or a sweep's
+    combos over, item k to device k mod n: the first device of each index
+    along the mesh's first axis (the axis the JAX package shards them
+    over); ``[device]`` without a mesh."""
+    if mesh is None:
+        return [torch.device(device)]
+    from ..parallel.sharding import _axis_devices
+    return _axis_devices(mesh, mesh.axis_names[0])
 
 
 def _grad(value, theta):

@@ -11,7 +11,8 @@ from typing import Dict, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ._params import _check_free, _check_mesh, _grad, _values
+from ._params import (_check_free, _check_mesh, _grad, _mesh_devices,
+                      _values)
 from .forwards import build_flux_forward, build_sed_forward
 
 
@@ -101,38 +102,56 @@ def _descend(loss_fn, theta0, steps, make_opt):
     return theta.detach(), hist, torch.linalg.norm(grad)
 
 
-def _run_fit(forward, theta0, free, loss_of_model, steps, learning_rate,
-             optimizer, n_starts: int = 1, start_spread: float = 0.3,
-             seed: int = 0, mesh=None) -> FitResult:
-    """Optimisation driver.  ``optimizer`` is None (Adam at
-    ``learning_rate``) or a callable ``params -> torch.optim.Optimizer``.
-    ``n_starts > 1`` runs that many chains one after another — theta0
-    plus jittered copies (``start_spread`` sigma in the transformed
-    log/linear space, from a ``torch.Generator`` seeded with ``seed`` on
-    theta0's device) — and keeps the chain with the lowest final loss;
-    chain 0 is the single start."""
+def _run_fit(build, jm, free, steps, learning_rate, optimizer,
+             n_starts: int = 1, start_spread: float = 0.3, seed: int = 0,
+             mesh=None) -> FitResult:
+    """Optimisation driver.  ``build(model) -> (forward, theta0,
+    loss_of_model)`` makes the fit's forward and loss on ``model``'s
+    device; ``optimizer`` is None (Adam at ``learning_rate``) or a
+    callable ``params -> torch.optim.Optimizer``.  ``n_starts > 1`` runs
+    that many chains — theta0 plus jittered copies (``start_spread`` sigma
+    in the transformed log/linear space, drawn once from a
+    ``torch.Generator`` seeded with ``seed`` on the model's device, so
+    chain k is the same on every mesh) — and keeps the chain with the
+    lowest final loss; chain 0 is the single start.  With ``mesh``, chain
+    k runs on device k mod n of the mesh's first axis, with the forward
+    built again (on ``jm._replica``) on a device other than the model's;
+    the chains are issued in turn, so devices overlap.  The results equal
+    those with ``mesh=None``, bit for bit where every device of the mesh
+    is the model's."""
     _check_mesh(mesh)
+    forward, theta0, loss_of_model = build(jm)
     theta0 = _f64(theta0, theta0.device)
     make_opt = optimizer if optimizer is not None else (
         lambda ps: Adam(ps, lr=learning_rate))
 
-    def loss_fn(theta):
-        return loss_of_model(forward(theta))
+    def loss_on(fwd, loss):
+        return lambda theta: loss(fwd(theta))
 
+    loss_fns = {theta0.device: loss_on(forward, loss_of_model)}
     if n_starts > 1:
         gen = torch.Generator(device=theta0.device)
         gen.manual_seed(seed)
         jitter = start_spread * torch.randn(
             (n_starts - 1, theta0.shape[0]), generator=gen,
             dtype=theta0.dtype, device=theta0.device)
-        chains = [_descend(loss_fn, th, steps, make_opt) for th in
-                  torch.cat([theta0[None], theta0[None] + jitter])]
+        devs = _mesh_devices(mesh, theta0.device)
+        chains = []
+        for k, th in enumerate(torch.cat([theta0[None],
+                                          theta0[None] + jitter])):
+            dev = devs[k % len(devs)]
+            if dev not in loss_fns:
+                fwd_d, _, loss_d = build(jm._replica(dev))
+                loss_fns[dev] = loss_on(fwd_d, loss_d)
+            chains.append(_descend(loss_fns[dev], th.to(dev), steps,
+                                   make_opt))
         finals = np.asarray([float(h[-1]) for _, h, _ in chains])
         best = int(np.nanargmin(np.where(np.isfinite(finals), finals,
                                          np.inf)))
         theta, hist, gnorm = chains[best]
     else:
-        theta, hist, gnorm = _descend(loss_fn, theta0, steps, make_opt)
+        theta, hist, gnorm = _descend(loss_fns[theta0.device], theta0,
+                                      steps, make_opt)
     theta_np = theta.cpu().numpy()
     values = _values(free, theta_np)
     notes = []
@@ -146,7 +165,7 @@ def _run_fit(forward, theta0, free, loss_of_model, steps, learning_rate,
             "the van Hoof table — re-evaluate with JetModel to check the "
             "difference matters".format(values['power_laws.q_T']))
     with torch.no_grad():
-        model = _to_numpy(forward(theta))
+        model = _to_numpy(forward(theta.to(theta0.device)))
     return FitResult(notes=tuple(notes), values=values, theta=theta_np,
                      loss=hist.cpu().numpy(), model=model,
                      grad_norm=float(gnorm))
@@ -200,11 +219,13 @@ def fit_sed(jm, freqs, observed, *, errors=None,
     with per-channel ``errors`` it is the standard chi-squared.
     """
     _check_mesh(mesh)
-    forward, theta0 = build_sed_forward(jm, freqs, free, time)
-    return _run_fit(forward, theta0, free,
-                    _sed_loss(observed, errors, theta0.device), steps,
-                    learning_rate, optimizer, n_starts, start_spread, seed,
-                    mesh)
+
+    def build(model):
+        forward, theta0 = build_sed_forward(model, freqs, free, time)
+        return forward, theta0, _sed_loss(observed, errors, theta0.device)
+
+    return _run_fit(build, jm, free, steps, learning_rate, optimizer,
+                    n_starts, start_spread, seed, mesh)
 
 
 def fit_map(jm, freq, observed_map, *, errors=None,
@@ -218,14 +239,15 @@ def fit_map(jm, freq, observed_map, *, errors=None,
     parameters an SED cannot).  ``FitResult.model`` is the (1, nx, nz)
     map stack."""
     _check_mesh(mesh)
-    fwd, theta0 = build_flux_forward(jm, np.atleast_1d(freq), free, time)
-    base = _power_norm_loss(observed_map, errors, theta0.device)
 
-    def loss(model):
-        return base(model[0])
+    def build(model):
+        fwd, theta0 = build_flux_forward(model, np.atleast_1d(freq), free,
+                                         time)
+        base = _power_norm_loss(observed_map, errors, theta0.device)
+        return fwd, theta0, lambda m: base(m[0])
 
-    return _run_fit(fwd, theta0, free, loss, steps, learning_rate,
-                    optimizer, n_starts, start_spread, seed, mesh)
+    return _run_fit(build, jm, free, steps, learning_rate, optimizer,
+                    n_starts, start_spread, seed, mesh)
 
 
 class GridFitResult(NamedTuple):

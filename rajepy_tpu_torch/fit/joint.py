@@ -138,34 +138,37 @@ def fit_joint(jm, components: Sequence[Dict], *,
     _check_mesh(mesh)
     if not components:
         raise ValueError("fit_joint needs at least one component")
-    fwds, losses = [], []
-    theta0 = None
-    for comp in components:
-        f, l, th0 = _component_forward_loss(jm, comp, free,
-                                            comp.get('time', time),
-                                            dtype)
-        fwds.append(f)
-        losses.append(l)
-        # slot-wise merge: a non-RRL component leaves NaN at any nonlte.*
-        # slots (it has no opinion on their starting values); an RRL
-        # component fills them
-        th0 = th0.cpu().numpy()
-        theta0 = th0 if theta0 is None else np.where(
-            np.isnan(theta0), th0, theta0)
-    if theta0 is not None and np.isnan(theta0).any():
-        raise ValueError(
-            "freed nonlte.* parameters need at least one rrl_spectrum/"
-            "rrl_cube component to define their starting values")
-    theta0 = torch.as_tensor(theta0, device=jm.device)
 
-    def forward(theta):
-        return tuple(f(theta) for f in fwds)
+    def build(model):
+        fwds, losses = [], []
+        theta0 = None
+        for comp in components:
+            f, l, th0 = _component_forward_loss(model, comp, free,
+                                                comp.get('time', time),
+                                                dtype)
+            fwds.append(f)
+            losses.append(l)
+            # slot-wise merge: a non-RRL component leaves NaN at any
+            # nonlte.* slots (it has no opinion on their starting values);
+            # an RRL component fills them
+            th0 = th0.cpu().numpy()
+            theta0 = th0 if theta0 is None else np.where(
+                np.isnan(theta0), th0, theta0)
+        if theta0 is not None and np.isnan(theta0).any():
+            raise ValueError(
+                "freed nonlte.* parameters need at least one rrl_spectrum/"
+                "rrl_cube component to define their starting values")
 
-    def loss(models):
-        total = losses[0](models[0])
-        for l, m in zip(losses[1:], models[1:]):
-            total = total + l(m)
-        return total
+        def forward(theta):
+            return tuple(f(theta) for f in fwds)
 
-    return _run_fit(forward, theta0, free, loss, steps, learning_rate,
-                    optimizer, n_starts, start_spread, seed, mesh)
+        def loss(models):
+            total = losses[0](models[0])
+            for l, m in zip(losses[1:], models[1:]):
+                total = total + l(m)
+            return total
+
+        return forward, torch.as_tensor(theta0, device=model.device), loss
+
+    return _run_fit(build, jm, free, steps, learning_rate, optimizer,
+                    n_starts, start_spread, seed, mesh)

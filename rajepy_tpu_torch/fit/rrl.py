@@ -165,13 +165,16 @@ def fit_rrl_spectrum(jm, line: str, freqs, observed, *, errors=None,
     add :func:`rrl_departure_systematic` in quadrature.
     """
     _check_mesh(mesh)
-    forward, theta0 = build_rrl_spectrum_forward(
-        jm, line, freqs, free, time, contsub=contsub, lte=lte,
-        departure_coeffs=departure_coeffs)
-    return _run_fit(forward, theta0, free,
-                    _power_norm_loss(observed, errors, theta0.device),
-                    steps, learning_rate, optimizer, n_starts,
-                    start_spread, seed, mesh)
+
+    def build(model):
+        forward, theta0 = build_rrl_spectrum_forward(
+            model, line, freqs, free, time, contsub=contsub, lte=lte,
+            departure_coeffs=departure_coeffs)
+        return forward, theta0, _power_norm_loss(observed, errors,
+                                                 theta0.device)
+
+    return _run_fit(build, jm, free, steps, learning_rate, optimizer,
+                    n_starts, start_spread, seed, mesh)
 
 
 def fit_rrl_cube(jm, line: str, freqs, observed_cube, *, errors=None,
@@ -192,13 +195,16 @@ def fit_rrl_cube(jm, line: str, freqs, observed_cube, *, errors=None,
     :func:`fit_rrl_spectrum`.
     """
     _check_mesh(mesh)
-    fwd, theta0 = build_rrl_forward(jm, line, freqs, free, time,
-                                    contsub=contsub, lte=lte,
-                                    departure_coeffs=departure_coeffs)
-    return _run_fit(fwd, theta0, free,
-                    _power_norm_loss(observed_cube, errors, theta0.device),
-                    steps, learning_rate, optimizer, n_starts,
-                    start_spread, seed, mesh)
+
+    def build(model):
+        fwd, theta0 = build_rrl_forward(model, line, freqs, free, time,
+                                        contsub=contsub, lte=lte,
+                                        departure_coeffs=departure_coeffs)
+        return fwd, theta0, _power_norm_loss(observed_cube, errors,
+                                             theta0.device)
+
+    return _run_fit(build, jm, free, steps, learning_rate, optimizer,
+                    n_starts, start_spread, seed, mesh)
 
 
 def rrl_departure_systematic(jm, line: str, freqs, theta,

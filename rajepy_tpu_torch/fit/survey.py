@@ -7,7 +7,8 @@ from typing import Dict, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from ._params import SUPPORTED_FREE, _check_free, _check_mesh
+from ._params import (SUPPORTED_FREE, _check_free, _check_mesh,
+                      _mesh_devices)
 from .forwards import build_flux_forward, build_sed_forward
 from .rrl import build_rrl_spectrum_forward
 
@@ -45,6 +46,9 @@ def sweep(jm, freqs, grid: Dict[str, Sequence], *, kind: str = 'sed',
     every combo's numbers are those of the single evaluation at its
     parameters.  ``batch_size`` is the number of combos whose outputs are
     gathered on the device before one copy to the host (default: all).
+    With ``mesh``, combo k runs on device k mod n of the mesh's first
+    axis, with the forward built again (on ``jm._replica``) on a device
+    other than the model's; the values equal those with ``mesh=None``.
     """
     _check_mesh(mesh)
     paths = tuple(grid)
@@ -65,25 +69,34 @@ def sweep(jm, freqs, grid: Dict[str, Sequence], *, kind: str = 'sed',
     thetas = np.stack([np.log(c) if SUPPORTED_FREE[p] == 'log' else c
                        for p, c in zip(paths, cols)], axis=1)
 
-    if kind == 'sed':
-        forward, _ = build_sed_forward(jm, freqs, paths, time, dtype)
-    elif kind == 'map':
-        forward, _ = build_flux_forward(jm, freqs, paths, time, dtype)
-    elif kind == 'rrl_spectrum':
-        if line is None:
-            raise ValueError("kind='rrl_spectrum' needs line=")
-        forward, _ = build_rrl_spectrum_forward(jm, line, freqs, paths,
-                                                time, dtype)
-    else:
+    if kind not in ('sed', 'map', 'rrl_spectrum'):
         raise ValueError(f"unknown sweep kind {kind!r}")
+    if kind == 'rrl_spectrum' and line is None:
+        raise ValueError("kind='rrl_spectrum' needs line=")
+
+    def build(model):
+        if kind == 'sed':
+            return build_sed_forward(model, freqs, paths, time, dtype)[0]
+        if kind == 'map':
+            return build_flux_forward(model, freqs, paths, time, dtype)[0]
+        return build_rrl_spectrum_forward(model, line, freqs, paths, time,
+                                          dtype)[0]
 
     n = thetas.shape[0]
     step = batch_size or n
     th = torch.as_tensor(thetas, device=jm.device)
+    devs = _mesh_devices(mesh, th.device)
+    forwards = {}
+    for dev in devs:
+        if dev not in forwards:
+            forwards[dev] = build(jm if dev == th.device else
+                                  jm._replica(dev))
     out = []
     with torch.no_grad():
         for lo in range(0, n, step):
-            out.append(torch.stack([forward(t) for t in th[lo:lo + step]])
+            vals = [forwards[devs[k % len(devs)]](th[k].to(
+                devs[k % len(devs)])) for k in range(lo, min(lo + step, n))]
+            out.append(torch.stack([v.to(th.device) for v in vals])
                        .cpu().numpy())
     return SweepResult(paths=paths,
                        points={p: c for p, c in zip(paths, cols)},

@@ -89,13 +89,15 @@ def fit_visibilities(jm, freqs, uvw_m, vis_obs, *, sigma=None,
     chi-squared |V_model - V_obs|^2 / sigma^2 (unit weights when omitted).
     """
     _check_mesh(mesh)
-    forward, theta0 = build_vis_forward(jm, freqs, uvw_m, free, time,
-                                        apply_pb, dish_diameter_m,
-                                        w_planes)
-    return _run_fit(forward, theta0, free,
-                    _vis_loss(vis_obs, sigma, theta0.device), steps,
-                    learning_rate, optimizer, n_starts, start_spread, seed,
-                    mesh)
+
+    def build(model):
+        forward, theta0 = build_vis_forward(model, freqs, uvw_m, free, time,
+                                            apply_pb, dish_diameter_m,
+                                            w_planes)
+        return forward, theta0, _vis_loss(vis_obs, sigma, theta0.device)
+
+    return _run_fit(build, jm, free, steps, learning_rate, optimizer,
+                    n_starts, start_spread, seed, mesh)
 
 
 def fit_uvfits(jm, uvfits_file: str, **kwargs) -> FitResult:
@@ -151,13 +153,17 @@ def fit_closures(jm, freqs, uvw_m, vis_obs, *, n_ant: int, n_t: int,
     pin the flux scale when more than shape parameters are free.
     """
     _check_mesh(mesh)
-    forward, theta0 = build_vis_forward(jm, freqs, uvw_m, free, time,
-                                        apply_pb, dish_diameter_m,
-                                        w_planes)
-    loss = _closure_loss(vis_obs, n_ant, n_t, use_phases, use_log_amps,
-                         phase_weight, amp_weight, device=jm.device)
-    return _run_fit(forward, theta0, free, loss, steps, learning_rate,
-                    optimizer, n_starts, start_spread, seed, mesh)
+
+    def build(model):
+        forward, theta0 = build_vis_forward(model, freqs, uvw_m, free, time,
+                                            apply_pb, dish_diameter_m,
+                                            w_planes)
+        return forward, theta0, _closure_loss(
+            vis_obs, n_ant, n_t, use_phases, use_log_amps, phase_weight,
+            amp_weight, device=model.device)
+
+    return _run_fit(build, jm, free, steps, learning_rate, optimizer,
+                    n_starts, start_spread, seed, mesh)
 
 
 def _check_closure_kinds(n_ant, use_phases, use_log_amps):

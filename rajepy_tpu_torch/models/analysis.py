@@ -60,6 +60,13 @@ def light_curve(model, times_yr, freqs) -> np.ndarray:
     sum), the channel stage and the sum over the map.  The epochs' sums
     stay on the device and leave it in one copy at the end.
     """
+    return epoch_flux_sums(model, times_yr, freqs).cpu().numpy()
+
+
+def epoch_flux_sums(model, times_yr, freqs) -> torch.Tensor:
+    """The body of :func:`light_curve`: the (n_times, n_chan) integrated
+    fluxes [Jy] as a tensor on the model's device (what each shard of
+    ``parallel.sharding.light_curve_sharded`` runs on its epochs)."""
     f = model._ensure_fields()
     st = model._rt_static()
     t_0, reyn, csize, dist = model._rt_constants()
@@ -71,7 +78,7 @@ def light_curve(model, times_yr, freqs) -> np.ndarray:
         fluxes = rt.flux_ff_maps(freqs, scale * a_map[None], st.tbar,
                                  st.any_in, csize, dist)
         sums.append(fluxes.sum(dim=(1, 2)))
-    return torch.stack(sums).cpu().numpy()
+    return torch.stack(sums)
 
 
 def moment_maps(cube, freqs, rest_freq: float) -> dict:

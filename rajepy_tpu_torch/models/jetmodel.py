@@ -41,6 +41,7 @@ and copy only their maps and profiles to the host.
 """
 from __future__ import annotations
 
+import copy
 import hashlib
 import os
 import pickle
@@ -90,6 +91,29 @@ class RTStatic(NamedTuple):
     seg: Optional[torch.Tensor] = None    # (n_act,) int64 xz-tile segments
     # kernels.segment_order's (order, seg_start) of seg, int32 on the device
     walk: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+
+class _OnDevice:
+    """A NamedTuple of tensors (or of tuples of them) read on ``device``:
+    each field is copied there the first time it is read, and kept.  A
+    tensor already on ``device`` is not copied."""
+
+    def __init__(self, src, device: torch.device):
+        self._src, self._device, self._copies = src, device, {}
+
+    def __getattr__(self, name):
+        if name.startswith('_') or name not in type(self._src)._fields:
+            raise AttributeError(name)
+        if name not in self._copies:
+            self._copies[name] = _to_device(getattr(self._src, name),
+                                            self._device)
+        return self._copies[name]
+
+
+def _to_device(v, device):
+    if isinstance(v, tuple):
+        return tuple(_to_device(x, device) for x in v)
+    return None if v is None else v.to(device)
 
 
 # Sub-threshold fill factors / areas present as NaN at the public API
@@ -238,6 +262,7 @@ class JetModel:
                         'which': side}
 
         self._time = 0.0
+        self._replica_of: Optional[JetModel] = None
         self._fields: Optional[StaticFields] = None
         self._host_ff_cache = None  # (areas, ffs) host copies for save()
         self._reset_derived_caches()
@@ -247,12 +272,14 @@ class JetModel:
 
     def _reset_derived_caches(self):
         """Drop everything derived from the fields or the burst set: the
-        RT statics and their tile compactions, and the memoised
-        characteristic conditions and departure coefficients."""
+        RT statics and their tile compactions, the copies on other devices
+        (:meth:`_replica`), and the memoised characteristic conditions and
+        departure coefficients."""
         self._rt_static_cache: Optional[RTStatic] = None
         self._tile_ids_cache = None
         self._rrl_tiles_cache = None
         self._emergent_tiles_cache = None
+        self._replicas: Dict[torch.device, JetModel] = {}
         self._char_cond_cache: Dict[float, tuple] = {}
         self._departure_cache: Dict[tuple, tuple] = {}
 
@@ -266,6 +293,9 @@ class JetModel:
                                         self._device)
 
     def _ensure_fields(self) -> StaticFields:
+        if self._fields is None and self._replica_of is not None:
+            self._fields = _OnDevice(self._replica_of._ensure_fields(),
+                                     self._device)
         if self._fields is None:
             self._log.add_entry(
                 "INFO", "Calculating cells' fill factors/projected areas "
@@ -748,6 +778,11 @@ class JetModel:
           (:func:`kernels.segment_order`), so that no epoch does host work
           for it.
         """
+        if self._rt_static_cache is None and self._replica_of is not None:
+            src = self._replica_of
+            self._rt_static_cache = _OnDevice(src._rt_static(),
+                                              self._device)
+            self._ts_pack_offset = src._ts_pack_offset
         if self._rt_static_cache is None:
             f = self._ensure_fields()
             t_0, reyn, csize, _ = self._rt_constants()
@@ -781,6 +816,30 @@ class JetModel:
                                              ts_signed, a_t, em_t, tss_t,
                                              seg_d, walk)
         return self._rt_static_cache
+
+    def _replica(self, device) -> "JetModel":
+        """This model read on ``device``, for the shards of
+        :mod:`..parallel` and the fits' chains on other devices: a shallow
+        copy with a time of its own, whose field cubes, RT statics and RRL
+        tiles are this model's (made here first if need be), each copied
+        to ``device`` the first time the copy reads it (nothing is copied
+        where ``device`` is the model's own).  Its methods are the model's,
+        so their products are the model's bit for bit on the same device.
+        One copy per device, kept until the fields change; the memoised
+        characteristic conditions and departure coefficients are
+        shared."""
+        device = torch.device(device)
+        rep = self._replicas.get(device)
+        if rep is None:
+            rep = copy.copy(self)
+            rep._device = device
+            rep._fields = None
+            rep._rt_static_cache = rep._rrl_tiles_cache = None
+            rep._emergent_tiles_cache = None
+            rep._replicas = {}
+            rep._replica_of = self
+            self._replicas[device] = rep
+        return rep
 
     def _tile_walk(self, seg):
         """:func:`kernels.segment_order` of the tiles' segment ids, as int32
@@ -961,6 +1020,9 @@ class JetModel:
         them; ``(order, seg_start)`` (int32, :func:`kernels.segment_order`)
         is the kernel's walk over each (x, z) tile position's tiles, the
         epoch compaction's own where it made one."""
+        if self._rrl_tiles_cache is None and self._replica_of is not None:
+            tiles = self._replica_of._rrl_tiles() or ()
+            self._rrl_tiles_cache = _to_device(tuple(tiles), self._device)
         if self._rrl_tiles_cache is None:
             f = self._ensure_fields()
             st = self._rt_static()

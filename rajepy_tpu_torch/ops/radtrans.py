@@ -117,10 +117,22 @@ def tau_ff_cube(freqs, temp, n_es, ds_cm, inside, t_0: float,
 def mean_temperature_map(temp, inside):
     """LOS-mean temperature over jet cells (nanmean of classes.py:1471-1472,
     as a masked mean).  Returns ``(tbar, any_inside)``."""
-    n = inside.sum(dim=LOS_AXIS)
+    return mean_temperature_from_sums(*temperature_sums(temp, inside))
+
+
+def temperature_sums(temp, inside):
+    """The LOS sum of the jet cells' temperatures and their count, the
+    numerator and denominator of :func:`mean_temperature_map`: each adds
+    over slabs of the line of sight, where a mean of the slabs' means
+    would be wrong."""
     s = torch.where(inside, temp, torch.zeros_like(temp)).sum(dim=LOS_AXIS)
+    return s, inside.sum(dim=LOS_AXIS)
+
+
+def mean_temperature_from_sums(s, n):
+    """``(tbar, any_inside)`` from :func:`temperature_sums`' ``(s, n)``."""
     pos = n > 0
-    tbar = torch.where(pos, s / n.clamp_min(1).to(temp.dtype),
+    tbar = torch.where(pos, s / n.clamp_min(1).to(s.dtype),
                        torch.zeros_like(s))
     return tbar, pos
 

@@ -18,10 +18,11 @@ diagnostic figures of :mod:`.plotting` (matplotlib, imported only then):
 the grid and mass-loss figures at the start, a model figure per epoch
 directory and a radio SED per continuum epoch after the observations.
 
-Not ported yet, and refused before any work is done: the multi-device
-fan-out (``device_fanout=True``) and channel-sharded cube imaging
-(``params['synthobs']`` ``shard_imaging=True``; see
-``synthobs.check_ported``).
+With two or more devices (``parallel.sharding.available_devices``: the
+model's cards), ``execute`` computes the RT products of all pending runs in
+a device fan-out (:mod:`.parallel.fanout`) before the per-run loop writes
+them, and ``synthobs`` images line cubes channel-sharded; with one device
+both run sequentially.
 
 The products of a run leave the device in one copy: on a CUDA model the
 three tensors go into pinned host buffers that the pipeline keeps from run
@@ -321,15 +322,93 @@ class Pipeline:
     # ------------------------------------------------------------------ #
     def _prefan_rt_products(self, resume: bool, clobber: bool,
                             dryrun: bool, device_fanout) -> Dict[int, Dict]:
-        """RT products of pending runs computed ahead of the per-run loop
-        by a multi-device fan-out, as {run_idx: {'em', 'tau', 'flux'}}.
-        The fan-out is not ported: asking for it raises, and without it
-        every run computes its products inside the loop."""
-        if device_fanout:
-            raise NotImplementedError(
-                "device_fanout: the multi-device fan-out (parallel.fanout) "
-                "is not ported yet; runs execute one after another")
-        return {}
+        """RT products of all pending runs computed by the device fan-out
+        (:mod:`.parallel.fanout`) ahead of the per-run loop, which writes
+        them: {run_idx: {'em', 'tau', 'flux'}} of numpy arrays.  Empty when
+        the fan-out is off (one device, ``device_fanout=False``, or no group
+        of two or more pending runs of one kind and channel count)."""
+        from .parallel import fanout, sharding
+        fanned: Dict[int, Dict] = {}
+        if dryrun:
+            return fanned
+        n_dev = len(sharding.available_devices(self.model.device))
+        if device_fanout is None:
+            device_fanout = n_dev > 1
+        if not device_fanout or n_dev < 2:
+            return fanned
+
+        def pending(run):
+            if not run.radiative_transfer:
+                return False
+            if run.completed and resume and not clobber:
+                return False
+            return clobber or not (os.path.exists(run.fits_em) and
+                                   os.path.exists(run.fits_tau) and
+                                   os.path.exists(run.fits_flux))
+
+        groups: Dict[tuple, list] = {}
+        for idx, run in enumerate(self.runs):
+            if not pending(run):
+                continue
+            nchan = len(np.atleast_1d(run.chan_freqs))
+            # non-LTE RRL runs fan out too, with per-run departure
+            # coefficients; grouped apart from LTE runs
+            key = ('continuum', nchan) if run.obs_type == 'continuum' \
+                else ('rrl', run.line, nchan, getattr(run, 'lte', True))
+            groups.setdefault(key, []).append(idx)
+
+        nx, nz = self.model.nx, self.model.nz
+        itemsize = torch.empty((), dtype=self.model.dtype).element_size()
+        cached_bytes = 0.0
+        for key, idxs in groups.items():
+            if len(idxs) < 2:
+                continue  # nothing to fan out for a lone run
+            # bound host memory: the fanned cache holds every run's tau
+            # AND flux maps at once (the sequential loop holds one run's),
+            # cumulatively over the groups until the loop pops them
+            nchan = len(np.atleast_1d(self.runs[idxs[0]].chan_freqs))
+            group_bytes = len(idxs) * nchan * nx * nz * itemsize * 2
+            if cached_bytes + group_bytes > 8e9:
+                self.log.add_entry(
+                    "WARNING",
+                    f"Skipping device fan-out for {len(idxs)} "
+                    f"{key[0]} runs: cached products would need "
+                    f"{(cached_bytes + group_bytes) / 1e9:.1f} GB of "
+                    "host memory; running sequentially")
+                continue
+            cached_bytes += group_bytes
+            years = [self.runs[i].year for i in idxs]
+            freqs_mat = np.stack([np.atleast_1d(np.asarray(
+                self.runs[i].chan_freqs, dtype=float)) for i in idxs])
+            if key[0] == 'continuum':
+                em, taus, fluxes = fanout.continuum_runs_fanout(
+                    self.model, years, freqs_mat)
+            else:
+                b_pairs = None
+                if not key[3]:
+                    # each run's table coefficients at its model time, as
+                    # the sequential rrl_rt_products derives them
+                    t_saved = self.model.time
+                    try:
+                        pairs = []
+                        for i in idxs:
+                            self.model.time = \
+                                self.runs[i].year * cnsts.YEAR
+                            pairs.append(
+                                self.model.departure_coefficients(key[1]))
+                    finally:
+                        self.model.time = t_saved
+                    b_pairs = np.asarray(pairs, dtype=float)
+                em, taus, fluxes = fanout.rrl_runs_fanout(
+                    self.model, key[1], years, freqs_mat, contsub=False,
+                    b_pairs=b_pairs)
+            for k, i in enumerate(idxs):
+                fanned[i] = {'em': em[k], 'tau': taus[k], 'flux': fluxes[k]}
+            self.log.add_entry(
+                "INFO",
+                f"Fanned {len(idxs)} {key[0]} runs' radiative transfer "
+                f"across {n_dev} devices")
+        return fanned
 
     def _products_to_host(self, products: Dict[str, torch.Tensor]
                           ) -> Dict[str, np.ndarray]:
@@ -367,18 +446,12 @@ class Pipeline:
         ``ModelPlot.pdf`` in each epoch's directory and, after synthetic
         observations, ``RadioSED<year>yrPlot.{png,pdf}`` per continuum
         epoch; their time, less a grid fill they start, is recorded as the
-        stage ``plots``.  Not ported yet, and refused with
-        ``NotImplementedError`` before any work is done: ``device_fanout``
-        other than None or False, and with ``simobserve=True``
-        ``params['synthobs']`` ``shard_imaging=True``."""
-        if simobserve:
-            # an option of params['synthobs'] that needs an unported part
-            # of synthobs raises here, before any work
-            from .synthobs import check_ported
-            check_ported(**dict(self.params.get('synthobs') or {}))
-        fanned = self._prefan_rt_products(resume, clobber, dryrun,
-                                          device_fanout)
-
+        stage ``plots``.  ``device_fanout`` is the run-level multi-device
+        fan-out (:mod:`.parallel.fanout`): None (the default) fans out
+        whenever ``parallel.sharding.available_devices`` holds two or more
+        devices, computing all pending runs' RT products before the per-run
+        loop writes them; False forces the sequential loop, and with it
+        unsharded cube imaging; with one device it does nothing."""
         self.log.add_entry("INFO", "Beginning pipeline execution")
         if verbose != self.log.verbose:
             self.log.verbose = verbose
@@ -410,6 +483,9 @@ class Pipeline:
                 pfunc.jml_profile_plot(
                     self, show_plot=False,
                     savefig=os.sep.join([self.dcy, 'JMLPlot.pdf']))
+
+        fanned = self._prefan_rt_products(resume, clobber, dryrun,
+                                          device_fanout)
 
         for idx, run in enumerate(self.runs):
             self.model.time = run.year * cnsts.YEAR
@@ -568,6 +644,11 @@ class Pipeline:
                 # failure reuses the pre-imaging visibility sets (same
                 # model/plan/seed signature) instead of resampling
                 so_kwargs.setdefault('reuse_vis', resume and not clobber)
+                # device_fanout=False also pins cube imaging to the
+                # unsharded CLEAN, so that a sequential execute is
+                # sequential throughout
+                if device_fanout is False:
+                    so_kwargs.setdefault('shard_imaging', False)
                 if run.obs_type != 'continuum':
                     # continuum-only knobs are stripped rather than
                     # failing the line runs: a params file asking for

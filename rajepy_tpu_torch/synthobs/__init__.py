@@ -31,8 +31,9 @@ chain in float64 everywhere but on a TPU); the uv plan, the gain tracks,
 the beam fit, the beam image, the source fit and the file writes are host
 numpy, as in the JAX package.
 
-Not ported yet, and refused before any work by :func:`check_ported`:
-channel-sharded cube imaging (``shard_imaging=True``).
+A line cube is imaged channel-sharded (``parallel.sharding.
+sharded_clean_cube``) when ``shard_imaging`` asks for it and there are at
+least as many channels as devices.
 """
 from __future__ import annotations
 
@@ -56,22 +57,11 @@ from ..utils.profiling import KernelTimer
 from . import calibration, imaging, imfit as imfit_mod, observatories, \
     sampler, uvgen
 
-__all__ = ["simulate_observation", "check_ported", "observatories", "uvgen",
-           "sampler", "imaging", "imfit_mod", "calibration"]
+__all__ = ["simulate_observation", "observatories", "uvgen", "sampler",
+           "imaging", "imfit_mod", "calibration"]
 
 #: the precision of the uv/imaging chain on every device
 _RDT = torch.float64
-
-
-def check_ported(shard_imaging: Optional[bool] = None, **_ignored) -> None:
-    """Raise ``NotImplementedError`` for an observation that needs a part
-    of the JAX package's synthobs that is not ported yet: channel-sharded
-    cube imaging (its ``parallel`` package).  Takes
-    :func:`simulate_observation`'s keywords (others are ignored)."""
-    if shard_imaging:
-        raise NotImplementedError(
-            "synthobs: not ported yet: shard_imaging=True (channel-sharded "
-            "imaging)")
 
 
 def _product_path(fitsfile: str, suffix: str) -> str:
@@ -183,8 +173,10 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
     than terms, ``selfcal`` with mtmfs, an unknown ``selfcal`` mode,
     ``selfcal_rounds < 1``); for gain transfer, after sampling and before
     any write, a gains product of another antenna count or with a zero
-    gain.  ``shard_imaging=True`` is not ported yet and raises
-    ``NotImplementedError`` before any work (:func:`check_ported`).
+    gain.  ``shard_imaging`` (None: whenever
+    ``parallel.sharding.available_devices`` holds two or more devices)
+    images a line cube with its channels split over the devices, when it
+    has at least as many channels as devices.
     """
     cube_mode = run.obs_type != 'continuum'
     if deconvolver not in ('hogbom', 'clark', 'multiscale', 'mtmfs'):
@@ -212,7 +204,6 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
         raise ValueError("selfcal is continuum (mfs) only: line cubes "
                          "lack the per-solint SNR for a gain solve; "
                          "transfer continuum solutions instead")
-    check_ported(shard_imaging=shard_imaging)
     if pb_model not in ('gaussian', 'airy'):
         raise ValueError(f"unknown pb_model {pb_model!r} (gaussian/airy)")
     if isinstance(save_products, str):
@@ -619,10 +610,31 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
             lam_c = cnsts.C / run.freq
             w_vis = uvtaper_weights(uvw[:, 0] / lam_c, uvw[:, 1] / lam_c)
             info: Dict = {}
-            restored_d, dirty_d = imaging.clean_cube(
-                uvw, freqs, noisy, w_vis, imsize, cell_rad, mask,
-                beam_kernel, weighting=weighting, robust=robust, gain=0.1,
-                niter=niter, nsigma=nsigma, info=info)
+            clean_args = (uvw, freqs, noisy, w_vis, imsize, cell_rad, mask,
+                          beam_kernel)
+            clean_kw = dict(weighting=weighting, robust=robust, gain=0.1,
+                            niter=niter, nsigma=nsigma, info=info)
+            from ..parallel import sharding as psh
+            devs = psh.available_devices(noisy.device)
+            shard = len(devs) > 1 if shard_imaging is None else \
+                bool(shard_imaging)
+            if shard and 1 < len(devs) <= n_chan:
+                # each device CLEANs its own block of channels (the
+                # reference's tclean cube is sequential,
+                # classes.py:2771-2782)
+                if log:
+                    log.add_entry(
+                        "INFO", f"Imaging {n_chan} channels across "
+                                f"{len(devs)} devices (channel-sharded "
+                                "CLEAN)", timestamp=False)
+                mesh = psh.make_mesh(n_los=1, n_chan=len(devs),
+                                     devices=devs)
+                restored_d, dirty_d = (x.gather() for x in
+                                       psh.sharded_clean_cube(
+                                           mesh, *clean_args, **clean_kw))
+            else:
+                restored_d, dirty_d = imaging.clean_cube(*clean_args,
+                                                         **clean_kw)
             kt.set_result(restored_d)
             restored_cube = restored_d.cpu().numpy()
             if 'dirty' in save_products:

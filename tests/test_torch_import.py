@@ -49,6 +49,7 @@ def test_port_imports_without_jax():
         "from rajepy_tpu_torch.models import analysis\n"
         "from rajepy_tpu_torch.plotting import functions\n"
         "from rajepy_tpu_torch import casa_compat, main\n"
+        "from rajepy_tpu_torch.parallel import fanout, sharding\n"
         "for name in ('_config', 'pipeline', 'models.runs',\n"
         "             'models.analysis', 'plotting.functions',\n"
         "             'io.checkpoint', 'synthobs', 'synthobs.atmosphere',\n"
@@ -56,7 +57,8 @@ def test_port_imports_without_jax():
         "             'synthobs.observatories', 'synthobs.sampler',\n"
         "             'synthobs.uvgen', 'synthobs.calibration',\n"
         "             'synthobs.uvfits', 'casa_compat',\n"
-        "             'casa_compat.tasks', 'casa_compat.script', 'main'):\n"
+        "             'casa_compat.tasks', 'casa_compat.script', 'main',\n"
+        "             'parallel.sharding', 'parallel.fanout'):\n"
         "    assert 'rajepy_tpu_torch.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'rajepy_tpu' or m.startswith('rajepy_tpu.')\n"
@@ -73,17 +75,19 @@ def test_port_imports_without_jax():
 # ported, each with the keyword that asks for it: of Pipeline.execute, or
 # of params['synthobs']; and for a ported one, the products it writes
 _NOT_PORTED = {
-    'device_fanout=True': ({'device_fanout': True}, None),
+    'device_fanout=True': ({'device_fanout': True}, {}),
     'corruption': ({}, {'corruption': {'amp_rms': 0.1}}),
     'selfcal': ({}, {'selfcal': 'phase'}),
     'applycal_gains': ({}, {'applycal_gains': 'gains.npz'}),
     'export_uvfits=True': ({}, {'export_uvfits': True}),
     'shard_imaging=True': ({}, {'shard_imaging': True}),
 }
-NOW_PORTED = {'corruption': ('ms_noisy',),
+NOW_PORTED = {'device_fanout=True': ('clean_image',),
+              'corruption': ('ms_noisy',),
               'selfcal': ('ms_selfcal', 'gains'),
               'applycal_gains': ('ms_noisy',),
-              'export_uvfits=True': ('uvfits_clean', 'uvfits_noisy')}
+              'export_uvfits=True': ('uvfits_clean', 'uvfits_noisy'),
+              'shard_imaging=True': ('clean_image',)}
 
 
 @pytest.mark.parametrize("option", list(_NOT_PORTED))
@@ -92,8 +96,10 @@ def test_what_the_docstring_calls_not_ported_still_raises(option,
                                                           tmp_path):
     """Each option the package docstring lists as not ported is named
     there and raises ``NotImplementedError`` before any work.  The
-    calibration and export options, listed until they were ported, are
-    named there no more: a run observed with one writes its products."""
+    calibration and export options and the multi-device ones
+    (``device_fanout=True``, ``shard_imaging=True``; on one CPU device they
+    run the sequential paths), listed until they were ported, are named
+    there no more: a run observed with one writes its products."""
     import numpy as np
     import rajepy_tpu_torch
     doc = ' '.join(rajepy_tpu_torch.__doc__.split())
@@ -192,30 +198,51 @@ def test_fit_exports_every_public_name_of_the_jax_module():
 
 def _fit_entry_calls(tmp_path):
     """Each entry point of the port's fit that takes ``mesh=``, called with
-    one, on a 16^3 CPU model."""
+    one (two starts, two steps; a sweep of two combos), on a 16^3 CPU
+    model: what it returns that depends on the mesh."""
     import numpy as np
     from rajepy_tpu_torch import fit
+    from rajepy_tpu_torch.synthobs import uvfits
     f = np.array([1e11])
-    uvw = np.zeros((3, 3))
-    vis = np.zeros((1, 3), complex)
+    nu0 = 3.2852e10
+    line_f = np.array([nu0 * 0.9999, nu0, nu0 * 1.0001])
+    rng = np.random.default_rng(1)
+    uvw = rng.normal(0.0, 500.0, (3, 3))
+    vis = np.ones((1, 3), complex)
+    kw = dict(steps=2, n_starts=2)
+
+    def from_file(jm, m):
+        path = str(tmp_path / 'obs.uvfits')
+        uvfits.write_uvfits(path, uvw, vis.real, vis.imag, f,
+                            rng.normal(0.0, 300.0, (3, 3)),
+                            np.array([0, 0, 1]), np.array([1, 2, 2]),
+                            np.zeros(3), 67.9, 18.1, sigma=1.0)
+        return fit.fit_uvfits(jm, path, mesh=m, **kw)
+
+    def theta(res):
+        return res.theta
+
     return {
-        'fit_sed': lambda jm, m: fit.fit_sed(jm, f, [1.0], mesh=m),
-        'fit_map': lambda jm, m: fit.fit_map(jm, 1e11, np.ones((16, 16)),
-                                             mesh=m),
-        'fit_visibilities': lambda jm, m: fit.fit_visibilities(
-            jm, f, uvw, vis, mesh=m),
-        'fit_uvfits': lambda jm, m: fit.fit_uvfits(
-            jm, str(tmp_path / 'absent.uvfits'), mesh=m),
-        'fit_closures': lambda jm, m: fit.fit_closures(
-            jm, f, uvw, vis, n_ant=3, n_t=1, use_log_amps=False, mesh=m),
-        'fit_rrl_spectrum': lambda jm, m: fit.fit_rrl_spectrum(
-            jm, 'H58a', f, [1.0], mesh=m),
-        'fit_rrl_cube': lambda jm, m: fit.fit_rrl_cube(
-            jm, 'H58a', f, np.ones((1, 16, 16)), mesh=m),
-        'fit_joint': lambda jm, m: fit.fit_joint(
-            jm, [{'kind': 'sed', 'freqs': f, 'observed': [1.0]}], mesh=m),
-        'sweep': lambda jm, m: fit.sweep(
-            jm, f, {'properties.mlr_bj': [1e-7]}, mesh=m),
+        'fit_sed': (lambda jm, m: fit.fit_sed(jm, f, [1e-3], mesh=m, **kw),
+                    theta),
+        'fit_map': (lambda jm, m: fit.fit_map(
+            jm, 1e11, np.ones((16, 16)), mesh=m, **kw), theta),
+        'fit_visibilities': (lambda jm, m: fit.fit_visibilities(
+            jm, f, uvw, vis, mesh=m, **kw), theta),
+        'fit_uvfits': (from_file, theta),
+        'fit_closures': (lambda jm, m: fit.fit_closures(
+            jm, f, uvw, vis, n_ant=3, n_t=1, use_log_amps=False, mesh=m,
+            **kw), theta),
+        'fit_rrl_spectrum': (lambda jm, m: fit.fit_rrl_spectrum(
+            jm, 'H58a', line_f, [1e-4, 2e-4, 1e-4], mesh=m, **kw), theta),
+        'fit_rrl_cube': (lambda jm, m: fit.fit_rrl_cube(
+            jm, 'H58a', line_f, np.ones((3, 16, 16)), mesh=m, **kw), theta),
+        'fit_joint': (lambda jm, m: fit.fit_joint(
+            jm, [{'kind': 'sed', 'freqs': f, 'observed': [1e-3]}], mesh=m,
+            **kw), theta),
+        'sweep': (lambda jm, m: fit.sweep(
+            jm, f, {'properties.mlr_bj': [1e-7, 2e-7]}, mesh=m),
+            lambda res: res.values),
     }
 
 
@@ -223,29 +250,32 @@ def _fit_entry_calls(tmp_path):
                                    'fit_uvfits', 'fit_closures',
                                    'fit_rrl_spectrum', 'fit_rrl_cube',
                                    'fit_joint', 'sweep'])
-def test_fit_mesh_refused_before_any_work(entry, model_params, tmp_path,
-                                          monkeypatch):
-    """``mesh=`` (the JAX package's device sharding) raises
-    ``NotImplementedError`` before any work: no grid fill, no file read
-    (``fit_uvfits`` is given a file that does not exist).  The package
-    docstring names it among what is not ported, and ``fit`` no more."""
+def test_fit_mesh_refused_before_any_work(entry, model_params, tmp_path):
+    """``mesh=`` (the JAX package's device sharding), refused until
+    ``parallel`` was ported, runs: with a mesh of two CPU shards each entry
+    point gives, bit for bit, what it gives with ``mesh=None``, and finite.
+    A mesh that is not one of ``parallel.sharding`` raises ``TypeError``.
+    The package docstring names ``mesh=`` among what is not ported no
+    more."""
+    import numpy as np
+    import torch
     import rajepy_tpu_torch
     from rajepy_tpu_torch import JetModel
-    from rajepy_tpu_torch.models import fields
-
-    def no_fill(*args, **kwargs):
-        raise AssertionError('the grid was filled')
+    from rajepy_tpu_torch.parallel import sharding
 
     model_params['grid'].update(n_x=16, n_y=16, n_z=16)
     jm = JetModel(model_params, device='cpu')
-    monkeypatch.setattr(fields, 'compute_static_fields', no_fill)
-    call = _fit_entry_calls(tmp_path)[entry]
-    with pytest.raises(NotImplementedError, match='mesh= is not ported'):
+    call, product = _fit_entry_calls(tmp_path)[entry]
+    mesh = sharding.make_mesh(n_los=1, n_chan=2,
+                              devices=[torch.device('cpu')] * 2)
+    got = product(call(jm, mesh))
+    assert np.all(np.isfinite(got))
+    np.testing.assert_array_equal(got, product(call(jm, None)))
+    with pytest.raises(TypeError, match='mesh='):
         call(jm, object())
-    assert jm._fields is None
     doc = ' '.join(rajepy_tpu_torch.__doc__.split())
     not_ported = doc[doc.index('Not ported yet:'):doc.index('Package layout')]
-    assert "``fit``'s starts and sweeps, ``mesh=``" in not_ported
+    assert 'mesh=' not in not_ported
     assert '``fit``,' not in not_ported
 
 

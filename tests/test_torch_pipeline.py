@@ -354,9 +354,10 @@ _CALIBRATION = {'corruption': ('ms_noisy',),
 def test_unported_stages_raise_before_any_work(kwargs, match, model_params,
                                                tmp_path):
     """What is not ported raises before any work; the observed RRL runs,
-    deconvolver='clark', the figures and the calibration and export
-    options, refused until they were ported, complete and write their
-    products."""
+    deconvolver='clark', the figures, the calibration and export options
+    and the device fan-out, refused until they were ported, complete and
+    write their products (the fan-out, on one CPU device, by the
+    sequential loop)."""
     kwargs = dict(kwargs)
     pline = kwargs.pop('pline', {})
     params = _pline_params(tmp_path / 'out', rrl='rrls' in pline)
@@ -396,6 +397,13 @@ def test_unported_stages_raise_before_any_work(kwargs, match, model_params,
             assert os.path.getsize(path) > 1000, path
         for run in pl.runs:
             assert all(os.path.isfile(getattr(run, p)) for p in PRODUCTS)
+        return
+    if match == 'fan-out':
+        pl.execute(verbose=False, **kwargs)
+        assert all(r.completed for r in pl.runs)
+        for run in pl.runs:
+            assert all(os.path.isfile(getattr(run, p)) for p in PRODUCTS)
+        assert not any('Fanned' in str(e) for e in pl.log.entries.values())
         return
     if match in ('line cubes', "deconvolver='clark'"):
         pl.execute(verbose=False, **kwargs)

@@ -15,10 +15,9 @@ The conftest jet at 24 x 60 x 24 cells, one continuum run (VLA A, 6 GHz,
   them, and its restored image and imfit then match the port's (1e-9,
   1e-6);
 * ``resume=True`` skips completed runs, ``clobber=True`` recomputes them;
-  the option that needs an unported part of synthobs (``shard_imaging``)
-  raises before any work, and what was refused before it was ported (line
-  cubes, the Clark and multiscale deconvolvers, gain corruption, selfcal,
-  gain transfer, UVFITS export) runs and writes its products.
+  what was refused before it was ported (line cubes, the Clark and
+  multiscale deconvolvers, gain corruption, selfcal, gain transfer, UVFITS
+  export, ``shard_imaging``) runs and writes its products.
 """
 import copy
 import os
@@ -242,7 +241,7 @@ def test_resume_skips_and_clobber_recomputes(model_params, root):
 
 NOW_PORTED = ('line cubes', "deconvolver='clark'",
               "deconvolver='multiscale'", 'corruption', 'selfcal',
-              'applycal_gains', 'export_uvfits')
+              'applycal_gains', 'export_uvfits', 'shard_imaging')
 
 
 @pytest.mark.parametrize('synthobs,rrl,match', [
@@ -260,9 +259,10 @@ def test_simulate_observation_refuses_unported_options(
     """Called directly, simulate_observation refuses what is not ported
     before it reads or writes anything; the cases that were refused until
     they were ported (an RRL run's line cube, deconvolver='clark' and
-    'multiscale', gain corruption, selfcal, gain transfer and UVFITS
-    export) now observe the run and write its restored image and the
-    option's products."""
+    'multiscale', gain corruption, selfcal, gain transfer, UVFITS export,
+    and shard_imaging, which on one CPU device images unsharded) now
+    observe the run and write its restored image and the option's
+    products."""
     pl = rajepy_tpu_torch.Pipeline(
         rajepy_tpu_torch.JetModel(_small(model_params), device='cpu'),
         _params(tmp_path / 'out', rrl=rrl))
