@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's continuum, RRL, emergent, pipeline,
-synthetic-observation, line-cube observation, analysis, command-line and
-fitting main paths once on one NVIDIA GPU.
+synthetic-observation, line-cube observation, analysis, command-line,
+fitting and parallel main paths and its examples once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -206,6 +206,36 @@ Phases (any failure exits non-zero; nothing is caught):
       function's launches count as ``launches_by_path.parallel``; prints
       each one's time, the six runs fanned and one by one, and the peak
       memory.
+   k. the examples (``rajepy_tpu_torch.examples``), each
+      ``main(device='cuda')`` in this process at the JAX example's own
+      sizes and step counts (but the step cuts of EXAMPLE_KWARGS in
+      ``fit_parameters`` and ``wide_field_vlbi``), each counted alone
+      (``launches_by_path.examples``), with its wall time, report and peak
+      memory above what was resident: ``single_chip_production`` (a second
+      512^3 float32 model, c_size 0.25 au; the single-base epoch kernel and
+      the RRL tile kernel must be launched; its SED equal to the sums of
+      ``flux_ff`` of the same model to 1e-6, its 128-channel H58a cube the
+      RRL tile kernel's plain version on the same card tensors and its
+      brightest light-curve epoch the plain epoch path, 2e-4; each
+      section's time), ``multi_chip_sharded`` with the device list
+      replaced by four shards of the card (the dual-base epoch kernel must
+      be launched; its EM, tau and flux maps the single-device ops on the
+      model's own fill to 1e-5, its light curve and fanned runs
+      ``light_curve`` and ``continuum_rt_products`` bit for bit),
+      ``nonlte_and_surveys`` (its float32 line-centre fluxes against the
+      same calls on the card in float64, 1e-5, and with per-sightline
+      departure maps 1e-3, and in float32 through the RRL tile kernel's
+      plain version, 2e-4), ``fit_parameters``, ``calibration_workflow``
+      (the selfcal dynamic range rising every round), ``uvfits_interchange``
+      (the file read back with the sizes the run wrote) and
+      ``wide_field_vlbi`` (the w-stacked error below 1e-3 of the total
+      flux, the coplanar one above); every noise-free fit within 2% of the
+      truth it prints, its loss falling, and its wall time over its steps
+      printed.  In the six small examples each epoch and RRL tile kernel's
+      first launch (copies of its card tensors, kept by a wrapper of the
+      kernel's wrapper) is held against its plain version, 2e-4.  Then
+      ``python -m rajepy_tpu_torch.examples.nonlte_and_surveys`` in its
+      own process must exit 0.
    Outputs must be finite, non-zero where the jet is (all-zero on the
    jet-free grid), equal to the plain versions on the same card tensors
    (2e-4), and a small model at float32 must agree with the float64 plain
@@ -246,7 +276,8 @@ Phases (any failure exits non-zero; nothing is caught):
 
 The line before the last is a JSON object with one entry per kernel, the
 line-cube observation's numbers, phase 2g's times, phase 2h's numbers
-(``cli``), phase 2i's (``fit``) and phase 2j's (``parallel``); the last
+(``cli``), phase 2i's (``fit``), phase 2j's (``parallel``) and phase
+2k's (``examples``); the last
 line is
 ``{"ok": true, "device": {...}}``.
 
@@ -257,6 +288,7 @@ times the flagship's three calls with the package of the checkout DIR
 checkout beside this file and a CUDA device: without either it exits
 non-zero and prints no result.
 """
+import contextlib
 import copy
 import json
 import os
@@ -411,6 +443,55 @@ PARALLEL_RTOL, PARALLEL_SCAN_RTOL = 1e-5, 2e-4
 PARALLEL_KERNELS = ('epoch_base_map_tiles', 'epoch_base_maps2_tiles',
                     'rrl_tiles_pallas', 'rrl_cube_pallas',
                     'transfer_scan_pallas')
+# phase 2k: the examples, in the order they run, each with the kernels it
+# must launch; the noise-free fits' recovery of the truths they print; the
+# production SED against flux_ff's sums of the same model; the w-stacked
+# error's limit (of the total flux); the example run by ``python -m``
+K1K4 = ('epoch_base_map_tiles', 'rrl_tiles_pallas')
+EXAMPLE_KERNELS = {
+    'single_chip_production': K1K4,
+    'multi_chip_sharded': ('epoch_base_map_tiles', 'epoch_base_maps2_tiles'),
+    'nonlte_and_surveys': K1K4,
+    'fit_parameters': K1K4,            # its observations, not its fits
+    'calibration_workflow': ('epoch_base_maps2_tiles',),
+    'uvfits_interchange': ('epoch_base_maps2_tiles',),
+    'wide_field_vlbi': ('epoch_base_map_tiles',),
+}
+# the cuts of step counts that keep phase 2k near its budget, against the
+# defaults (the JAX examples': fit_parameters' 500 SED steps, 2,000 MALA
+# steps of which 400 burn-in, 800 light-curve and 700 RRL steps;
+# wide_field_vlbi's 150): phase 2k prints each fit's time per step on the
+# card, and its recovery checks (2%) hold at these counts (on an NVIDIA
+# H100: the RRL fit's v_lsr, the slowest, 0.96% off at 200 steps and
+# 0.45% at 220; SED and light curve <= 0.62% at 100; wide-field mlr_bj
+# 1.8e-4 at 100 and at 150)
+EXAMPLE_KWARGS = {'fit_parameters': dict(sed_steps=100, mala_steps=100,
+                                         mala_burn=20, lc_steps=100,
+                                         rrl_steps=200),
+                  'wide_field_vlbi': dict(steps=100)}
+# the fit entry points the examples call, each timed in its example's run
+EXAMPLE_FITS = ('fit_sed', 'sample_posterior', 'fit_light_curve',
+                'fit_rrl_spectrum', 'fit_closures', 'fit_uvfits',
+                'fit_visibilities')
+# the kernel wrappers the small examples launch, each with its plain
+# version: every example but the 512^3 one (held at its own shapes) holds
+# each kernel's first launch against it
+# (wrapper: its launch count's name, its plain version)
+EXAMPLE_PLAIN = {
+    'epoch_base_map_tiles': ('epoch_base_map_tiles',
+                             'epoch_base_map_tiles_plain'),
+    'epoch_base_maps2_tiles': ('epoch_base_maps2_tiles',
+                               'epoch_base_maps2_tiles_plain'),
+    'rrl_tiles': ('rrl_tiles_pallas', 'rrl_tiles_plain')}
+# nonlte_and_surveys' float32 line-centre fluxes on the card against
+# float64 on the card: the LTE and non-LTE fluxes and their ratio with
+# scalar departure coefficients, and the flux with per-sightline maps
+# (whose float32 b_n2 - b_n1 carries ~5e-3 of its ~1e-5)
+NONLTE_F32_RTOL, NONLTE_MAPS_RTOL = 1e-5, 1e-3
+EXAMPLE_FIT_RTOL = 0.02
+EXAMPLE_SED_RTOL = 1e-6
+EXAMPLE_WSTACK_MAX = 1e-3
+EXAMPLE_SUBPROCESS = 'nonlte_and_surveys'
 
 
 def rel_err(got, want):
@@ -1139,11 +1220,11 @@ def check_rrl_kernels(rng, shape, dev):
           f"{active.numel()} row blocks flagged, equal to the plain version")
 
 
-def products_from_maps(jm, st, a_map, em):
+def products_from_maps(jm, st, a_map, em, freqs=FREQS):
     """continuum_rt_products' channel stage, from given epoch maps."""
     from rajepy_tpu_torch.ops import radtrans as rt
     t_0, reyn, csize, dist = jm._rt_constants()
-    freqs = jm._freqs(FREQS)
+    freqs = jm._freqs(freqs)
     taus = rt.tau_ff_channel_scale(freqs, t_0, reyn)[:, None, None] * \
         a_map[None]
     fluxes = rt.flux_ff_maps(freqs, taus, st.tbar, st.any_in, csize, dist)
@@ -3338,6 +3419,399 @@ def run_parallel(jm, log, tmp, smi, core16, scan_args, clean8):
                       'fill_whole_bytes': whole_peak}
 
 
+def report_lines(text):
+    """An example's printed report without the lines of its pipeline's log
+    (time-stamped entries and their run tables)."""
+    import re
+    stamp = re.compile(r'^\d{1,2}[A-Z]+\d{4}-\d\d:\d\d:\d\d::')
+    return [line for line in text.splitlines()
+            if not stamp.match(line) and not line.startswith(' ' * 20)]
+
+
+def recovered(name, got, truth):
+    """Raise unless each fitted value is within EXAMPLE_FIT_RTOL of the
+    truth the example prints beside it."""
+    for key, value in got.items():
+        rel = abs(float(value) / truth[key] - 1.0)
+        print(f"  {name} {key}: {float(value):.6g} against the truth "
+              f"{truth[key]:g}, {rel:.3e} off (tolerance "
+              f"{EXAMPLE_FIT_RTOL:g})")
+        if not rel <= EXAMPLE_FIT_RTOL:
+            raise AssertionError(f"{name}: {key} = {float(value):.6g} is "
+                                 f"{rel:.3e} off the truth {truth[key]:g}")
+
+
+@contextlib.contextmanager
+def wrapped(module, names, wrap):
+    """Replace each ``module.<name>`` by ``wrap(name, original)`` for the
+    block (the port's modules call these functions through the module, so
+    every call in the block goes through the wrapper)."""
+    saved = {n: getattr(module, n) for n in names}
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield saved
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def timing_calls(record):
+    """A ``wrapped`` wrapper that appends (name, steps, seconds) of each
+    call to ``record``: the call's wall time between two synchronisations
+    of the card, and its ``steps`` keyword."""
+    import torch
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            record.append((name, kwargs.get('steps'),
+                           time.perf_counter() - t0))
+            return out
+        return call
+    return wrap
+
+
+def copied(x):
+    """``x`` with every tensor in it (in tuples, lists, dicts) cloned."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(copied(v) for v in x)
+    if isinstance(x, dict):
+        return {k: copied(v) for k, v in x.items()}
+    return x
+
+
+def first_calls(seen):
+    """A ``wrapped`` wrapper that keeps copies of the arguments and the
+    result of each wrapper's first call in ``seen[name]``; the kernel
+    wrapper itself runs, and counts its launch, as always."""
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if name not in seen:
+                seen[name] = (copied(args), copied(kwargs), copied(out))
+            return out
+        return call
+    return wrap
+
+
+def hold_first_launches(example, seen, wrappers):
+    """Each kernel's first launch in an example, held against its plain
+    version on copies of the same card tensors (MAP_RTOL).  An epoch map
+    launched for per-tile partials (no ``seg``: every tile its own
+    position) gets the identity segment ids.  Returns the relative
+    errors."""
+    import inspect
+    import torch
+    from rajepy_tpu_torch.ops import kernels as kn
+    errs = {}
+    for name, (args, kwargs, out) in seen.items():
+        bound_args = inspect.signature(wrappers[name]).bind(*args, **kwargs)
+        bound_args.apply_defaults()
+        a = dict(bound_args.arguments)
+        a.pop('walk', None)
+        if 'seg' in a and a['seg'] is None:
+            tiles = a.get('base_t', a.get('a_t'))
+            a['seg'] = torch.arange(tiles.shape[0], device=tiles.device)
+        want = getattr(kn, EXAMPLE_PLAIN[name][1])(**a)
+        got, want = ((out, want) if isinstance(out, tuple)
+                     else ((out,), (want,)))
+        errs[name] = max(check(
+            f"{example} {name} first launch {tuple(g.shape)} vs its plain "
+            f"version", g, w, MAP_RTOL)[0] for g, w in zip(got, want))
+    return errs
+
+
+def nonlte_f32_vs_f64(out, smi):
+    """``nonlte_and_surveys``' H58a line-centre fluxes as the card ran them
+    (float32, the RRL tile kernel) against the same calls on the card in
+    float64 (the plain path) and in float32 through the kernel's plain
+    version: the first reading is the precision's, the second the
+    kernel's."""
+    import inspect
+    import torch
+    from rajepy_tpu_torch import JetModel
+    from rajepy_tpu_torch.examples import bundled_params, nonlte_and_surveys
+    from rajepy_tpu_torch.ops import kernels as kn
+    g = inspect.signature(nonlte_and_surveys.main).parameters['grid'].default
+    p = bundled_params()
+    p['grid'].update(n_x=g[0], n_y=g[1], n_z=g[2], l_z=None)
+    freqs = out['freqs']
+
+    def line_centre(dtype):
+        jm = JetModel(copy.deepcopy(p), dtype=dtype, device='cuda')
+        jm.time = 2.0 * YEAR
+        s_lte = np.nansum(jm.flux_rrl('H58a', freqs), axis=(1, 2))[4]
+        s_nl = np.nansum(jm.flux_rrl('H58a', freqs, lte=False),
+                         axis=(1, 2))[4]
+        maps = jm.departure_coefficient_maps('H58a')
+        s_map = np.nansum(jm.flux_rrl('H58a', freqs, lte=False,
+                                      departure_coeffs=maps), axis=(1, 2))[4]
+        return {'lte': float(s_lte), 'nonlte': float(s_nl),
+                'ratio': float(s_nl / s_lte), 'maps': float(s_map)}
+
+    card = {'lte': float(out['s_lte'][4]), 'nonlte': float(out['s_nonlte'][4]),
+            'ratio': float(out['ratio']), 'maps': float(out['s_map'][4])}
+    f64 = line_centre(torch.float64)
+    with wrapped(kn, ('rrl_tiles',), lambda n, fn: kn.rrl_tiles_plain):
+        plain32 = line_centre(torch.float32)
+    rel = {}
+    for what, ref in (('f64', f64), ('plain32', plain32)):
+        rel[what] = {k: abs(card[k] / ref[k] - 1.0) for k in card}
+        print(f"  nonlte_and_surveys line centre, card float32 (kernel) "
+              f"against the card in {what}: " + ', '.join(
+                  f"{k} {card[k]:.6e} / {ref[k]:.6e} ({rel[what][k]:.3e} "
+                  f"off)" for k in card) + f" [{smi}]")
+    for k, v in rel['f64'].items():
+        lim = NONLTE_MAPS_RTOL if k == 'maps' else NONLTE_F32_RTOL
+        if not v <= lim:
+            raise AssertionError(f"nonlte_and_surveys: float32 {k} "
+                                 f"{v:.3e} off float64 (limit {lim:g})")
+    for k, v in rel['plain32'].items():
+        if not v <= MAP_RTOL:
+            raise AssertionError(f"nonlte_and_surveys: {k} through the "
+                                 f"kernel {v:.3e} off its plain version")
+    return {'card': card, 'f64': f64, 'plain32': plain32, 'rel': rel}
+
+
+def run_examples(tmp, smi):
+    """The examples (``rajepy_tpu_torch.examples``) as shipped, counted
+    (phase 2k): each ``main(device='cuda')`` at the JAX example's own
+    sizes and step counts (but the cuts of EXAMPLE_KWARGS), in this
+    process, with the launch counters reset just before it and read just
+    after; its wall time, report, peak memory above what was resident and
+    each fit's time per step; its checks, and each kernel's first launch
+    in it against the kernel's plain version.  Then one example by
+    ``python -m`` in its own process.  Returns each example's launches and
+    the phase's numbers."""
+    import importlib
+    import io
+    import torch
+    from rajepy_tpu_torch import fit
+    from rajepy_tpu_torch.models import analysis
+    from rajepy_tpu_torch.ops import kernels as kn
+    from rajepy_tpu_torch.ops import radtrans as rt
+    from rajepy_tpu_torch.parallel import sharding
+    card = sharding.available_devices('cuda')[0]
+    print(f"phase 2k: the examples, each main(device='cuda') as shipped: "
+          f"{', '.join(EXAMPLE_KERNELS)}; multi_chip_sharded over "
+          f"{PARALLEL_SHARDS} shards of the one card [{smi}]")
+    launches, numbers = {}, {}
+    t_phase = time.perf_counter()
+
+    def run(name, hold=True, **kw):
+        mod = importlib.import_module(f'rajepy_tpu_torch.examples.{name}')
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fits, seen = [], {}
+        kn.reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), \
+                wrapped(fit, EXAMPLE_FITS, timing_calls(fits)), \
+                wrapped(kn, EXAMPLE_PLAIN if hold else (),
+                        first_calls(seen)) as kernel_wrappers:
+            out = mod.main(device='cuda', **kw,
+                           **EXAMPLE_KWARGS.get(name, {}))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = dict(kn.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - resident
+        launches[name] = counts
+        numbers[name] = {'wall_s': wall_s, 'peak_gb': peak / 1e9,
+                         'resident_gb': resident / 1e9,
+                         'launches': {k: v for k, v in counts.items() if v}}
+        print(f"  {name}: {wall_s:.4f} s, peak memory {peak / 1e9:.3f} GB "
+              f"above {resident / 1e9:.3f} GB resident; launches "
+              f"{numbers[name]['launches']} [{smi}]")
+        for line in report_lines(buf.getvalue()):
+            print(f"    | {line}")
+        if fits:
+            numbers[name]['fits'] = [
+                {'fit': f, 'steps': n, 's': s,
+                 'ms_per_step': s / n * 1e3 if n else None}
+                for f, n, s in fits]
+            print(f"  {name} fits (wall time of the call, card "
+                  f"synchronised): " + ', '.join(
+                      f"{f} {s:.4f} s" + (f" / {n} steps = "
+                                          f"{s / n * 1e3:.4f} ms a step"
+                                          if n else '')
+                      for f, n, s in fits) + f" [{smi}]")
+        require_launched(counts, EXAMPLE_KERNELS[name], f'example {name}')
+        if hold:
+            numbers[name]['held'] = hold_first_launches(name, seen,
+                                                        kernel_wrappers)
+            missing = set(EXAMPLE_KERNELS[name]) - {
+                EXAMPLE_PLAIN[w][0] for w in seen}
+            if missing:
+                raise AssertionError(f"example {name}: no first launch of "
+                                     f"{sorted(missing)} to hold")
+        return out
+
+    # the 512^3 production run: its SED, H58a cube and light curve against
+    # the plain versions on the same model's card tensors
+    out = run('single_chip_production', hold=False)
+    m = out['model']
+    sec = out['times']
+    numbers['single_chip_production']['sections_s'] = sec
+    print(f"  single_chip_production sections (host clock): " + ', '.join(
+        f"{k} {v:.4f} s" for k, v in sec.items()) + f" [{smi}]")
+    check_host("single_chip_production SED vs nansum(flux_ff) of the same "
+               "model", out['sed'],
+               np.nansum(m.flux_ff(out['freqs']), axis=(1, 2)),
+               EXAMPLE_SED_RTOL)
+    inputs, walk = rrl_tile_inputs(m, out['chans'])
+    check(f"single_chip_production {RRL_LINE} tau cube "
+          f"({len(out['chans'])} ch) vs the RRL tile kernel's plain version",
+          torch.from_numpy(out['tau_cube']).to(card),
+          kn.rrl_tiles_plain(*inputs, *walk), MAP_RTOL)
+    del inputs, walk
+    lc = out['light_curve']
+    k = int(np.argmax(lc[:, 0]))
+    st = m._rt_static()
+    a_map = kn.epoch_base_map_tiles_plain(
+        st.a_t, st.tss_t, st.seg, float(out['lc_years'][k]) * YEAR,
+        m._burst_tuple(), m.nx, m.nz, m._ts_pack_offset)
+    want = products_from_maps(m, st, a_map, a_map,
+                              out['lc_freqs'])[2].sum(dim=(1, 2))
+    check(f"single_chip_production light curve epoch {k} "
+          f"({out['lc_years'][k]:.4f} yr) vs plain",
+          torch.from_numpy(lc[k]).to(want), want, MAP_RTOL)
+    del out, m, st, a_map, want
+
+    # sharded over four shards of the card: the maps against the
+    # single-device ops on the model's own fill (the sharded step takes the
+    # static fields, with no burst factor), the epochs and the fanned runs
+    # against the one-device calls bit for bit
+    shards = [card] * PARALLEL_SHARDS
+    available = sharding.available_devices
+    sharding.available_devices = lambda device: shards
+    try:
+        out = run('multi_chip_sharded')
+    finally:
+        sharding.available_devices = available
+    if out['mesh'] != {'chan': 2, 'los': PARALLEL_SHARDS // 2}:
+        raise AssertionError(f"multi_chip_sharded: mesh {out['mesh']}")
+    m = out['model']
+    f = m._ensure_fields()
+    t_0, reyn, csize, dist = m._rt_constants()
+    freqs = m._freqs(out['freqs'])
+    ds = rt.path_length_cm(f.ff, f.area, csize)
+    taus = rt.tau_ff_maps(freqs, f.temp, f.nd * f.xi, ds, f.inside, t_0,
+                          reyn)
+    want = (rt.emission_measure_map(f.nd, f.xi, f.ff, f.area, csize), taus,
+            rt.flux_ff_maps(freqs, taus, *rt.mean_temperature_map(
+                f.temp, f.inside), csize, dist))
+    for name, got, w in zip(('EM', 'tau', 'flux'),
+                            (out['em'], out['taus'], out['fluxes']), want):
+        check(f"multi_chip_sharded {name} maps ({PARALLEL_SHARDS} shards) vs "
+              f"the single-device ops", got, w, PARALLEL_RTOL)
+    same_bits("multi_chip_sharded light curve vs light_curve",
+              out['light_curve'], analysis.light_curve(
+                  m, out['lc_years'], out['freqs'][:2]))
+    seq = []
+    for yr, fr in zip(out['years'], out['freqs_mat']):
+        m.time = yr * YEAR
+        seq.append(m.continuum_rt_products(fr))
+    same_bits(f"multi_chip_sharded fanned runs ({len(seq)}) vs "
+              f"continuum_rt_products", out['fanned'],
+              tuple(np.stack(p) for p in zip(*seq)))
+    del out, m, f, ds, taus, want, seq
+
+    out = run('nonlte_and_surveys')
+    if not (np.all(np.isfinite(out['s_lte'])) and out['ratio'] > 1.0 and
+            np.all(np.isfinite(out['alpha']))):
+        raise AssertionError("nonlte_and_surveys: non-finite fluxes or a "
+                             "non-LTE line weaker than the LTE one")
+    numbers['nonlte_and_surveys']['line_centre'] = nonlte_f32_vs_f64(out,
+                                                                     smi)
+    del out
+
+    out = run('fit_parameters')
+    truth = out['truth']
+    recovered('fit_parameters', {
+        'properties.mlr_bj': out['sed'].values['properties.mlr_bj'],
+        'properties.T_0': out['sed'].values['properties.T_0'],
+        't_0': out['light_curve'].t_0[0], 'hl': out['light_curve'].hl[0],
+        'chi': out['light_curve'].chi[0],
+        'rrl.properties.T_0': out['rrl'].values['properties.T_0'],
+        'rrl.target.v_lsr': out['rrl'].values['target.v_lsr']}, truth)
+    for key in ('sed', 'light_curve', 'rrl'):
+        require_falls(out[key], f"fit_parameters {key} fit")
+    numbers['fit_parameters']['acceptance'] = float(
+        out['posterior'].acceptance)
+    del out
+
+    out = run('calibration_workflow', out=os.path.join(tmp, 'example_cal'))
+    dr = [out['dynamic_range_before']] + out['dynamic_range_rounds']
+    if not all(b > a for a, b in zip(dr, dr[1:])):
+        raise AssertionError(f"calibration_workflow: the dynamic range "
+                             f"does not rise every round: {dr}")
+    recovered('calibration_workflow', {'mlr_bj': out['mlr_bj']},
+              {'mlr_bj': out['truth']})
+    require_falls(out['closure'], "calibration_workflow closure fit")
+    numbers['calibration_workflow']['dynamic_range'] = [float(d) for d in dr]
+    del out
+
+    out = run('uvfits_interchange', out=os.path.join(tmp, 'example_uvfits'))
+    with np.load(out['products']['ms_noisy']) as d:
+        written = d['vis_re'].shape
+    if (out['n_chan'], out['n_vis']) != written or out['n_ant'] != 27:
+        raise AssertionError(f"uvfits_interchange: read back "
+                             f"{out['n_chan']} x {out['n_vis']} "
+                             f"visibilities of {out['n_ant']} antennas, the "
+                             f"run wrote {written}")
+    print(f"  uvfits_interchange: the file reads back {out['n_chan']} x "
+          f"{out['n_vis']} visibilities of {out['n_ant']} antennas, as the "
+          f"run wrote them")
+    numbers['uvfits_interchange'].update(
+        fitted=float(out['fitted']),
+        chi2=(float(out['chi2_first']), float(out['chi2_last'])))
+    del out
+
+    out = run('wide_field_vlbi')
+    if not out['wstack_error'] < EXAMPLE_WSTACK_MAX < out['coplanar_error']:
+        raise AssertionError(f"wide_field_vlbi: w-stacked error "
+                             f"{out['wstack_error']:.3e}, coplanar "
+                             f"{out['coplanar_error']:.3e} of the total flux")
+    recovered('wide_field_vlbi', {'mlr_bj': out['mlr_bj']},
+              {'mlr_bj': out['truth']})
+    require_falls(out['fit'], "wide_field_vlbi visibility fit")
+    numbers['wide_field_vlbi'].update(
+        wstack_error=float(out['wstack_error']),
+        coplanar_error=float(out['coplanar_error']))
+    del out
+    torch.cuda.empty_cache()
+
+    # one example as a user runs it, in its own process
+    home = os.path.join(tmp, 'home_examples')
+    os.makedirs(home, exist_ok=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, '-m', f'rajepy_tpu_torch.examples.'
+         f'{EXAMPLE_SUBPROCESS}'], cwd=HERE, env=dict(os.environ, HOME=home),
+        capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    if res.returncode != 0 or not res.stdout.rstrip().endswith('OK'):
+        raise AssertionError(f"python -m rajepy_tpu_torch.examples."
+                             f"{EXAMPLE_SUBPROCESS}: exit {res.returncode}; "
+                             f"{res.stderr[-2000:]}")
+    print(f"  python -m rajepy_tpu_torch.examples.{EXAMPLE_SUBPROCESS}: "
+          f"exit 0 in {sub_s:.4f} s [{smi}]")
+    phase_s = time.perf_counter() - t_phase
+    print(f"  phase 2k {phase_s:.1f} s [{smi}]")
+    return launches, {'examples': numbers, 'subprocess_s': sub_s,
+                      'wall_s': phase_s}
+
+
 def check_emergent(jm, em):
     """Phase 2c's comparisons on the card: the main path against the plain
     versions, each kernel against its plain version at the main path's
@@ -3768,6 +4242,7 @@ def main() -> int:
         by_path['parallel'], par = run_parallel(
             jm, log, tmp, smi, rrl['core16'], em['scan_args'],
             cube.pop('clean8'))
+        ex_launches, examples = run_examples(tmp, smi)
         # the pipeline is what a user runs: its counts stand for the two
         # kernels it launches
         launches.update({k: by_path['pipeline'][k] for k in PIPELINE_KERNELS})
@@ -4070,8 +4545,10 @@ def main() -> int:
             source, replaces = KERNELS[name]
             out.append({'name': name, 'route': 'cuda', 'source': source,
                         'replaces': replaces, 'launches': launches[name],
-                        'launches_by_path': {p: c[name]
-                                             for p, c in by_path.items()},
+                        'launches_by_path': {
+                            **{p: c[name] for p, c in by_path.items()},
+                            'examples': {ex: c[name] for ex, c in
+                                         ex_launches.items()}},
                         'max_abs_err': abs_err, 'max_rel_err': rel,
                         'ms': k_ms, 'plain_ms': p_ms, 'bound_ms': b_ms,
                         'bound_by': b_by, 'library_ms': None})
@@ -4081,7 +4558,8 @@ def main() -> int:
                                  'channel_iterations', 'it_s', 'chan_it_s',
                                  'stages_ms')},
             'analysis': {k: ana[k] for k in ('ms', 'peak_gb', 'errs')},
-            'cli': cli, 'fit': fits, 'parallel': par}))
+            'cli': cli, 'fit': fits, 'parallel': par,
+            'examples': examples}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

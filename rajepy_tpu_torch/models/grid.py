@@ -15,6 +15,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+# Line-of-sight axis: y is axis 1 for 'ij' indexing (classes.py:363-372),
+# as ops.radtrans.LOS_AXIS
+LOS_AXIS = 1
+
 
 def _xyz_to_r(x: float, y: float, z: float, inc: float, pa: float) -> float:
     """Jet-frame r of one observer-frame point (ops.geometry.xyz_to_rwp in

@@ -282,9 +282,16 @@ def line_continuum_ratio_lte(tau_c, tau_l):
 # Non-LTE coefficients (rrls.py:467-543)
 # --------------------------------------------------------------------------- #
 def beta_coeff(freq, temp, b_n1, b_n2):
-    """G&S eq. 2.130 (rrls.py:467-485)."""
-    ex = torch.exp(-cnsts.H * _t(freq) / (cnsts.K_B * temp))
-    return (1.0 - (b_n2 / b_n1) * ex) / (1.0 - ex)
+    """G&S eq. 2.130 (rrls.py:467-485), (1 - (b_n2/b_n1) e^-x) / (1 - e^-x)
+    with x = h nu / k T, regrouped as 1 - (b_n2 - b_n1) / (b_n1 expm1(x)).
+
+    At radio lines x ~ 1e-4 and b_n2 / b_n1 - 1 ~ 1e-5, so the textbook
+    form cancels: in float32 both its numerator and denominator lose three
+    to four of float32's seven digits, and a non-LTE line flux with them;
+    the regrouped form has no difference of nearly equal terms but
+    b_n2 - b_n1, which is exact."""
+    x = cnsts.H * _t(freq) / (cnsts.K_B * temp)
+    return 1.0 - (b_n2 - b_n1) / (b_n1 * torch.expm1(x))
 
 
 def tau_nu_coeff(beta, tau_c, tau_l_star, b_n1):

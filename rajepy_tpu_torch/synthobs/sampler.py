@@ -228,6 +228,11 @@ def sample_vis_wstack(image: torch.Tensor, cell_rad: float, u_wav, v_wav,
     With ``n_wplanes=1`` this degenerates to a single screen at the mean w
     (the "w-shift" approximation) — still including the 1/n Jacobian, so
     it differs from :func:`sample_vis` even at w=0 for wide fields.
+
+    The screens' geometry (n and n - 1) and phases are formed in float64
+    whatever the image's precision: in float32, 1 - l^2 - m^2 rounds to 1
+    for fields under ~2e-4 rad, so n - 1 would vanish and every screen
+    would be flat (the coplanar answer).
     """
     ny, nx = image.shape
     cell_rad = float(cell_rad)
@@ -235,13 +240,12 @@ def sample_vis_wstack(image: torch.Tensor, cell_rad: float, u_wav, v_wav,
     v_wav = _as(v_wav, image)
     w_wav = _as(w_wav, image)
 
-    l_ax = (torch.arange(nx, dtype=image.dtype, device=image.device) -
-            nx // 2) * cell_rad
-    m_ax = (torch.arange(ny, dtype=image.dtype, device=image.device) -
-            ny // 2) * cell_rad
+    kw = dict(dtype=torch.float64, device=image.device)
+    l_ax = (torch.arange(nx, **kw) - nx // 2) * cell_rad
+    m_ax = (torch.arange(ny, **kw) - ny // 2) * cell_rad
     mm, ll = torch.meshgrid(m_ax, l_ax, indexing='ij')
     nn = torch.sqrt(torch.clamp(1.0 - ll ** 2 - mm ** 2, min=1e-12))
-    base = image / nn
+    base = image / nn.to(image.dtype)
     if degrid == 'kb':
         base = _kb_correct(base, pad, _KB_W)
         kb_beta = _kb_beta(_KB_W, pad)
@@ -267,8 +271,9 @@ def sample_vis_wstack(image: torch.Tensor, cell_rad: float, u_wav, v_wav,
                       if image.dtype == torch.float64 else torch.complex64,
                       device=image.device)
     for p_idx in range(n_wplanes):
-        ph = (-2.0 * np.pi) * planes[p_idx] * n1
-        img_c = torch.complex(base * torch.cos(ph), base * torch.sin(ph))
+        ph = (-2.0 * np.pi) * planes[p_idx].double() * n1
+        img_c = torch.complex(base * torch.cos(ph).to(base.dtype),
+                              base * torch.sin(ph).to(base.dtype))
         grid = sky_fft(img_c, pad=pad)
         if degrid == 'kb':
             vis_p = _kb_degrid(grid, cell_rad, u_wav, v_wav, _KB_W, kb_beta)

@@ -31,6 +31,7 @@ from rajepy_tpu.ops import radtrans as jrt
 from rajepy_tpu.ops import rrls as jrrl
 from rajepy_tpu.ops import voigt as jvoigt
 from rajepy_tpu_torch import JetModel
+from rajepy_tpu_torch import constants as tconst
 from rajepy_tpu_torch.models.fields import static_fields_from_numpy
 from rajepy_tpu_torch.ops import departure as tdep
 from rajepy_tpu_torch.ops import kernels as kn
@@ -197,6 +198,58 @@ def test_rrl_physics_matches_jax_f64(name):
     got = fn({'rrl': trrl, 'phys': tphys, 'a': lambda k: _t(d[k])})
     assert isinstance(got, torch.Tensor)
     assert _rel(got.numpy(), want) < _PHYSICS_TOL.get(name, 1e-9)
+
+
+def test_beta_coeff_float32_at_radio_lines():
+    """beta at H58a with departure coefficients 1e-5 apart (x = h nu / k T
+    ~ 2.4e-4), float32 against float64: 1e-6.  The textbook form
+    (1 - r e^-x) / (1 - e^-x), which cancels there in float32, is what the
+    regrouped form computes in float64 (1e-9)."""
+    temp = np.array([5e3, 1e4, 2e4])
+    b1, b2 = 0.9998596894694245, 0.9998719368020373
+    want = trrl.beta_coeff(_t(NU0), _t(temp), b1, b2)
+    got = trrl.beta_coeff(_t(NU0, torch.float32), _t(temp, torch.float32),
+                          b1, b2)
+    assert got.dtype == torch.float32
+    assert _rel(got.double().numpy(), want.numpy()) < 1e-6
+    x = tconst.H * NU0 / (tconst.K_B * temp)
+    textbook = (1.0 - (b2 / b1) * np.exp(-x)) / (1.0 - np.exp(-x))
+    np.testing.assert_allclose(want.numpy(), textbook, rtol=1e-9)
+
+
+def test_nonlte_line_centre_float32_matches_float64(monkeypatch):
+    """``nonlte_and_surveys``' line-centre fluxes (its jet at 24x60x24,
+    H58a, scalar and per-sightline departure coefficients) on float32
+    models through the kernels' plain versions against float64: 1e-5 with
+    scalar coefficients, 1e-3 with maps (their float32 b_n2 - b_n1).  With
+    the textbook beta the non-LTE flux is over 1e-4 off.  Prints the
+    readings (``pytest -s``)."""
+    from rajepy_tpu_torch.examples import bundled_params
+    p = bundled_params()
+    p['grid'].update(n_x=24, n_y=60, n_z=24, l_z=None)
+    freqs = np.linspace(NU0 - 2e6, NU0 + 2e6, 9)
+
+    def line_centre(dtype):
+        jm = JetModel(copy.deepcopy(p), dtype=dtype, device='cpu')
+        jm.time = 2.0 * YEAR
+        maps = jm.departure_coefficient_maps(LINE)
+        s = [np.nansum(jm.flux_rrl(LINE, freqs, **kw), axis=(1, 2))[4]
+             for kw in ({}, {'lte': False},
+                        {'lte': False, 'departure_coeffs': maps})]
+        return np.array([s[0], s[1], s[1] / s[0], s[2]], dtype=float)
+
+    want = line_centre(torch.float64)
+    rel = np.abs(line_centre(torch.float32) / want - 1.0)
+    print(f"float32 against float64, LTE / non-LTE / ratio / maps: {rel}")
+    assert np.all(rel[:3] < 1e-5) and rel[3] < 1e-3
+
+    def textbook(freq, temp, b_n1, b_n2):
+        ex = torch.exp(-tconst.H * trrl._t(freq) / (tconst.K_B * temp))
+        return (1.0 - (b_n2 / b_n1) * ex) / (1.0 - ex)
+    monkeypatch.setattr(trrl, 'beta_coeff', textbook)
+    rel_textbook = np.abs(line_centre(torch.float32) / want - 1.0)
+    print(f"with the textbook beta: {rel_textbook}")
+    assert rel_textbook[1] > 1e-4
 
 
 def test_rrl_scalars_match_jax():
