@@ -1,0 +1,10 @@
+"""Host time per optimiser step [ms] inside the fit's forward and loss
+(`rajepy.fit.forward`)."""
+from benchmark.harness.spans import split
+
+
+def read(ctx):
+    if ctx.unit != 'step' or not ctx.units:
+        return None
+    got = split(ctx.trace, 'rajepy.fit.forward')
+    return None if got is None else got[0] * 1e3 / ctx.units

@@ -11,6 +11,7 @@ from typing import Dict, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from ._params import (_check_free, _check_mesh, _grad, _mesh_devices,
                       _values)
 from .forwards import build_flux_forward, build_sed_forward
@@ -92,14 +93,19 @@ def _descend(loss_fn, theta0, steps, make_opt):
     opt = make_opt([theta])
     hist = []
     for _ in range(steps):
-        val = loss_fn(theta)
-        grad = _grad(val, theta)
-        hist.append(val.detach())
-        theta.grad = grad
-        opt.step()
-    grad = _grad(loss_fn(theta), theta)
-    hist = torch.stack(hist) if hist else theta.new_zeros(0)
-    return theta.detach(), hist, torch.linalg.norm(grad)
+        with span('rajepy.fit.step'):
+            with span('rajepy.fit.forward'):
+                val = loss_fn(theta)
+            with span('rajepy.fit.backward'):
+                grad = _grad(val, theta)
+            hist.append(val.detach())
+            theta.grad = grad
+            with span('rajepy.fit.optimizer'):
+                opt.step()
+    with span('rajepy.fit.finish'):
+        grad = _grad(loss_fn(theta), theta)
+        hist = torch.stack(hist) if hist else theta.new_zeros(0)
+        return theta.detach(), hist, torch.linalg.norm(grad)
 
 
 def _run_fit(build, jm, free, steps, learning_rate, optimizer,
@@ -120,39 +126,45 @@ def _run_fit(build, jm, free, steps, learning_rate, optimizer,
     those with ``mesh=None``, bit for bit where every device of the mesh
     is the model's."""
     _check_mesh(mesh)
-    forward, theta0, loss_of_model = build(jm)
-    theta0 = _f64(theta0, theta0.device)
-    make_opt = optimizer if optimizer is not None else (
-        lambda ps: Adam(ps, lr=learning_rate))
+    with span('rajepy.fit.run'):
+        with span('rajepy.fit.build'):
+            forward, theta0, loss_of_model = build(jm)
+        theta0 = _f64(theta0, theta0.device)
+        make_opt = optimizer if optimizer is not None else (
+            lambda ps: Adam(ps, lr=learning_rate))
 
-    def loss_on(fwd, loss):
-        return lambda theta: loss(fwd(theta))
+        def loss_on(fwd, loss):
+            return lambda theta: loss(fwd(theta))
 
-    loss_fns = {theta0.device: loss_on(forward, loss_of_model)}
-    if n_starts > 1:
-        gen = torch.Generator(device=theta0.device)
-        gen.manual_seed(seed)
-        jitter = start_spread * torch.randn(
-            (n_starts - 1, theta0.shape[0]), generator=gen,
-            dtype=theta0.dtype, device=theta0.device)
-        devs = _mesh_devices(mesh, theta0.device)
-        chains = []
-        for k, th in enumerate(torch.cat([theta0[None],
-                                          theta0[None] + jitter])):
-            dev = devs[k % len(devs)]
-            if dev not in loss_fns:
-                fwd_d, _, loss_d = build(jm._replica(dev))
-                loss_fns[dev] = loss_on(fwd_d, loss_d)
-            chains.append(_descend(loss_fns[dev], th.to(dev), steps,
-                                   make_opt))
-        finals = np.asarray([float(h[-1]) for _, h, _ in chains])
-        best = int(np.nanargmin(np.where(np.isfinite(finals), finals,
-                                         np.inf)))
-        theta, hist, gnorm = chains[best]
-    else:
-        theta, hist, gnorm = _descend(loss_fns[theta0.device], theta0,
-                                      steps, make_opt)
-    theta_np = theta.cpu().numpy()
+        loss_fns = {theta0.device: loss_on(forward, loss_of_model)}
+        if n_starts > 1:
+            gen = torch.Generator(device=theta0.device)
+            gen.manual_seed(seed)
+            jitter = start_spread * torch.randn(
+                (n_starts - 1, theta0.shape[0]), generator=gen,
+                dtype=theta0.dtype, device=theta0.device)
+            devs = _mesh_devices(mesh, theta0.device)
+            chains = []
+            for k, th in enumerate(torch.cat([theta0[None],
+                                              theta0[None] + jitter])):
+                dev = devs[k % len(devs)]
+                if dev not in loss_fns:
+                    with span('rajepy.fit.build'):
+                        fwd_d, _, loss_d = build(jm._replica(dev))
+                    loss_fns[dev] = loss_on(fwd_d, loss_d)
+                chains.append(_descend(loss_fns[dev], th.to(dev), steps,
+                                       make_opt))
+            finals = np.asarray([float(h[-1]) for _, h, _ in chains])
+            best = int(np.nanargmin(np.where(np.isfinite(finals), finals,
+                                             np.inf)))
+            theta, hist, gnorm = chains[best]
+        else:
+            theta, hist, gnorm = _descend(loss_fns[theta0.device], theta0,
+                                          steps, make_opt)
+        with span('rajepy.fit.finish'), torch.no_grad():
+            theta_np = theta.cpu().numpy()
+            model = _to_numpy(forward(theta.to(theta0.device)))
+            loss, gnorm = hist.cpu().numpy(), float(gnorm)
     values = _values(free, theta_np)
     notes = []
     if abs(values.get('power_laws.q_T', 1.0)) < 1e-3:
@@ -164,11 +176,8 @@ def _run_fit(build, jm, free, steps, learning_rate, optimizer,
             "the smooth Reynolds gaunt, but JetModel at q_T == 0 takes "
             "the van Hoof table — re-evaluate with JetModel to check the "
             "difference matters".format(values['power_laws.q_T']))
-    with torch.no_grad():
-        model = _to_numpy(forward(theta.to(theta0.device)))
     return FitResult(notes=tuple(notes), values=values, theta=theta_np,
-                     loss=hist.cpu().numpy(), model=model,
-                     grad_norm=float(gnorm))
+                     loss=loss, model=model, grad_norm=gnorm)
 
 
 def _power_norm_loss(observed, errors, device):

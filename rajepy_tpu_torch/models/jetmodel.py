@@ -62,7 +62,7 @@ from ..ops import radtrans as rt
 from ..ops import rrls as mrrl
 from ..utils import misc as miscf
 from ..utils.logger import Log
-from ..utils.profiling import KernelTimer
+from ..utils.profiling import KernelTimer, count, span
 from ..utils.validation import check_model_params
 from . import ejection as ej
 from . import grid as mgrid
@@ -108,6 +108,19 @@ class _OnDevice:
             self._copies[name] = _to_device(getattr(self._src, name),
                                             self._device)
         return self._copies[name]
+
+
+def _products_out(maps, as_numpy: bool):
+    """An RT run's (em, tau, flux) maps as the caller asked for them: the
+    device tensors, or numpy copies on the host (counted by their bytes).
+    Counts the run."""
+    count('rt.runs')
+    if not as_numpy:
+        return maps
+    with span('rajepy.rt.products_out'):
+        out = tuple(m.cpu().numpy() for m in maps)
+    count('rt.products_out_bytes', sum(a.nbytes for a in out))
+    return out
 
 
 def _to_device(v, device):
@@ -916,18 +929,20 @@ class JetModel:
         classes.py:2397-2423).  Returns numpy ``(em, taus, fluxes)``, or
         the device tensors with ``as_numpy=False``.
         """
-        f = self._ensure_fields()
-        st = self._rt_static()
-        t_0, reyn, csize, dist = self._rt_constants()
-        freqs = self._freqs(freq)
-        a_map, em = self._epoch_base_maps_both(f, st, self.time)
-        scale = rt.tau_ff_channel_scale(freqs, t_0, reyn)
-        taus = scale[:, None, None] * a_map[None]
-        fluxes = rt.flux_ff_maps(freqs, taus, st.tbar, st.any_in, csize,
-                                 dist)
-        if not as_numpy:
-            return em, taus, fluxes
-        return em.cpu().numpy(), taus.cpu().numpy(), fluxes.cpu().numpy()
+        with span('rajepy.rt.run'):
+            with span('rajepy.rt.statics'):
+                f = self._ensure_fields()
+                st = self._rt_static()
+            t_0, reyn, csize, dist = self._rt_constants()
+            freqs = self._freqs(freq)
+            with span('rajepy.rt.epoch_maps'):
+                a_map, em = self._epoch_base_maps_both(f, st, self.time)
+            with span('rajepy.rt.channel_stage'):
+                scale = rt.tau_ff_channel_scale(freqs, t_0, reyn)
+                taus = scale[:, None, None] * a_map[None]
+                fluxes = rt.flux_ff_maps(freqs, taus, st.tbar, st.any_in,
+                                         csize, dist)
+            return _products_out((em, taus, fluxes), as_numpy)
 
     def emission_measure(self, savefits: Union[bool, str] = False
                          ) -> np.ndarray:
@@ -1136,34 +1151,38 @@ class JetModel:
         derived from the bundled table (:meth:`departure_coefficients`)
         or supplied.
         """
-        b_n1, b_n2 = self._check_nonlte(lte, departure_coeffs, line)
-        t_0, reyn, csize, dist = self._rt_constants()
-        coeffs = rt.RRLCoeffs(line)
-        fused = self._use_fused_rrl()
-        tiles = self._rrl_tiles() if fused else None
-        f = self._ensure_fields()
-        st = self._rt_static()
-        t = self.time
-        freqs = self._freqs(freq)
-        tau_l = self._tau_rrl_dispatch(coeffs, tiles, fused, f, t, freqs)
-        a_map, em = self._epoch_base_maps_both(f, st, t)
-        scale = rt.tau_ff_channel_scale(freqs, t_0, reyn)
-        tau_c = scale[:, None, None] * a_map[None]
-        if lte:
-            tau_out = tau_l
-            ints = rt.intensity_rrl_maps(freqs, st.tbar, tau_c, tau_l,
-                                         st.any_in)
-        else:
-            tau_out = self._nonlte_tau(st, freqs, tau_l, b_n1, b_n2)
-            ints = rt.intensity_rrl_maps_nonlte(freqs, st.tbar, tau_c,
-                                                tau_l, st.any_in, b_n1, b_n2)
-        fluxes = ints * rt.flux_scale_jy(csize, dist)
-        if not contsub:
-            fluxes = fluxes + rt.flux_ff_maps(freqs, tau_c, st.tbar,
-                                              st.any_in, csize, dist)
-        if not as_numpy:
-            return em, tau_out, fluxes
-        return em.cpu().numpy(), tau_out.cpu().numpy(), fluxes.cpu().numpy()
+        with span('rajepy.rt.run'):
+            b_n1, b_n2 = self._check_nonlte(lte, departure_coeffs, line)
+            t_0, reyn, csize, dist = self._rt_constants()
+            coeffs = rt.RRLCoeffs(line)
+            fused = self._use_fused_rrl()
+            with span('rajepy.rt.statics'):
+                tiles = self._rrl_tiles() if fused else None
+                f = self._ensure_fields()
+                st = self._rt_static()
+            t = self.time
+            freqs = self._freqs(freq)
+            with span('rajepy.rt.line_opacity'):
+                tau_l = self._tau_rrl_dispatch(coeffs, tiles, fused, f, t,
+                                               freqs)
+            with span('rajepy.rt.epoch_maps'):
+                a_map, em = self._epoch_base_maps_both(f, st, t)
+            with span('rajepy.rt.channel_stage'):
+                scale = rt.tau_ff_channel_scale(freqs, t_0, reyn)
+                tau_c = scale[:, None, None] * a_map[None]
+                if lte:
+                    tau_out = tau_l
+                    ints = rt.intensity_rrl_maps(freqs, st.tbar, tau_c,
+                                                 tau_l, st.any_in)
+                else:
+                    tau_out = self._nonlte_tau(st, freqs, tau_l, b_n1, b_n2)
+                    ints = rt.intensity_rrl_maps_nonlte(
+                        freqs, st.tbar, tau_c, tau_l, st.any_in, b_n1, b_n2)
+                fluxes = ints * rt.flux_scale_jy(csize, dist)
+                if not contsub:
+                    fluxes = fluxes + rt.flux_ff_maps(freqs, tau_c, st.tbar,
+                                                      st.any_in, csize, dist)
+            return _products_out((em, tau_out, fluxes), as_numpy)
 
     def characteristic_conditions(self):
         """Emission-measure-weighted (T_e [K], n_e [cm^-3]) over the jet at

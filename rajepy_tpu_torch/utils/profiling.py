@@ -4,20 +4,24 @@
   a completion barrier (``torch.cuda.synchronize`` when the registered
   result lives on a card), optionally logged through a ``Log``;
 * :func:`record_stage` — opt-in per-stage aggregation of the timers'
-  exclusive seconds (:func:`collect_stage_times`, :func:`stage_times`,
-  :func:`split_stage_times`);
+  exclusive seconds (:func:`collect_stage_times`, :func:`stage_times`);
+* :func:`span` — a named host span (``torch.profiler.record_function``)
+  while a profiler records, nothing otherwise; each KernelTimer opens one
+  as ``rajepy.<stage name>``;
+* :data:`COUNTERS` / :func:`count` — event counts over the process's
+  lifetime (RT runs, bytes of products copied out);
 * :func:`trace` — context manager capturing a ``torch.profiler`` trace of
-  a block and writing it as a Chrome trace (Perfetto, chrome://tracing);
-* :func:`timed_call` — time a callable's steady-state execution.
+  a block and writing it as a Chrome trace (Perfetto, chrome://tracing).
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import time
-from typing import Callable, Optional
+from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 
 def _tensors(result):
@@ -65,29 +69,28 @@ def stage_times() -> dict:
     return dict(_STAGE_TIMES)
 
 
-#: stage-name substrings whose time is device compute (launch to sync of
-#: device work; the imaging timers include their host drains)
-DEVICE_STAGE_MARKERS = ('grid fill', 'device compute', 'uv tracks',
-                        'vis sampling', 'gain corruption', 'applycal',
-                        'imaging', 'selfcal round')
-#: stage-name substrings whose time is device->host product transfer
-#: plus disk IO
-TRANSFER_STAGE_MARKERS = ('write', 'product transfer')
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
 
 
-def split_stage_times(times: Optional[dict] = None):
-    """(device_compute_s, transfer_io_s, other_s) totals of a stage-time
-    dict per the marker lists above."""
-    times = stage_times() if times is None else times
-    dev = tr = other = 0.0
-    for name, s in times.items():
-        if any(m in name for m in TRANSFER_STAGE_MARKERS):
-            tr += s
-        elif any(m in name for m in DEVICE_STAGE_MARKERS):
-            dev += s
-        else:
-            other += s
-    return dev, tr, other
+def span(name: str):
+    """A context manager marking ``name`` on the host timeline: a
+    ``torch.profiler.record_function`` range while a profiler is
+    recording (so the span shares the device trace's clock), else a
+    shared no-op that costs one flag check."""
+    if _profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
+
+
+#: event counts for the process's lifetime ("rt.runs",
+#: "rt.products_out_bytes"); the program never resets them
+COUNTERS: dict = {}
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    COUNTERS[name] = COUNTERS.get(name, 0) + n
 
 
 #: live KernelTimer nesting stack: a nested timer's seconds are subtracted
@@ -101,7 +104,8 @@ class KernelTimer:
 
     The log line reports the INCLUSIVE elapsed time; the stage registry
     (:func:`record_stage`) receives the EXCLUSIVE time (children's
-    seconds subtracted)."""
+    seconds subtracted).  While a profiler records, the timer is the span
+    ``rajepy.<name>``."""
 
     def __init__(self, name: str, log=None, result=None):
         self.name = name
@@ -111,6 +115,8 @@ class KernelTimer:
         self._child_s = 0.0
 
     def __enter__(self):
+        self._span = span('rajepy.' + self.name)
+        self._span.__enter__()
         self._t0 = time.perf_counter()
         _TIMER_STACK.append(self)
         return self
@@ -124,6 +130,7 @@ class KernelTimer:
         if self._result is not None:
             _sync(self._result)
         self.elapsed = time.perf_counter() - self._t0
+        self._span.__exit__(exc_type, exc, tb)
         if _TIMER_STACK and _TIMER_STACK[-1] is self:
             _TIMER_STACK.pop()
         if _TIMER_STACK:
@@ -156,15 +163,3 @@ def trace(logdir: str):
         prof.stop()
         prof.export_chrome_trace(os.path.join(logdir, 'trace.json'))
 
-
-def timed_call(fn: Callable, *args, n_rep: int = 3, **kwargs):
-    """(result, seconds-per-call) for the steady state of a callable: one
-    warm-up call, then ``n_rep`` timed calls with a final synchronisation
-    of the result's card."""
-    out = fn(*args, **kwargs)
-    _sync(out)
-    t0 = time.perf_counter()
-    for _ in range(n_rep):
-        out = fn(*args, **kwargs)
-    _sync(out)
-    return out, (time.perf_counter() - t0) / n_rep

@@ -247,39 +247,42 @@ def test_gaunt_uncertainties_match_jax():
 
 
 def test_stage_split_trace_and_timed_call(tmp_path):
-    times = {'grid fill (fields + fill factors)': 1.5,
-             'rt stage: device compute': 0.25,
-             'rt stage: product transfer + FITS write': 2.0,
-             'rt stage: product transfer': 0.5, 'checkpoint write': 0.125,
-             'synthobs: mfs imaging (500px)': 3.0, 'plots': 4.0,
-             'host source fit (imfit)': 0.75}
-    assert tprof.split_stage_times(times) == jprof.split_stage_times(times)
-    assert tprof.split_stage_times(times) == (4.75, 2.625, 4.75)
-    tprof.collect_stage_times(True)
-    try:
-        tprof.record_stage('a write', 1.0)
-        tprof.record_stage('plots', 2.0)
-        assert tprof.split_stage_times() == (0.0, 1.0, 2.0)
-    finally:
-        tprof.collect_stage_times(False)
+    """The stage registry as the JAX package's; spans and KernelTimer
+    stages in ``trace``'s Chrome trace; a span with no profiler is one
+    shared no-op; the counters add up."""
+    for prof in (tprof, jprof):
+        prof.collect_stage_times(True)
+        try:
+            prof.record_stage('a write', 1.0)
+            prof.record_stage('plots', 2.0)
+            prof.record_stage('a write', 0.5)
+        finally:
+            prof.collect_stage_times(False)
+    assert tprof.stage_times() == jprof.stage_times() == {'a write': 1.5,
+                                                          'plots': 2.0}
+    assert tprof.span('rajepy.a') is tprof.span('rajepy.b')
 
     logdir = str(tmp_path / 'trace')
     x = torch.arange(1000, dtype=torch.float64)
     with tprof.trace(logdir):
-        y = torch.cumsum(x * x, 0)
+        with tprof.KernelTimer('squares') as kt:
+            with tprof.span('rajepy.sum'):
+                y = torch.cumsum(x * x, 0)
+            kt.set_result(y)
     with open(os.path.join(logdir, 'trace.json')) as f:
         events = json.load(f)['traceEvents']
-    assert any('cumsum' in e.get('name', '') for e in events)
+    names = [e.get('name', '') for e in events]
+    assert any('cumsum' in n for n in names)
+    (outer,), (inner,) = ([e for e in events if e.get('name') == n]
+                          for n in ('rajepy.squares', 'rajepy.sum'))
+    assert outer['ts'] <= inner['ts'] and (inner['ts'] + inner['dur'] <=
+                                           outer['ts'] + outer['dur'])
+    assert kt.elapsed > 0.0
 
-    calls = []
-
-    def fn(a, scale=1.0):
-        calls.append(a)
-        return {'out': (a * scale, [a + 1.0])}
-
-    out, secs = tprof.timed_call(fn, y, n_rep=4, scale=2.0)
-    assert len(calls) == 5 and secs > 0.0
-    assert torch.equal(out['out'][0], 2.0 * y)
+    before = tprof.COUNTERS.get('test.items', 0)
+    tprof.count('test.items')
+    tprof.count('test.items', 4)
+    assert tprof.COUNTERS['test.items'] == before + 5
 
 
 def test_grid_centres_and_pfaff_product_match_jax():
