@@ -62,6 +62,7 @@ from ..ops import radtrans as rt
 from ..ops import rrls as mrrl
 from ..utils import misc as miscf
 from ..utils.logger import Log
+from ..utils.pinned import HostPool
 from ..utils.profiling import KernelTimer, count, span
 from ..utils.validation import check_model_params
 from . import ejection as ej
@@ -110,16 +111,27 @@ class _OnDevice:
         return self._copies[name]
 
 
-def _products_out(maps, as_numpy: bool):
+def _products_out(maps, as_numpy: bool, pool: HostPool):
     """An RT run's (em, tau, flux) maps as the caller asked for them: the
-    device tensors, or numpy copies on the host (counted by their bytes).
-    Counts the run."""
+    device tensors, or numpy arrays on the host (counted by their bytes):
+    views of CPU maps, copies of CUDA maps on blocks of the model's pinned
+    host pool.  Counts the run."""
     count('rt.runs')
     if not as_numpy:
         return maps
     with span('rajepy.rt.products_out'):
-        out = tuple(m.cpu().numpy() for m in maps)
+        out = (_pinned_copies(maps, pool) if maps[0].is_cuda
+               else tuple(m.numpy() for m in maps))
     count('rt.products_out_bytes', sum(a.nbytes for a in out))
+    return out
+
+
+def _pinned_copies(maps, pool: HostPool):
+    """Numpy copies of ``maps`` on blocks of ``pool``; counts the maps and
+    the blocks the pool had to make for them."""
+    out, made = pool.copy_out(maps)
+    count('rt.products_out_maps', len(out))
+    count('rt.products_out_pinned_new', made)
     return out
 
 
@@ -275,6 +287,8 @@ class JetModel:
                         'which': side}
 
         self._time = 0.0
+        # pinned host blocks of the numpy products (shared by replicas)
+        self._host_pool = HostPool()
         self._replica_of: Optional[JetModel] = None
         self._fields: Optional[StaticFields] = None
         self._host_ff_cache = None  # (areas, ffs) host copies for save()
@@ -928,6 +942,12 @@ class JetModel:
         ``flux_ff`` (the reference's per-run sequence,
         classes.py:2397-2423).  Returns numpy ``(em, taus, fluxes)``, or
         the device tensors with ``as_numpy=False``.
+
+        On a CUDA model the numpy maps are views of pinned host memory
+        (copied at the host link's rate), which the model recycles for a
+        later run once the caller has dropped every array that views it;
+        it keeps at most twice the bytes of its largest run's maps free
+        (:mod:`..utils.pinned`).  On the CPU they are views of the maps.
         """
         with span('rajepy.rt.run'):
             with span('rajepy.rt.statics'):
@@ -942,7 +962,8 @@ class JetModel:
                 taus = scale[:, None, None] * a_map[None]
                 fluxes = rt.flux_ff_maps(freqs, taus, st.tbar, st.any_in,
                                          csize, dist)
-            return _products_out((em, taus, fluxes), as_numpy)
+            return _products_out((em, taus, fluxes), as_numpy,
+                                 self._host_pool)
 
     def emission_measure(self, savefits: Union[bool, str] = False
                          ) -> np.ndarray:
@@ -1143,7 +1164,10 @@ class JetModel:
         continuum opacity and EM from one dual-base epoch pass
         (jetmodel.py:1289-1359; the reference's per-run sequence at
         classes.py:2437-2450).  Returns numpy ``(em, tau_l, fluxes)``, or
-        the device tensors with ``as_numpy=False``.
+        the device tensors with ``as_numpy=False``; the numpy maps are
+        held as :meth:`continuum_rt_products` says (pinned host memory on
+        a CUDA model, recycled once dropped, at most twice the largest
+        run's bytes kept free).
 
         ``lte=False`` swaps in the G&S non-LTE slab composition: tau
         becomes the stimulated-corrected line opacity b_n1 beta tau_L* and
@@ -1182,7 +1206,8 @@ class JetModel:
                 if not contsub:
                     fluxes = fluxes + rt.flux_ff_maps(freqs, tau_c, st.tbar,
                                                       st.any_in, csize, dist)
-            return _products_out((em, tau_out, fluxes), as_numpy)
+            return _products_out((em, tau_out, fluxes), as_numpy,
+                                 self._host_pool)
 
     def characteristic_conditions(self):
         """Emission-measure-weighted (T_e [K], n_e [cm^-3]) over the jet at

@@ -398,6 +398,37 @@ def test_pipeline_on_the_card_reuses_its_pinned_buffers(card, tmp_path):
     assert loaded.model.device.type == 'cuda' and str(loaded) == str(pline)
 
 
+def test_rt_products_come_out_in_recycled_pinned_memory(card):
+    """``rrl_rt_products`` and ``continuum_rt_products`` on a CUDA model
+    hand back views of pinned host memory; a held run's maps stay bit for
+    bit what they were through three later runs at other epochs, and from
+    the third run on the copy-out makes no new pinned block."""
+    from rajepy_tpu_torch.utils import profiling
+    jm = JetModel(_params((64, 160, 64)), device=card)
+    freqs = _rrl_band(1000)[::10]
+
+    def run(yr, as_numpy=True):
+        jm.time = yr * YEAR
+        return jm.rrl_rt_products('H58a', freqs, contsub=False,
+                                  as_numpy=as_numpy)
+
+    c = profiling.COUNTERS
+    held = run(2.0)
+    assert all(torch.from_numpy(a).is_pinned() for a in held)
+    snap = [a.copy() for a in held]
+    for a, t in zip(held, run(2.0, as_numpy=False)):
+        assert np.array_equal(a, t.cpu().numpy())
+    new = []
+    for yr in (0.5, 3.5, 4.5, 1.0):
+        assert sum(a.nbytes for a in run(yr)) == sum(s.nbytes for s in snap)
+        new.append(c['rt.products_out_pinned_new'])
+    assert new[0] == new[1] == new[2] == new[3]     # none in runs 3-5
+    for a, s in zip(held, snap):
+        assert np.array_equal(a, s)
+    maps = jm.continuum_rt_products(np.geomspace(3e8, 3e11, 4))
+    assert all(torch.from_numpy(a).is_pinned() for a in maps)
+
+
 def test_synthobs_on_the_card_is_the_cpus_and_deterministic(card):
     """The synthetic observation's device stages on the card: sampling,
     weights and gridding to 1e-10 of the CPU's, two gridding calls bit for
