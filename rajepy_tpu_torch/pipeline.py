@@ -10,6 +10,9 @@ exactly like the reference (save/load at classes.py:2215-2258, 1976-2017)
 so pipelines resume across processes; the files interchange with the JAX
 package's.
 
+``execute`` runs each run of the list through ``execute_run``, which does
+one run's whole per-run work and may be called alone (a single observed
+run, without the campaign's pointings, plots and final checkpoint).
 ``execute(simobserve=True)`` runs the synthetic observations of continuum
 and RRL runs (``synthobs``: uv tracks, visibilities, Briggs gridding,
 CLEAN, restoration; imfit for continuum runs, restored cubes for RRL runs)
@@ -487,200 +490,10 @@ class Pipeline:
         fanned = self._prefan_rt_products(resume, clobber, dryrun,
                                           device_fanout)
 
-        for idx, run in enumerate(self.runs):
-            self.model.time = run.year * cnsts.YEAR
-            self.log.add_entry(
-                "INFO", "Executing run #{} -> Details:\n{}".format(
-                    idx + 1, str(run)))
-            if run.completed and resume and not clobber:
-                self.log.add_entry(
-                    "INFO", f"Run #{idx + 1} previously completed, skipping",
-                    timestamp=False)
-                continue
-            try:
-                if run.rt_dcy and not os.path.exists(run.rt_dcy):
-                    self.log.add_entry(
-                        "INFO", f"{run.rt_dcy} doesn't exist, creating",
-                        timestamp=False)
-                    os.makedirs(run.rt_dcy)
-
-                if plot and run.rt_dcy:
-                    model_plotfile = os.sep.join(
-                        [os.path.dirname(run.rt_dcy), "ModelPlot.pdf"])
-                    if not os.path.exists(model_plotfile) or clobber:
-                        with profiling.KernelTimer("plots"):
-                            pfunc.model_plot(self.model,
-                                             savefig=model_plotfile,
-                                             show_plot=False)
-
-                if not dryrun and run.radiative_transfer:
-                    self.log.add_entry(
-                        "INFO",
-                        "Conducting radiative transfer at "
-                        f"{run.freq / 1e9:.1f}GHz for a model time of "
-                        f"{run.year:.1f}yr")
-                    rt_t0 = _time.perf_counter()
-                    fan = fanned.pop(idx, None)
-                    write_t0 = _time.perf_counter()
-                    if fan is None and (clobber or not (
-                            os.path.exists(run.fits_em) and
-                            os.path.exists(run.fits_tau) and
-                            os.path.exists(run.fits_flux))):
-                        # all products fresh: ONE pass computes EM + tau +
-                        # flux together (JetModel.continuum_rt_products /
-                        # rrl_rt_products), then the writes below consume
-                        # the host copies.  as_numpy=False keeps the
-                        # device->host copy OUT of the device-compute
-                        # timer
-                        with profiling.KernelTimer(
-                                "rt stage: device compute", self.log) as kt:
-                            if run.obs_type == 'continuum':
-                                em_c, tau_c, flux_c = \
-                                    self.model.continuum_rt_products(
-                                        run.chan_freqs, as_numpy=False)
-                            else:
-                                em_c, tau_c, flux_c = \
-                                    self.model.rrl_rt_products(
-                                        run.line, run.chan_freqs,
-                                        contsub=False,
-                                        lte=getattr(run, 'lte', True),
-                                        as_numpy=False)
-                            kt.set_result(flux_c)
-                        write_t0 = _time.perf_counter()
-                        # one copy-out for all three products
-                        fan = self._products_to_host(
-                            {'em': em_c, 'tau': tau_c, 'flux': flux_c})
-                        del em_c, tau_c, flux_c
-                        # a part of the "product transfer + FITS write"
-                        # stage below, recorded on its own as well
-                        profiling.record_stage(
-                            "rt stage: product transfer",
-                            _time.perf_counter() - write_t0)
-
-                    # NB within every write guard below fan is non-None:
-                    # fan skips computing only when all three products
-                    # exist and clobber is False, which falsifies the
-                    # guards
-                    if not os.path.exists(run.fits_em) or clobber:
-                        self.log.add_entry(
-                            "INFO",
-                            f"Emission measures saved to {run.fits_em}")
-                        self.model.save_fits(
-                            miscf.reorder_axes(fan['em'], ra_axis=0,
-                                               dec_axis=1),
-                            run.fits_em, 'em')
-                    else:
-                        self.log.add_entry(
-                            "INFO", "Emission measures already exist -> "
-                                    f"{run.fits_em}", timestamp=False)
-
-                    if not os.path.exists(run.fits_tau) or clobber:
-                        self.log.add_entry(
-                            "INFO", "Computing optical depths and "
-                                    f"saving to {run.fits_tau}")
-                        self.model._save_rt_fits(
-                            fan['tau'], run.fits_tau, 'tau',
-                            run.chan_freqs, False, True)
-                    if not os.path.exists(run.fits_flux) or clobber:
-                        self.log.add_entry(
-                            "INFO", "Calculating fluxes and saving to "
-                                    f"{run.fits_flux}")
-                        fluxes = fan['flux']
-                        self.model._save_rt_fits(
-                            fluxes, run.fits_flux, 'flux',
-                            run.chan_freqs, False, True)
-                    else:
-                        fluxes = read_fits(run.fits_flux)[0]
-
-                    fluxes = np.asarray(fluxes)
-                    if run.obs_type == 'continuum':
-                        # average over channels, sum over pixels
-                        # (classes.py:2461-2467)
-                        flux = float(np.nansum(np.nanmean(fluxes, axis=0)))
-                        self.log.add_entry(
-                            "INFO", "Total, average, channel flux of "
-                                    f"{flux:.2e}Jy calculated")
-                    else:
-                        # per-channel summed fluxes (classes.py:2468-2471)
-                        flux = np.nansum(np.nansum(fluxes, axis=1), axis=1)
-                    self.runs[idx].results['flux'] = flux
-                    # the host buffers are free for the next run from here
-                    del fan, fluxes
-                    profiling.record_stage(
-                        "rt stage: product transfer + FITS write",
-                        _time.perf_counter() - write_t0)
-                    self.log.add_entry(
-                        "INFO", "[timing] rt stage (compute + FITS): "
-                        f"{_time.perf_counter() - rt_t0:.3f}s",
-                        timestamp=False)
-
-                    ckpt_t0 = _time.perf_counter()
-                    if not os.path.exists(self.model_file):
-                        self.model.save(self.model_file)
-                    self.save(self.save_file, absolute_directories=True)
-                    profiling.record_stage("checkpoint write",
-                                           _time.perf_counter() - ckpt_t0)
-
-            except KeyboardInterrupt:
-                self.log.add_entry(
-                    "ERROR", "Pipeline interrupted by user, saving state")
-                self.save(self.save_file)
-                self.model.save(self.model_file)
-                raise KeyboardInterrupt("Pipeline interrupted by user")
-
-            # Synthetic observations — CASA-free, on the model's device
-            # (replaces classes.py:2490-2851)
-            if simobserve and run.simobserve and not dryrun:
-                from .synthobs import simulate_observation
-                self.log.add_entry(
-                    "INFO", "Running CASA-free synthetic observation "
-                            f"({run.tscop[0]} config {run.tscop[1]})")
-                # optional 'synthobs' params section: keyword overrides
-                # forwarded to every run (thermalnoise/user_pwv,
-                # weighting/robust/niter, uvtaper_as/pbcor, ...)
-                so_kwargs = dict(self.params.get('synthobs') or {})
-                so_kwargs.setdefault('min_el', self.params['min_el'])
-                # stage-level resume: a rerun after an imaging-stage
-                # failure reuses the pre-imaging visibility sets (same
-                # model/plan/seed signature) instead of resampling
-                so_kwargs.setdefault('reuse_vis', resume and not clobber)
-                # device_fanout=False also pins cube imaging to the
-                # unsharded CLEAN, so that a sequential execute is
-                # sequential throughout
-                if device_fanout is False:
-                    so_kwargs.setdefault('shard_imaging', False)
-                if run.obs_type != 'continuum':
-                    # continuum-only knobs are stripped rather than
-                    # failing the line runs: a params file asking for
-                    # selfcal means "where applicable", and cube runs
-                    # always use the channel-batched Hogbom
-                    for k in ('selfcal', 'selfcal_solint_s',
-                              'selfcal_rounds'):
-                        so_kwargs.pop(k, None)
-                    if so_kwargs.get('deconvolver') in (
-                            'multiscale', 'clark', 'mtmfs'):
-                        for k in ('deconvolver', 'scales',
-                                  'smallscalebias', 'nterms', 'reffreq',
-                                  'cycleniter'):
-                            so_kwargs.pop(k, None)
-                products = simulate_observation(self, run, **so_kwargs)
-                run.products.update(products)
-                if run.obs_type == 'continuum' and \
-                        'imfit' in run.results and \
-                        run.results['imfit'] is None:
-                    self.log.add_entry(
-                        "ERROR", f"Run #{idx + 1}'s source fit failed")
-
-            # A run is complete only when every stage it is configured
-            # for has actually run this call (or was found on disk): the
-            # reference marks completed=True even under dryrun=True or
-            # simobserve=False (classes.py:2853), which poisons a later
-            # resume=True execute into skipping all real work — a
-            # deliberate fidelity deviation (PARITY.md).
-            rt_done = (not run.radiative_transfer) or not dryrun
-            so_done = (not run.simobserve) or (simobserve and not dryrun)
-            if rt_done and so_done:
-                self.runs[idx].completed = True
+        for idx in range(len(self.runs)):
+            self._execute_run(idx, fanned.pop(idx, None), device_fanout,
+                              simobserve=simobserve, resume=resume,
+                              clobber=clobber, plot=plot, dryrun=dryrun)
 
         if not dryrun and simobserve and plot:
             for year in self.params['continuum']['times']:
@@ -699,6 +512,221 @@ class Pipeline:
         profiling.record_stage("checkpoint write",
                                _time.perf_counter() - ckpt_t0)
         return None
+
+    def execute_run(self, idx: int, simobserve=True, resume=True,
+                    clobber=False, plot=True, dryrun=False):
+        """Execute run ``idx`` of the run list, as ``execute`` does for each
+        run: set the model time, compute the RT products and copy them out,
+        write the three FITS products, save the pipeline state (and the
+        model, if no checkpoint exists yet), observe it
+        (``synthobs.simulate_observation`` with the overrides of
+        ``params['synthobs']``) and mark it completed.  The keywords are
+        ``execute``'s.  The run computes its own products and its cube
+        imaging is sharded as ``shard_imaging``'s default says."""
+        self._execute_run(idx, None, None, simobserve=simobserve,
+                          resume=resume, clobber=clobber, plot=plot,
+                          dryrun=dryrun)
+
+    def _execute_run(self, idx: int, fan: Optional[Dict[str, np.ndarray]],
+                     device_fanout, simobserve, resume, clobber, plot,
+                     dryrun):
+        """:meth:`execute_run`, given the fan-out's products of the run
+        (``fan``; None: compute them) and ``execute``'s
+        ``device_fanout``."""
+        run = self.runs[idx]
+        self.model.time = run.year * cnsts.YEAR
+        self.log.add_entry(
+            "INFO", "Executing run #{} -> Details:\n{}".format(
+                idx + 1, str(run)))
+        if run.completed and resume and not clobber:
+            self.log.add_entry(
+                "INFO", f"Run #{idx + 1} previously completed, skipping",
+                timestamp=False)
+            return
+        try:
+            if run.rt_dcy and not os.path.exists(run.rt_dcy):
+                self.log.add_entry(
+                    "INFO", f"{run.rt_dcy} doesn't exist, creating",
+                    timestamp=False)
+                os.makedirs(run.rt_dcy)
+
+            if plot and run.rt_dcy:
+                model_plotfile = os.sep.join(
+                    [os.path.dirname(run.rt_dcy), "ModelPlot.pdf"])
+                if not os.path.exists(model_plotfile) or clobber:
+                    from .plotting import functions as pfunc
+                    with profiling.KernelTimer("plots"):
+                        pfunc.model_plot(self.model,
+                                         savefig=model_plotfile,
+                                         show_plot=False)
+
+            if not dryrun and run.radiative_transfer:
+                self.log.add_entry(
+                    "INFO",
+                    "Conducting radiative transfer at "
+                    f"{run.freq / 1e9:.1f}GHz for a model time of "
+                    f"{run.year:.1f}yr")
+                rt_t0 = _time.perf_counter()
+                write_t0 = _time.perf_counter()
+                if fan is None and (clobber or not (
+                        os.path.exists(run.fits_em) and
+                        os.path.exists(run.fits_tau) and
+                        os.path.exists(run.fits_flux))):
+                    # all products fresh: ONE pass computes EM + tau +
+                    # flux together (JetModel.continuum_rt_products /
+                    # rrl_rt_products), then the writes below consume
+                    # the host copies.  as_numpy=False keeps the
+                    # device->host copy OUT of the device-compute
+                    # timer
+                    with profiling.KernelTimer(
+                            "rt stage: device compute", self.log) as kt:
+                        if run.obs_type == 'continuum':
+                            em_c, tau_c, flux_c = \
+                                self.model.continuum_rt_products(
+                                    run.chan_freqs, as_numpy=False)
+                        else:
+                            em_c, tau_c, flux_c = \
+                                self.model.rrl_rt_products(
+                                    run.line, run.chan_freqs,
+                                    contsub=False,
+                                    lte=getattr(run, 'lte', True),
+                                    as_numpy=False)
+                        kt.set_result(flux_c)
+                    write_t0 = _time.perf_counter()
+                    # one copy-out for all three products
+                    fan = self._products_to_host(
+                        {'em': em_c, 'tau': tau_c, 'flux': flux_c})
+                    del em_c, tau_c, flux_c
+                    # a part of the "product transfer + FITS write"
+                    # stage below, recorded on its own as well
+                    profiling.record_stage(
+                        "rt stage: product transfer",
+                        _time.perf_counter() - write_t0)
+
+                # NB within every write guard below fan is non-None:
+                # fan skips computing only when all three products
+                # exist and clobber is False, which falsifies the
+                # guards
+                if not os.path.exists(run.fits_em) or clobber:
+                    self.log.add_entry(
+                        "INFO",
+                        f"Emission measures saved to {run.fits_em}")
+                    self.model.save_fits(
+                        miscf.reorder_axes(fan['em'], ra_axis=0,
+                                           dec_axis=1),
+                        run.fits_em, 'em')
+                else:
+                    self.log.add_entry(
+                        "INFO", "Emission measures already exist -> "
+                                f"{run.fits_em}", timestamp=False)
+
+                if not os.path.exists(run.fits_tau) or clobber:
+                    self.log.add_entry(
+                        "INFO", "Computing optical depths and "
+                                f"saving to {run.fits_tau}")
+                    self.model._save_rt_fits(
+                        fan['tau'], run.fits_tau, 'tau',
+                        run.chan_freqs, False, True)
+                if not os.path.exists(run.fits_flux) or clobber:
+                    self.log.add_entry(
+                        "INFO", "Calculating fluxes and saving to "
+                                f"{run.fits_flux}")
+                    fluxes = fan['flux']
+                    self.model._save_rt_fits(
+                        fluxes, run.fits_flux, 'flux',
+                        run.chan_freqs, False, True)
+                else:
+                    fluxes = read_fits(run.fits_flux)[0]
+
+                fluxes = np.asarray(fluxes)
+                if run.obs_type == 'continuum':
+                    # average over channels, sum over pixels
+                    # (classes.py:2461-2467)
+                    flux = float(np.nansum(np.nanmean(fluxes, axis=0)))
+                    self.log.add_entry(
+                        "INFO", "Total, average, channel flux of "
+                                f"{flux:.2e}Jy calculated")
+                else:
+                    # per-channel summed fluxes (classes.py:2468-2471)
+                    flux = np.nansum(np.nansum(fluxes, axis=1), axis=1)
+                self.runs[idx].results['flux'] = flux
+                # the host buffers are free for the next run from here
+                del fan, fluxes
+                profiling.record_stage(
+                    "rt stage: product transfer + FITS write",
+                    _time.perf_counter() - write_t0)
+                self.log.add_entry(
+                    "INFO", "[timing] rt stage (compute + FITS): "
+                    f"{_time.perf_counter() - rt_t0:.3f}s",
+                    timestamp=False)
+
+                ckpt_t0 = _time.perf_counter()
+                if not os.path.exists(self.model_file):
+                    self.model.save(self.model_file)
+                self.save(self.save_file, absolute_directories=True)
+                profiling.record_stage("checkpoint write",
+                                       _time.perf_counter() - ckpt_t0)
+
+        except KeyboardInterrupt:
+            self.log.add_entry(
+                "ERROR", "Pipeline interrupted by user, saving state")
+            self.save(self.save_file)
+            self.model.save(self.model_file)
+            raise KeyboardInterrupt("Pipeline interrupted by user")
+
+        # Synthetic observations — CASA-free, on the model's device
+        # (replaces classes.py:2490-2851)
+        if simobserve and run.simobserve and not dryrun:
+            from .synthobs import simulate_observation
+            self.log.add_entry(
+                "INFO", "Running CASA-free synthetic observation "
+                        f"({run.tscop[0]} config {run.tscop[1]})")
+            # optional 'synthobs' params section: keyword overrides
+            # forwarded to every run (thermalnoise/user_pwv,
+            # weighting/robust/niter, uvtaper_as/pbcor, ...)
+            so_kwargs = dict(self.params.get('synthobs') or {})
+            so_kwargs.setdefault('min_el', self.params['min_el'])
+            # stage-level resume: a rerun after an imaging-stage
+            # failure reuses the pre-imaging visibility sets (same
+            # model/plan/seed signature) instead of resampling
+            so_kwargs.setdefault('reuse_vis', resume and not clobber)
+            # device_fanout=False also pins cube imaging to the
+            # unsharded CLEAN, so that a sequential execute is
+            # sequential throughout
+            if device_fanout is False:
+                so_kwargs.setdefault('shard_imaging', False)
+            if run.obs_type != 'continuum':
+                # continuum-only knobs are stripped rather than
+                # failing the line runs: a params file asking for
+                # selfcal means "where applicable", and cube runs
+                # always use the channel-batched Hogbom
+                for k in ('selfcal', 'selfcal_solint_s',
+                          'selfcal_rounds'):
+                    so_kwargs.pop(k, None)
+                if so_kwargs.get('deconvolver') in (
+                        'multiscale', 'clark', 'mtmfs'):
+                    for k in ('deconvolver', 'scales',
+                              'smallscalebias', 'nterms', 'reffreq',
+                              'cycleniter'):
+                        so_kwargs.pop(k, None)
+            products = simulate_observation(self, run, **so_kwargs)
+            run.products.update(products)
+            if run.obs_type == 'continuum' and \
+                    'imfit' in run.results and \
+                    run.results['imfit'] is None:
+                self.log.add_entry(
+                    "ERROR", f"Run #{idx + 1}'s source fit failed")
+
+        # A run is complete only when every stage it is configured
+        # for has actually run this call (or was found on disk): the
+        # reference marks completed=True even under dryrun=True or
+        # simobserve=False (classes.py:2853), which poisons a later
+        # resume=True execute into skipping all real work — a
+        # deliberate fidelity deviation (PARITY.md).
+        rt_done = (not run.radiative_transfer) or not dryrun
+        so_done = (not run.simobserve) or (simobserve and not dryrun)
+        if rt_done and so_done:
+            self.runs[idx].completed = True
 
     def radio_plot(self, run, percentile: float = 5.0, savefig: str = ''):
         """Plot flux/tau/EM from a run's FITS products

@@ -34,9 +34,22 @@ numpy, as in the JAX package.
 A line cube is imaged channel-sharded (``parallel.sharding.
 sharded_clean_cube``) when ``shard_imaging`` asks for it and there are at
 least as many channels as devices.
+
+While a profiler records, an observation is the span ``rajepy.obs.run``
+and its stages the spans ``rajepy.obs.plan`` (elevation window, scans, uv
+tracks, sky model, image geometry, noise level), ``.sample`` (FFT sampling
+and noise, corruption, gain transfer, the sets' copy to the host),
+``.image`` (weights, gridding, FFT to the dirty image and PSF, their copy
+to the host, the threshold), ``.clean`` (the minor cycle), ``.restore``
+(beam fit, beam image, restoration), ``.write`` (the visibility sets and
+every FITS product) and ``.imfit`` (estimates, fit, summary file); the
+counters ``obs.runs``, ``obs.visibilities`` (visibilities sampled) and
+``obs.clean_iterations`` (minor-cycle iterations; a cube's summed over its
+channels) count what they did.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import time
@@ -98,6 +111,19 @@ def _elevation_window(ra_deg, dec_deg, tscop, min_el):
     return el_range, time_up, lon, lat
 
 
+def _observation(observe):
+    """``observe`` inside the span ``rajepy.obs.run``, counting each
+    observation it completes (``obs.runs``)."""
+    @functools.wraps(observe)
+    def run_observation(*args, **kwargs):
+        with profiling.span('rajepy.obs.run'):
+            products = observe(*args, **kwargs)
+        profiling.count('obs.runs')
+        return products
+    return run_observation
+
+
+@_observation
 def simulate_observation(pipeline, run, min_el: float = 20.0,
                          seed: int = 11111,
                          max_time_samples: int = 512,
@@ -216,324 +242,331 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
         raise ValueError(f"unknown weighting {weighting!r}")
     if thermalnoise not in ('radiometer', 'tsys-atm'):
         raise ValueError(f"unknown thermalnoise mode {thermalnoise!r}")
-    model = pipeline.model
-    dev = model.device
-    log = pipeline.log
-    tscop, t_cfg = run.tscop
-    ant_file = observatories.cfg_file(tscop, t_cfg)
-    ant = observatories.read_antenna_config(ant_file)
+    with profiling.span('rajepy.obs.plan'):
+        model = pipeline.model
+        dev = model.device
+        log = pipeline.log
+        tscop, t_cfg = run.tscop
+        ant_file = observatories.cfg_file(tscop, t_cfg)
+        ant = observatories.read_antenna_config(ant_file)
 
-    ra_deg = astro.parse_ra(model.params['target']['ra'])
-    dec_deg = astro.parse_dec(model.params['target']['dec'])
+        ra_deg = astro.parse_ra(model.params['target']['ra'])
+        dec_deg = astro.parse_dec(model.params['target']['dec'])
 
-    # --- observation plan (classes.py:2510-2586) ----------------------- #
-    el_range, time_up, lon, lat = _elevation_window(ra_deg, dec_deg, tscop,
-                                                    min_el)
-    ew_int = tscop in observatories.EW_TELESCOPES
-    plan = uvgen.plan_scans(run.t_obs, time_up, ew_int)
-    if log:
-        log.add_entry(
-            "INFO",
-            "Target elevation range of {:+.0f} to {:+.0f}deg with minimum "
-            "elevation of {}deg and total time on target of {:.1f}hr, means "
-            "splitting observations over {} run(s)".format(
-                el_range[0], el_range[1], min_el, run.t_obs / 3600,
-                len(plan['durations'])), timestamp=False)
+        # --- observation plan (classes.py:2510-2586) ----------------------- #
+        el_range, time_up, lon, lat = _elevation_window(ra_deg, dec_deg, tscop,
+                                                        min_el)
+        ew_int = tscop in observatories.EW_TELESCOPES
+        plan = uvgen.plan_scans(run.t_obs, time_up, ew_int)
+        if log:
+            log.add_entry(
+                "INFO",
+                "Target elevation range of {:+.0f} to {:+.0f}deg with minimum "
+                "elevation of {}deg and total time on target of {:.1f}hr, "
+                "means "
+                "splitting observations over {} run(s)".format(
+                    el_range[0], el_range[1], min_el, run.t_obs / 3600,
+                    len(plan['durations'])), timestamp=False)
 
-    # --- uv tracks ------------------------------------------------------ #
-    with KernelTimer("synthobs: uv tracks", log):
-        bl, _pairs = uvgen.baselines(ant['xyz'])
-        uvw_list = []
-        n_int_true = 0
-        for dur, ha_c in zip(plan['durations'], plan['ha_centres']):
-            has = uvgen.scan_hour_angles(ha_c, dur, run.t_int,
-                                         max_samples=max_time_samples)
-            n_int_true += max(1, int(round(dur / run.t_int)))
-            uvw_list.append(uvgen.uvw_tracks(bl, has, dec_deg, lon))
-        uvw = np.concatenate(uvw_list, axis=0).reshape(-1, 3)
+        # --- uv tracks ----------------------------------------------------- #
+        with KernelTimer("synthobs: uv tracks", log):
+            bl, _pairs = uvgen.baselines(ant['xyz'])
+            uvw_list = []
+            n_int_true = 0
+            for dur, ha_c in zip(plan['durations'], plan['ha_centres']):
+                has = uvgen.scan_hour_angles(ha_c, dur, run.t_int,
+                                             max_samples=max_time_samples)
+                n_int_true += max(1, int(round(dur / run.t_int)))
+                uvw_list.append(uvgen.uvw_tracks(bl, has, dec_deg, lon))
+            uvw = np.concatenate(uvw_list, axis=0).reshape(-1, 3)
 
-    # --- sky model ------------------------------------------------------ #
-    sky, hdr = fitsio.read_fits(run.fits_flux)
-    if sky.ndim == 2:
-        sky = sky[None]
-    n_chan = sky.shape[0]
-    cell_model_rad = abs(float(hdr['CDELT2'])) * np.pi / 180.0
-    freqs = np.asarray(run.chan_freqs, dtype=float)[:n_chan]
-    if deconvolver == 'mtmfs' and n_chan < nterms:
-        raise ValueError(
-            f"mtmfs with nterms={nterms} needs at least that many "
-            f"channels to constrain the Taylor planes; this run has "
-            f"{n_chan} (set the run's chanws below its bws)")
+        # --- sky model ----------------------------------------------------- #
+        sky, hdr = fitsio.read_fits(run.fits_flux)
+        if sky.ndim == 2:
+            sky = sky[None]
+        n_chan = sky.shape[0]
+        cell_model_rad = abs(float(hdr['CDELT2'])) * np.pi / 180.0
+        freqs = np.asarray(run.chan_freqs, dtype=float)[:n_chan]
+        if deconvolver == 'mtmfs' and n_chan < nterms:
+            raise ValueError(
+                f"mtmfs with nterms={nterms} needs at least that many "
+                f"channels to constrain the Taylor planes; this run has "
+                f"{n_chan} (set the run's chanws below its bws)")
 
-    # --- beam / image geometry (classes.py:2656-2759) ------------------- #
-    max_bl = observatories.max_baseline(ant_file)
-    max_bl_uvwave = max_bl / (cnsts.C / run.freq)
-    beam_min_as = 1.0 / max_bl_uvwave / cnsts.ARCSEC
-    cell_as = beam_min_as / 4.0
-    cell_rad = cell_as * cnsts.ARCSEC
-    if log:
-        log.add_entry(
-            "INFO",
-            "With maximum baseline length of {:.0e} wavelengths, a beam "
-            "width of {:.2e}arcsec is calculated and therefore using a "
-            "cell size of {:.2e}arcsec".format(max_bl_uvwave, beam_min_as,
-                                               cell_as), timestamp=False)
+        # --- beam / image geometry (classes.py:2656-2759) ------------------ #
+        max_bl = observatories.max_baseline(ant_file)
+        max_bl_uvwave = max_bl / (cnsts.C / run.freq)
+        beam_min_as = 1.0 / max_bl_uvwave / cnsts.ARCSEC
+        cell_as = beam_min_as / 4.0
+        cell_rad = cell_as * cnsts.ARCSEC
+        if log:
+            log.add_entry(
+                "INFO",
+                "With maximum baseline length of {:.0e} wavelengths, a beam "
+                "width of {:.2e}arcsec is calculated and therefore using a "
+                "cell size of {:.2e}arcsec".format(max_bl_uvwave, beam_min_as,
+                                                   cell_as), timestamp=False)
 
-    ny_m, nx_m = sky.shape[-2:]
-    min_imsize_as = max(nx_m, ny_m) * abs(float(hdr['CDELT2'])) * 7200.0
-    imsize = max(500, int(np.ceil(min_imsize_as / cell_as)))
-    imsize += imsize % 2
+        ny_m, nx_m = sky.shape[-2:]
+        min_imsize_as = max(nx_m, ny_m) * abs(float(hdr['CDELT2'])) * 7200.0
+        imsize = max(500, int(np.ceil(min_imsize_as / cell_as)))
+        imsize += imsize % 2
 
-    # small-field (coplanar) validity check: when the a-priori bound on the
-    # dropped w(n-1) phase says it matters, sample by w-stacking with
-    # enough planes to hold the residual under ~1e-3 per unit flux
-    field_radius_rad = 0.5 * max(nx_m, ny_m) * cell_model_rad
-    w_phase = sampler.w_term_max_phase_error(uvw, float(np.max(freqs)),
+        # small-field (coplanar) validity check: when the a-priori bound on the
+        # dropped w(n-1) phase says it matters, sample by w-stacking with
+        # enough planes to hold the residual under ~1e-3 per unit flux
+        field_radius_rad = 0.5 * max(nx_m, ny_m) * cell_model_rad
+        w_phase = sampler.w_term_max_phase_error(uvw, float(np.max(freqs)),
+                                                 field_radius_rad)
+        w_planes = 0
+        if w_phase > 0.1:
+            w_planes = sampler.n_wplanes_for(uvw, float(np.max(freqs)),
                                              field_radius_rad)
-    w_planes = 0
-    if w_phase > 0.1:
-        w_planes = sampler.n_wplanes_for(uvw, float(np.max(freqs)),
-                                         field_radius_rad)
-        if log:
+            if log:
+                log.add_entry(
+                    "INFO",
+                    "non-coplanar (w-term) phase error bound {:.2f} rad at "
+                    "the field edge exceeds 0.1 rad (max|w|={:.2e} m, field "
+                    "radius {:.1f}\"): sampling visibilities by w-stacking "
+                    "over {} plane(s)".format(
+                        w_phase, float(np.max(np.abs(uvw[:, 2]))),
+                        field_radius_rad / cnsts.ARCSEC, w_planes),
+                    timestamp=False)
+
+        # the sky model carries no information beyond its pixel Nyquist
+        # 1/(2 cell): baselines out there degrid to 0 — warn, since it means
+        # the model grid is too coarse for this array
+        uv_max_wav = float(np.max(np.abs(uvw[:, :2]))) * \
+            float(np.max(freqs)) / cnsts.C
+        nyq_wav = 0.5 / cell_model_rad
+        if uv_max_wav > nyq_wav and log:
             log.add_entry(
-                "INFO",
-                "non-coplanar (w-term) phase error bound {:.2f} rad at "
-                "the field edge exceeds 0.1 rad (max|w|={:.2e} m, field "
-                "radius {:.1f}\"): sampling visibilities by w-stacking "
-                "over {} plane(s)".format(
-                    w_phase, float(np.max(np.abs(uvw[:, 2]))),
-                    field_radius_rad / cnsts.ARCSEC, w_planes),
+                "WARNING",
+                "longest baseline ({:.3g} wavelengths) exceeds the sky "
+                "model's pixel Nyquist ({:.3g}; model cell {:.2e} rad) — "
+                "those visibilities carry zero model flux; use a finer "
+                "model grid (smaller c_size or larger n_x/n_z) for this "
+                "array".format(uv_max_wav, nyq_wav, cell_model_rad),
                 timestamp=False)
 
-    # the sky model carries no information beyond its pixel Nyquist
-    # 1/(2 cell): baselines out there degrid to 0 — warn, since it means
-    # the model grid is too coarse for this array
-    uv_max_wav = float(np.max(np.abs(uvw[:, :2]))) * \
-        float(np.max(freqs)) / cnsts.C
-    nyq_wav = 0.5 / cell_model_rad
-    if uv_max_wav > nyq_wav and log:
-        log.add_entry(
-            "WARNING",
-            "longest baseline ({:.3g} wavelengths) exceeds the sky "
-            "model's pixel Nyquist ({:.3g}; model cell {:.2e} rad) — "
-            "those visibilities carry zero model flux; use a finer "
-            "model grid (smaller c_size or larger n_x/n_z) for this "
-            "array".format(uv_max_wav, nyq_wav, cell_model_rad),
-            timestamp=False)
+        # --- noise level --------------------------------------------------- #
+        lam = cnsts.C / freqs
+        # per-vis noise; scale so the *imaged* noise matches the true number of
+        # integrations even when time samples were decimated
+        sefd_val = sefd if sefd is not None else \
+            observatories.DEFAULT_SEFD.get(tscop, 500.0)
+        n_samp = uvw.shape[0] // bl.shape[0] if bl.shape[0] else 1
+        t_int_eff = run.t_int * max(n_int_true / max(n_samp, 1), 1.0)
+        sigma = sampler.thermal_noise_sigma(sefd_val, run.chanwidth, t_int_eff)
+        if thermalnoise == 'tsys-atm':
+            # atmosphere-aware Tsys (CASA tsys-atm analogue): scale the
+            # catalogue-SEFD sigma per channel by Tsys(nu, el, pwv)/Tsys_ref
+            # at the time-weighted track-mean elevation, sampled across each
+            # scan's hour-angle span
+            from . import atmosphere
+            ra_hour = ra_deg / 15.0
+            els, wts = [], []
+            for dur, ha_c in zip(plan['durations'], plan['ha_centres']):
+                half_h = 0.5 * dur / 3600.0
+                for ha in np.linspace(ha_c - half_h, ha_c + half_h, 5):
+                    els.append(astro.elevation(ra_deg, dec_deg, lat,
+                                               (ra_hour + ha) % 24.0))
+                    wts.append(dur)
+            el_mean = float(np.average(els, weights=wts)) if els else 90.0
+            sigma = sigma * atmosphere.sefd_scale(freqs, el_mean, user_pwv,
+                                                  t_ground)
+            if log:
+                flat = sampler.thermal_noise_sigma(sefd_val, run.chanwidth,
+                                                   t_int_eff)
+                log.add_entry(
+                    "INFO",
+                    "tsys-atm noise: pwv={:.1f}mm, t_ground={:.0f}K, mean "
+                    "elevation {:.0f}deg -> sigma x{:.2f}-{:.2f} vs flat "
+                    "radiometer".format(user_pwv, t_ground, el_mean,
+                                        float(np.min(sigma)) / flat,
+                                        float(np.max(sigma)) / flat),
+                    timestamp=False)
 
-    # --- noise level ----------------------------------------------------- #
-    lam = cnsts.C / freqs
-    # per-vis noise; scale so the *imaged* noise matches the true number of
-    # integrations even when time samples were decimated
-    sefd_val = sefd if sefd is not None else \
-        observatories.DEFAULT_SEFD.get(tscop, 500.0)
-    n_samp = uvw.shape[0] // bl.shape[0] if bl.shape[0] else 1
-    t_int_eff = run.t_int * max(n_int_true / max(n_samp, 1), 1.0)
-    sigma = sampler.thermal_noise_sigma(sefd_val, run.chanwidth, t_int_eff)
-    if thermalnoise == 'tsys-atm':
-        # atmosphere-aware Tsys (CASA tsys-atm analogue): scale the
-        # catalogue-SEFD sigma per channel by Tsys(nu, el, pwv)/Tsys_ref
-        # at the time-weighted track-mean elevation, sampled across each
-        # scan's hour-angle span
-        from . import atmosphere
-        ra_hour = ra_deg / 15.0
-        els, wts = [], []
-        for dur, ha_c in zip(plan['durations'], plan['ha_centres']):
-            half_h = 0.5 * dur / 3600.0
-            for ha in np.linspace(ha_c - half_h, ha_c + half_h, 5):
-                els.append(astro.elevation(ra_deg, dec_deg, lat,
-                                           (ra_hour + ha) % 24.0))
-                wts.append(dur)
-        el_mean = float(np.average(els, weights=wts)) if els else 90.0
-        sigma = sigma * atmosphere.sefd_scale(freqs, el_mean, user_pwv,
-                                              t_ground)
-        if log:
-            flat = sampler.thermal_noise_sigma(sefd_val, run.chanwidth,
-                                               t_int_eff)
-            log.add_entry(
-                "INFO",
-                "tsys-atm noise: pwv={:.1f}mm, t_ground={:.0f}K, mean "
-                "elevation {:.0f}deg -> sigma x{:.2f}-{:.2f} vs flat "
-                "radiometer".format(user_pwv, t_ground, el_mean,
-                                    float(np.min(sigma)) / flat,
-                                    float(np.max(sigma)) / flat),
-                timestamp=False)
+        # --- stage-level resume (reuse_vis) -------------------------------- #
+        base = os.path.basename(ant_file)
+        if base.endswith('.cfg'):
+            base = base[:-4]
+        synobs_dcy = os.path.join(run.rt_dcy, 'SynObs')
+        clean_vis_file = os.path.join(synobs_dcy, f'SynObs.{base}.vis.npz')
+        noisy_vis_file = os.path.join(synobs_dcy,
+                                      f'SynObs.{base}.noisy.vis.npz')
+        # primary-beam width input to the sampler — part of the visibility
+        # signature (an antenna-diameter edit changes the sampled PB even
+        # when the positions, and so the uvw bytes, are unchanged)
+        mean_dish = float(np.mean(ant['diam'])) if len(ant['diam']) else 25.0
 
-    # --- stage-level resume (reuse_vis) ---------------------------------- #
-    base = os.path.basename(ant_file)
-    if base.endswith('.cfg'):
-        base = base[:-4]
-    synobs_dcy = os.path.join(run.rt_dcy, 'SynObs')
-    clean_vis_file = os.path.join(synobs_dcy, f'SynObs.{base}.vis.npz')
-    noisy_vis_file = os.path.join(synobs_dcy,
-                                  f'SynObs.{base}.noisy.vis.npz')
-    # primary-beam width input to the sampler — part of the visibility
-    # signature (an antenna-diameter edit changes the sampled PB even
-    # when the positions, and so the uvw bytes, are unchanged)
-    mean_dish = float(np.mean(ant['diam'])) if len(ant['diam']) else 25.0
+        def _vis_signature() -> str:
+            """Fingerprint of everything upstream of the sampled visibilities
+            (the JAX package's, token for token, so that either package's
+            saved sets are found by the other)."""
+            h = hashlib.blake2b(digest_size=16)
+            h.update(np.ascontiguousarray(sky).tobytes())
+            h.update(np.ascontiguousarray(uvw).tobytes())
+            h.update(np.ascontiguousarray(np.asarray(sigma)).tobytes())
+            h.update(np.asarray(freqs).tobytes())
+            parts = [sky.shape, int(seed), bool(apply_pb), pb_model,
+                     float(pb_blockage_m), int(w_planes), mean_dish,
+                     sorted((corruption or {}).items()), 'centre-fits']
+            if applycal_gains:
+                st = os.stat(applycal_gains)
+                parts.append((os.path.abspath(applycal_gains),
+                              st.st_size, st.st_mtime_ns))
+            h.update(repr(parts).encode())
+            return h.hexdigest()
 
-    def _vis_signature() -> str:
-        """Fingerprint of everything upstream of the sampled visibilities
-        (the JAX package's, token for token, so that either package's
-        saved sets are found by the other)."""
-        h = hashlib.blake2b(digest_size=16)
-        h.update(np.ascontiguousarray(sky).tobytes())
-        h.update(np.ascontiguousarray(uvw).tobytes())
-        h.update(np.ascontiguousarray(np.asarray(sigma)).tobytes())
-        h.update(np.asarray(freqs).tobytes())
-        parts = [sky.shape, int(seed), bool(apply_pb), pb_model,
-                 float(pb_blockage_m), int(w_planes), mean_dish,
-                 sorted((corruption or {}).items()), 'centre-fits']
-        if applycal_gains:
-            st = os.stat(applycal_gains)
-            parts.append((os.path.abspath(applycal_gains),
-                          st.st_size, st.st_mtime_ns))
-        h.update(repr(parts).encode())
-        return h.hexdigest()
+        vis_sig = _vis_signature()
+    with profiling.span('rajepy.obs.sample'):
+        reused = False
+        if reuse_vis and os.path.exists(clean_vis_file) \
+                and os.path.exists(noisy_vis_file):
+            try:
+                with np.load(clean_vis_file) as fc, \
+                        np.load(noisy_vis_file) as fn:
+                    if (str(fc.get('resume_sig', '')) == vis_sig and
+                            str(fn.get('resume_sig', '')) == vis_sig):
+                        re_cn, im_cn = fc['vis_re'], fc['vis_im']
+                        re_nn, im_nn = fn['vis_re'], fn['vis_im']
+                        reused = True
+            except (OSError, EOFError, ValueError, KeyError,
+                    zipfile.BadZipFile):
+                reused = False      # unreadable / truncated set: resample
+        if reused:
+            noisy = torch.complex(
+                torch.as_tensor(re_nn, dtype=_RDT, device=dev),
+                torch.as_tensor(im_nn, dtype=_RDT, device=dev))
+            if log:
+                log.add_entry(
+                    "INFO",
+                    "Reusing sampled visibilities from {} (signature "
+                    "match — "
+                    "skipping the sampling/corruption stages)".format(
+                        os.path.basename(noisy_vis_file)), timestamp=False)
+        else:
+            # every channel FFTs its own sky plane, applies its own primary
+            # beam (the role of CASA's vpmanager PB, casa/_interface.py:17-27)
+            # and samples at its own uv wavelengths, on the model's device
+            with KernelTimer("synthobs: vis sampling (+noise)", log) as kt:
+                clean, noisy = sampler.sample_vis_cube_with_noise(
+                    torch.as_tensor(sky, device=dev).to(_RDT), cell_model_rad,
+                    uvw, freqs, seed, sigma, apply_pb=apply_pb,
+                    dish_diameter_m=mean_dish, w_planes=w_planes,
+                    pb_model=pb_model, pb_blockage_m=pb_blockage_m,
+                    centre='fits')
+                kt.set_result(noisy)
+            profiling.count('obs.visibilities', noisy.numel())
+            re_cn, im_cn = clean.real.cpu().numpy(), clean.imag.cpu().numpy()
+            del clean
 
-    vis_sig = _vis_signature()
-    reused = False
-    if reuse_vis and os.path.exists(clean_vis_file) \
-            and os.path.exists(noisy_vis_file):
-        try:
-            with np.load(clean_vis_file) as fc, \
-                    np.load(noisy_vis_file) as fn:
-                if (str(fc.get('resume_sig', '')) == vis_sig and
-                        str(fn.get('resume_sig', '')) == vis_sig):
-                    re_cn, im_cn = fc['vis_re'], fc['vis_im']
-                    re_nn, im_nn = fn['vis_re'], fn['vis_im']
-                    reused = True
-        except (OSError, EOFError, ValueError, KeyError,
-                zipfile.BadZipFile):
-            reused = False      # unreadable / truncated set: resample
-    if reused:
-        noisy = torch.complex(torch.as_tensor(re_nn, dtype=_RDT, device=dev),
-                              torch.as_tensor(im_nn, dtype=_RDT, device=dev))
-        if log:
-            log.add_entry(
-                "INFO",
-                "Reusing sampled visibilities from {} (signature match — "
-                "skipping the sampling/corruption stages)".format(
-                    os.path.basename(noisy_vis_file)), timestamp=False)
-    else:
-        # every channel FFTs its own sky plane, applies its own primary
-        # beam (the role of CASA's vpmanager PB, casa/_interface.py:17-27)
-        # and samples at its own uv wavelengths, on the model's device
-        with KernelTimer("synthobs: vis sampling (+noise)", log) as kt:
-            clean, noisy = sampler.sample_vis_cube_with_noise(
-                torch.as_tensor(sky, device=dev).to(_RDT), cell_model_rad,
-                uvw, freqs, seed, sigma, apply_pb=apply_pb,
-                dish_diameter_m=mean_dish, w_planes=w_planes,
-                pb_model=pb_model, pb_blockage_m=pb_blockage_m,
-                centre='fits')
-            kt.set_result(noisy)
-        re_cn, im_cn = clean.real.cpu().numpy(), clean.imag.cpu().numpy()
-        del clean
+        # --- antenna gain corruption (sm.setgain analogue) ----------------- #
+        n_ant = ant['xyz'].shape[0]
+        # per-visibility (ant1, ant2, t_index), copied to the device once for
+        # the corruption, the gain transfer and every selfcal round
+        vis_meta = [torch.as_tensor(a, device=dev)
+                    for a in calibration.vis_metadata(n_samp, _pairs)]
+        if corruption and not reused:
+            g_re, g_im = calibration.simulate_gain_errors(
+                int(corruption.get('seed', seed + 1)), n_samp, n_ant,
+                amp_rms=float(corruption.get('amp_rms', 0.0)),
+                phase_rms_deg=float(corruption.get('phase_rms_deg', 0.0)),
+                coherence_s=corruption.get('coherence_s'),
+                t_int_s=t_int_eff)
+            with KernelTimer("synthobs: gain corruption", log) as kt:
+                noisy = calibration.apply_gains(
+                    noisy, torch.complex(torch.from_numpy(g_re),
+                                         torch.from_numpy(g_im)), *vis_meta)
+                kt.set_result(noisy)
+            if log:
+                log.add_entry(
+                    "INFO",
+                    "Applied antenna gain corruption: amp_rms={:.3f}, "
+                    "phase_rms={:.1f}deg, coherence={}s over {} antennas x "
+                    "{} integrations".format(
+                        float(corruption.get('amp_rms', 0.0)),
+                        float(corruption.get('phase_rms_deg', 0.0)),
+                        corruption.get('coherence_s'), n_ant, n_samp),
+                    timestamp=False)
 
-    # --- antenna gain corruption (sm.setgain analogue) ------------------- #
-    n_ant = ant['xyz'].shape[0]
-    # per-visibility (ant1, ant2, t_index), copied to the device once for
-    # the corruption, the gain transfer and every selfcal round
-    vis_meta = [torch.as_tensor(a, device=dev)
-                for a in calibration.vis_metadata(n_samp, _pairs)]
-    if corruption and not reused:
-        g_re, g_im = calibration.simulate_gain_errors(
-            int(corruption.get('seed', seed + 1)), n_samp, n_ant,
-            amp_rms=float(corruption.get('amp_rms', 0.0)),
-            phase_rms_deg=float(corruption.get('phase_rms_deg', 0.0)),
-            coherence_s=corruption.get('coherence_s'),
-            t_int_s=t_int_eff)
-        with KernelTimer("synthobs: gain corruption", log) as kt:
-            noisy = calibration.apply_gains(
-                noisy, torch.complex(torch.from_numpy(g_re),
-                                     torch.from_numpy(g_im)), *vis_meta)
-            kt.set_result(noisy)
-        if log:
-            log.add_entry(
-                "INFO",
-                "Applied antenna gain corruption: amp_rms={:.3f}, "
-                "phase_rms={:.1f}deg, coherence={}s over {} antennas x "
-                "{} integrations".format(
-                    float(corruption.get('amp_rms', 0.0)),
-                    float(corruption.get('phase_rms_deg', 0.0)),
-                    corruption.get('coherence_s'), n_ant, n_samp),
-                timestamp=False)
-
-    # --- gain transfer (applycal with a gains product) ------------------- #
-    if applycal_gains and not reused:
-        with np.load(applycal_gains) as gt:
-            g_re_t = np.asarray(gt['g_re'], dtype=float)
-            g_im_t = np.asarray(gt['g_im'], dtype=float)
-        if g_re_t.shape[-1] != n_ant:
-            raise ValueError(
-                f"applycal_gains has {g_re_t.shape[-1]} antennas, this "
-                f"run's array has {n_ant} — gain transfer needs the "
-                "same antenna configuration")
-        if not np.all(np.hypot(g_re_t, g_im_t) > 0.0):
-            raise ValueError(
-                "applycal_gains contains zero gains (applycal divides "
-                "by g_i conj(g_j) — a zero would produce inf/NaN "
-                "visibilities); flag the dead antenna's solutions to "
-                "1+0j before transfer")
-        with KernelTimer("synthobs: applycal (gain transfer)", log) as kt:
-            noisy = calibration.correct_vis(
-                noisy, torch.complex(torch.from_numpy(g_re_t),
-                                     torch.from_numpy(g_im_t)),
-                *vis_meta, n_samp)
-            kt.set_result(noisy)
-        if log:
-            log.add_entry(
-                "INFO",
-                "Applied transferred gain solutions from {} "
-                "({} solution interval(s) stretched over {} "
-                "integrations)".format(os.path.basename(applycal_gains),
-                                       g_re_t.shape[0], n_samp),
-                timestamp=False)
-    if not reused:
-        re_nn, im_nn = noisy.real.cpu().numpy(), noisy.imag.cpu().numpy()
+        # --- gain transfer (applycal with a gains product) ----------------- #
+        if applycal_gains and not reused:
+            with np.load(applycal_gains) as gt:
+                g_re_t = np.asarray(gt['g_re'], dtype=float)
+                g_im_t = np.asarray(gt['g_im'], dtype=float)
+            if g_re_t.shape[-1] != n_ant:
+                raise ValueError(
+                    f"applycal_gains has {g_re_t.shape[-1]} antennas, this "
+                    f"run's array has {n_ant} — gain transfer needs the "
+                    "same antenna configuration")
+            if not np.all(np.hypot(g_re_t, g_im_t) > 0.0):
+                raise ValueError(
+                    "applycal_gains contains zero gains (applycal divides "
+                    "by g_i conj(g_j) — a zero would produce inf/NaN "
+                    "visibilities); flag the dead antenna's solutions to "
+                    "1+0j before transfer")
+            with KernelTimer("synthobs: applycal (gain transfer)", log) as kt:
+                noisy = calibration.correct_vis(
+                    noisy, torch.complex(torch.from_numpy(g_re_t),
+                                         torch.from_numpy(g_im_t)),
+                    *vis_meta, n_samp)
+                kt.set_result(noisy)
+            if log:
+                log.add_entry(
+                    "INFO",
+                    "Applied transferred gain solutions from {} "
+                    "({} solution interval(s) stretched over {} "
+                    "integrations)".format(os.path.basename(applycal_gains),
+                                           g_re_t.shape[0], n_samp),
+                    timestamp=False)
+        if not reused:
+            re_nn, im_nn = noisy.real.cpu().numpy(), noisy.imag.cpu().numpy()
 
     # --- visibility products, written BEFORE imaging ---------------------- #
-    # the measurement-set analogue hits disk as soon as it exists, so an
-    # imaging-stage failure never loses the sampling stage: a reuse_vis
-    # rerun resumes from here
-    if not reused:
-        os.makedirs(synobs_dcy, exist_ok=True)
-        with KernelTimer("synthobs: vis npz write", log):
-            # uncompressed (re, im) float64 pairs, the JAX package's layout
-            with atomic_write(clean_vis_file) as f:
-                np.savez(f, uvw=uvw, vis_re=re_cn, vis_im=im_cn,
-                         freqs=freqs, sigma=0.0, resume_sig=vis_sig)
-            with atomic_write(noisy_vis_file) as f:
-                np.savez(f, uvw=uvw, vis_re=re_nn, vis_im=im_nn,
-                         freqs=freqs, sigma=sigma, resume_sig=vis_sig)
+    with profiling.span('rajepy.obs.write'):
+        # the measurement-set analogue hits disk as soon as it exists, so an
+        # imaging-stage failure never loses the sampling stage: a reuse_vis
+        # rerun resumes from here
+        if not reused:
+            os.makedirs(synobs_dcy, exist_ok=True)
+            with KernelTimer("synthobs: vis npz write", log):
+                # uncompressed (re, im) float64 pairs, the JAX package's layout
+                with atomic_write(clean_vis_file) as f:
+                    np.savez(f, uvw=uvw, vis_re=re_cn, vis_im=im_cn,
+                             freqs=freqs, sigma=0.0, resume_sig=vis_sig)
+                with atomic_write(noisy_vis_file) as f:
+                    np.savez(f, uvw=uvw, vis_re=re_nn, vis_im=im_nn,
+                             freqs=freqs, sigma=sigma, resume_sig=vis_sig)
 
-    uvfits_files = {}
-    if export_uvfits:
-        # standard-format copies of the visibility sets, openable by real
-        # CASA (importuvfits), AIPS and difmap: host numpy, the JAX
-        # package's writer
-        from . import uvfits as uvfits_mod
-        a1, a2, t_idx = calibration.vis_metadata(n_samp, _pairs)
-        time_s = (t_idx + 0.5) * t_int_eff
-        for tag, (vr, vi, sg) in {
-                'uvfits_clean': (re_cn, im_cn, 0.0),
-                'uvfits_noisy': (re_nn, im_nn, sigma)}.items():
-            suffix = '.uvfits' if tag.endswith('clean') else \
-                '.noisy.uvfits'
-            fname = os.path.join(synobs_dcy, f'SynObs.{base}{suffix}')
-            with KernelTimer(f"synthobs: {tag} write", log):
-                uvfits_mod.write_uvfits(
-                    fname, uvw, vr, vi, freqs, ant['xyz'], a1, a2,
-                    time_s, ra_deg, dec_deg, sigma=sg,
-                    ant_names=ant.get('names'), source='TARGET',
-                    telescope=str(tscop))
-            uvfits_files[tag] = fname
-        if log:
-            log.add_entry(
-                "INFO",
-                "Exported UVFITS visibility sets (clean + noisy) to "
-                f"{os.path.basename(uvfits_files['uvfits_noisy'])}",
-                timestamp=False)
+        uvfits_files = {}
+        if export_uvfits:
+            # standard-format copies of the visibility sets, openable by real
+            # CASA (importuvfits), AIPS and difmap: host numpy, the JAX
+            # package's writer
+            from . import uvfits as uvfits_mod
+            a1, a2, t_idx = calibration.vis_metadata(n_samp, _pairs)
+            time_s = (t_idx + 0.5) * t_int_eff
+            for tag, (vr, vi, sg) in {
+                    'uvfits_clean': (re_cn, im_cn, 0.0),
+                    'uvfits_noisy': (re_nn, im_nn, sigma)}.items():
+                suffix = '.uvfits' if tag.endswith('clean') else \
+                    '.noisy.uvfits'
+                fname = os.path.join(synobs_dcy, f'SynObs.{base}{suffix}')
+                with KernelTimer(f"synthobs: {tag} write", log):
+                    uvfits_mod.write_uvfits(
+                        fname, uvw, vr, vi, freqs, ant['xyz'], a1, a2,
+                        time_s, ra_deg, dec_deg, sigma=sg,
+                        ant_names=ant.get('names'), source='TARGET',
+                        telescope=str(tscop))
+                uvfits_files[tag] = fname
+            if log:
+                log.add_entry(
+                    "INFO",
+                    "Exported UVFITS visibility sets (clean + noisy) to "
+                    f"{os.path.basename(uvfits_files['uvfits_noisy'])}",
+                    timestamp=False)
 
     # --- imaging (classes.py:2761-2788) ---------------------------------- #
     # multi-frequency synthesis: all channels on one grid (continuum) or a
@@ -602,46 +635,52 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
         # gridding, FFT, the channel-batched CLEAN, restoration
         with KernelTimer(f"synthobs: cube imaging ({n_chan} chan, "
                          f"{imsize}px)", log) as kt:
-            psf0 = image_channels([n_chan // 2])[1].cpu().numpy()
-            beam, beam_kernel = beam_of(psf0)
-            # per-visibility taper evaluated at the run centre frequency
-            # (narrow-fractional-bandwidth cubes; per-channel deviation
-            # ~ (dnu/nu)^2)
-            lam_c = cnsts.C / run.freq
-            w_vis = uvtaper_weights(uvw[:, 0] / lam_c, uvw[:, 1] / lam_c)
-            info: Dict = {}
-            clean_args = (uvw, freqs, noisy, w_vis, imsize, cell_rad, mask,
-                          beam_kernel)
-            clean_kw = dict(weighting=weighting, robust=robust, gain=0.1,
-                            niter=niter, nsigma=nsigma, info=info)
-            from ..parallel import sharding as psh
-            devs = psh.available_devices(noisy.device)
-            shard = len(devs) > 1 if shard_imaging is None else \
-                bool(shard_imaging)
-            if shard and 1 < len(devs) <= n_chan:
-                # each device CLEANs its own block of channels (the
-                # reference's tclean cube is sequential,
-                # classes.py:2771-2782)
-                if log:
-                    log.add_entry(
-                        "INFO", f"Imaging {n_chan} channels across "
-                                f"{len(devs)} devices (channel-sharded "
-                                "CLEAN)", timestamp=False)
-                mesh = psh.make_mesh(n_los=1, n_chan=len(devs),
-                                     devices=devs)
-                restored_d, dirty_d = (x.gather() for x in
-                                       psh.sharded_clean_cube(
-                                           mesh, *clean_args, **clean_kw))
-            else:
-                restored_d, dirty_d = imaging.clean_cube(*clean_args,
-                                                         **clean_kw)
-            kt.set_result(restored_d)
-            restored_cube = restored_d.cpu().numpy()
-            if 'dirty' in save_products:
-                extra_maps['dirty'] = dirty_d.cpu().numpy()
-            if save_products:
-                extra_maps['psf'] = psf0
-            del restored_d, dirty_d
+            with profiling.span('rajepy.obs.image'):
+                psf0 = image_channels([n_chan // 2])[1].cpu().numpy()
+            with profiling.span('rajepy.obs.restore'):
+                beam, beam_kernel = beam_of(psf0)
+            # every channel's weighting, gridding, FFT and restoration
+            # run inside clean_cube: the span counts them as its CLEAN
+            with profiling.span('rajepy.obs.clean'):
+                # per-visibility taper evaluated at the run centre frequency
+                # (narrow-fractional-bandwidth cubes; per-channel deviation
+                # ~ (dnu/nu)^2)
+                lam_c = cnsts.C / run.freq
+                w_vis = uvtaper_weights(uvw[:, 0] / lam_c, uvw[:, 1] / lam_c)
+                info: Dict = {}
+                clean_args = (uvw, freqs, noisy, w_vis, imsize, cell_rad, mask,
+                              beam_kernel)
+                clean_kw = dict(weighting=weighting, robust=robust, gain=0.1,
+                                niter=niter, nsigma=nsigma, info=info)
+                from ..parallel import sharding as psh
+                devs = psh.available_devices(noisy.device)
+                shard = len(devs) > 1 if shard_imaging is None else \
+                    bool(shard_imaging)
+                if shard and 1 < len(devs) <= n_chan:
+                    # each device CLEANs its own block of channels (the
+                    # reference's tclean cube is sequential,
+                    # classes.py:2771-2782)
+                    if log:
+                        log.add_entry(
+                            "INFO", f"Imaging {n_chan} channels across "
+                                    f"{len(devs)} devices (channel-sharded "
+                                    "CLEAN)", timestamp=False)
+                    mesh = psh.make_mesh(n_los=1, n_chan=len(devs),
+                                         devices=devs)
+                    restored_d, dirty_d = (x.gather() for x in
+                                           psh.sharded_clean_cube(
+                                               mesh, *clean_args, **clean_kw))
+                else:
+                    restored_d, dirty_d = imaging.clean_cube(
+                        *clean_args, **clean_kw)
+                kt.set_result(restored_d)
+                restored_cube = restored_d.cpu().numpy()
+                if 'dirty' in save_products:
+                    extra_maps['dirty'] = dirty_d.cpu().numpy()
+                if save_products:
+                    extra_maps['psf'] = psf0
+                del restored_d, dirty_d
+        profiling.count('obs.clean_iterations', info['channel_iterations'])
         if log:
             log.add_entry(
                 "INFO",
@@ -655,45 +694,49 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
         # joint minor cycle, Taylor-plane restoration
         with KernelTimer(f"synthobs: mtmfs imaging ({n_chan} chan, "
                          f"{imsize}px, nterms={nterms})", log) as kt:
-            stacks = [image_channels([ci]) for ci in range(n_chan)]
-            nu_ref = float(reffreq) if reffreq else float(run.freq)
-            dirty_t, psf_m = imaging.taylor_stacks(
-                torch.stack([d for d, _ in stacks]),
-                torch.stack([p for _, p in stacks]), freqs, nu_ref,
-                nterms=nterms)
-            del stacks
-            d0, psf0 = dirty_t[0].cpu().numpy(), psf_m[0].cpu().numpy()
-            outside = d0[mask == 0]
-            rms = float(np.std(outside)) if outside.size else 0.0
-            mdl_t, res_t, _its = imaging.mtmfs_clean(
-                dirty_t, psf_m, mask, gain=0.1, niter=niter,
-                threshold=nsigma * rms)
-            beam, beam_kernel = beam_of(psf0)
-            tt_d = torch.stack([imaging.restore(mdl_t[t], res_t[t],
-                                                beam_kernel)
-                                for t in range(nterms)])
-            kt.set_result(tt_d)
-            tt, res01 = tt_d.cpu().numpy(), res_t[:2].cpu().numpy()
-            # in-band spectral index where tt0 is solid (5 sigma)
-            solid = tt[0] > 5.0 * rms
-            safe0 = np.where(solid, tt[0], 1.0)
-            alpha_map = np.where(solid, tt[1] / safe0, np.nan)
-            # alpha error (tclean's .alpha.error): first-order propagation
-            # of the per-plane residual rms through alpha = I1/I0
-            # (covariance term dropped)
-            sig = [float(np.std(res01[t][mask == 0]))
-                   if outside.size else 0.0 for t in range(2)]
-            alpha_err = np.where(
-                solid, np.sqrt(sig[1] ** 2 + np.where(
-                    solid, alpha_map, 0.0) ** 2 * sig[0] ** 2) / safe0,
-                np.nan)
-            mtmfs_maps.update(tt1=tt[1], alpha=alpha_map,
-                              alpha_error=alpha_err)
-            if save_products:
-                extra_maps.update(psf=psf0, dirty=d0,
-                                  model=mdl_t[0].cpu().numpy(),
-                                  residual=res01[0])
-            restored_cube = tt[:1]
+            with profiling.span('rajepy.obs.image'):
+                stacks = [image_channels([ci]) for ci in range(n_chan)]
+                nu_ref = float(reffreq) if reffreq else float(run.freq)
+                dirty_t, psf_m = imaging.taylor_stacks(
+                    torch.stack([d for d, _ in stacks]),
+                    torch.stack([p for _, p in stacks]), freqs, nu_ref,
+                    nterms=nterms)
+                del stacks
+                d0, psf0 = dirty_t[0].cpu().numpy(), psf_m[0].cpu().numpy()
+                outside = d0[mask == 0]
+                rms = float(np.std(outside)) if outside.size else 0.0
+            with profiling.span('rajepy.obs.clean'):
+                mdl_t, res_t, _its = imaging.mtmfs_clean(
+                    dirty_t, psf_m, mask, gain=0.1, niter=niter,
+                    threshold=nsigma * rms)
+            profiling.count('obs.clean_iterations', int(_its))
+            with profiling.span('rajepy.obs.restore'):
+                beam, beam_kernel = beam_of(psf0)
+                tt_d = torch.stack([imaging.restore(mdl_t[t], res_t[t],
+                                                    beam_kernel)
+                                    for t in range(nterms)])
+                kt.set_result(tt_d)
+                tt, res01 = tt_d.cpu().numpy(), res_t[:2].cpu().numpy()
+                # in-band spectral index where tt0 is solid (5 sigma)
+                solid = tt[0] > 5.0 * rms
+                safe0 = np.where(solid, tt[0], 1.0)
+                alpha_map = np.where(solid, tt[1] / safe0, np.nan)
+                # alpha error (tclean's .alpha.error): first-order propagation
+                # of the per-plane residual rms through alpha = I1/I0
+                # (covariance term dropped)
+                sig = [float(np.std(res01[t][mask == 0]))
+                       if outside.size else 0.0 for t in range(2)]
+                alpha_err = np.where(
+                    solid, np.sqrt(sig[1] ** 2 + np.where(
+                        solid, alpha_map, 0.0) ** 2 * sig[0] ** 2) / safe0,
+                    np.nan)
+                mtmfs_maps.update(tt1=tt[1], alpha=alpha_map,
+                                  alpha_error=alpha_err)
+                if save_products:
+                    extra_maps.update(psf=psf0, dirty=d0,
+                                      model=mdl_t[0].cpu().numpy(),
+                                      residual=res01[0])
+                restored_cube = tt[:1]
         del dirty_t, psf_m, mdl_t, res_t, tt_d
     else:
         # multi-frequency synthesis: all channels on one grid
@@ -702,32 +745,36 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
             the CLEAN model (device) and the beam."""
             with KernelTimer(f"synthobs: mfs imaging ({imsize}px{label})",
                              log) as kt:
-                dirty_d, psf_d = image_channels(np.arange(n_chan), vis)
-                dirty, psf = dirty_d.cpu().numpy(), psf_d.cpu().numpy()
-                outside = dirty[mask == 0]
-                threshold = nsigma * (float(np.std(outside))
-                                      if outside.size else 0.0)
-                if deconvolver == 'multiscale':
-                    mdl, resid, _its = imaging.multiscale_clean(
-                        dirty_d, psf_d, mask, scales=tuple(scales),
-                        gain=0.1, niter=niter, threshold=threshold,
-                        smallscalebias=smallscalebias)
-                elif deconvolver == 'clark':
-                    mdl, resid, _its = imaging.clark_clean(
-                        dirty_d, psf_d, mask, gain=0.1, niter=niter,
-                        threshold=threshold, cycleniter=cycleniter)
-                else:
-                    mdl, resid, _its = imaging.hogbom_clean(
-                        dirty_d, psf_d, mask, gain=0.1, niter=niter,
-                        threshold=threshold)
-                beam, beam_kernel = beam_of(psf)
-                restored_d = imaging.restore(mdl, resid, beam_kernel)
-                kt.set_result(restored_d)
-                restored = restored_d.cpu().numpy()
-                if save_products:
-                    extra_maps.update(psf=psf, dirty=dirty,
-                                      model=mdl.cpu().numpy(),
-                                      residual=resid.cpu().numpy())
+                with profiling.span('rajepy.obs.image'):
+                    dirty_d, psf_d = image_channels(np.arange(n_chan), vis)
+                    dirty, psf = dirty_d.cpu().numpy(), psf_d.cpu().numpy()
+                    outside = dirty[mask == 0]
+                    threshold = nsigma * (float(np.std(outside))
+                                          if outside.size else 0.0)
+                with profiling.span('rajepy.obs.clean'):
+                    if deconvolver == 'multiscale':
+                        mdl, resid, _its = imaging.multiscale_clean(
+                            dirty_d, psf_d, mask, scales=tuple(scales),
+                            gain=0.1, niter=niter, threshold=threshold,
+                            smallscalebias=smallscalebias)
+                    elif deconvolver == 'clark':
+                        mdl, resid, _its = imaging.clark_clean(
+                            dirty_d, psf_d, mask, gain=0.1, niter=niter,
+                            threshold=threshold, cycleniter=cycleniter)
+                    else:
+                        mdl, resid, _its = imaging.hogbom_clean(
+                            dirty_d, psf_d, mask, gain=0.1, niter=niter,
+                            threshold=threshold)
+                profiling.count('obs.clean_iterations', int(_its))
+                with profiling.span('rajepy.obs.restore'):
+                    beam, beam_kernel = beam_of(psf)
+                    restored_d = imaging.restore(mdl, resid, beam_kernel)
+                    kt.set_result(restored_d)
+                    restored = restored_d.cpu().numpy()
+                    if save_products:
+                        extra_maps.update(psf=psf, dirty=dirty,
+                                          model=mdl.cpu().numpy(),
+                                          residual=resid.cpu().numpy())
             return restored, mdl, beam
 
         def dynamic_range(img):
@@ -806,39 +853,40 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
 
     # --- products -------------------------------------------------------- #
     # (the clean/noisy visibility sets were written before imaging)
-    if selfcal:
-        with KernelTimer("synthobs: selfcal npz write", log):
-            selfcal_vis_file = os.path.join(
-                synobs_dcy, f'SynObs.{base}.selfcal.vis.npz')
-            with atomic_write(selfcal_vis_file) as f:
-                np.savez(f, uvw=uvw, vis_re=vis_sc.real.cpu().numpy(),
-                         vis_im=vis_sc.imag.cpu().numpy(), freqs=freqs,
-                         sigma=sigma)
-            gains_file = os.path.join(
-                synobs_dcy, f'SynObs.{base}.selfcal.gains.npz')
-            with atomic_write(gains_file) as f:
-                np.savez(f, g_re=g_tot.real, g_im=g_tot.imag,
-                         n_ant=n_ant, mode=str(selfcal),
-                         t_obs=float(run.t_obs))
-        del vis_sc
+    with profiling.span('rajepy.obs.write'):
+        if selfcal:
+            with KernelTimer("synthobs: selfcal npz write", log):
+                selfcal_vis_file = os.path.join(
+                    synobs_dcy, f'SynObs.{base}.selfcal.vis.npz')
+                with atomic_write(selfcal_vis_file) as f:
+                    np.savez(f, uvw=uvw, vis_re=vis_sc.real.cpu().numpy(),
+                             vis_im=vis_sc.imag.cpu().numpy(), freqs=freqs,
+                             sigma=sigma)
+                gains_file = os.path.join(
+                    synobs_dcy, f'SynObs.{base}.selfcal.gains.npz')
+                with atomic_write(gains_file) as f:
+                    np.savez(f, g_re=g_tot.real, g_im=g_tot.imag,
+                             n_ant=n_ant, mode=str(selfcal),
+                             t_obs=float(run.t_obs))
+            del vis_sc
 
-    dcy = run.rt_dcy
-    fitsfile = os.path.join(dcy, f'SynObs.{base}.noisy.imaging.fits')
-    out_hdr = fitsio.Header()
-    out_hdr['OBJECT'] = model.params['target']['name']
-    out_hdr['BUNIT'] = 'Jy/beam'
-    out_hdr['CTYPE1'] = 'RA---TAN'
-    out_hdr['CTYPE2'] = 'DEC--TAN'
-    out_hdr['CRVAL1'] = ra_deg
-    out_hdr['CRVAL2'] = dec_deg
-    # the imager's zero-phase point is integer pixel imsize//2 (FFT DC
-    # after fftshift), so CRPIX is that pixel 1-based — CASA's n/2+1
-    out_hdr['CRPIX1'] = imsize // 2 + 1
-    out_hdr['CRPIX2'] = imsize // 2 + 1
-    out_hdr['CDELT1'] = -cell_as / 3600.0
-    out_hdr['CDELT2'] = cell_as / 3600.0
-    out_hdr['BMAJ'] = np.degrees(bmaj_rad)
-    out_hdr['BMIN'] = np.degrees(bmin_rad)
+        dcy = run.rt_dcy
+        fitsfile = os.path.join(dcy, f'SynObs.{base}.noisy.imaging.fits')
+        out_hdr = fitsio.Header()
+        out_hdr['OBJECT'] = model.params['target']['name']
+        out_hdr['BUNIT'] = 'Jy/beam'
+        out_hdr['CTYPE1'] = 'RA---TAN'
+        out_hdr['CTYPE2'] = 'DEC--TAN'
+        out_hdr['CRVAL1'] = ra_deg
+        out_hdr['CRVAL2'] = dec_deg
+        # the imager's zero-phase point is integer pixel imsize//2 (FFT DC
+        # after fftshift), so CRPIX is that pixel 1-based — CASA's n/2+1
+        out_hdr['CRPIX1'] = imsize // 2 + 1
+        out_hdr['CRPIX2'] = imsize // 2 + 1
+        out_hdr['CDELT1'] = -cell_as / 3600.0
+        out_hdr['CDELT2'] = cell_as / 3600.0
+        out_hdr['BMAJ'] = np.degrees(bmaj_rad)
+        out_hdr['BMIN'] = np.degrees(bmin_rad)
     out_hdr['BPA'] = bpa_deg
     if cube_mode:
         # spectral axis, as CASA exportfits writes for tclean cubes
@@ -925,66 +973,68 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
         return products
 
     # --- imfit (continuum only; classes.py:2690-2840) -------------------- #
-    fm_data = sky[0]
-    yy, xx = np.mgrid[0:ny_m, 0:nx_m]
-    xx_as = (xx + 0.5 - nx_m / 2) * abs(float(hdr['CDELT1'])) * 3600.0
-    yy_as = (yy + 0.5 - ny_m / 2) * abs(float(hdr['CDELT2'])) * 3600.0
-    rr_as = np.sqrt(xx_as ** 2 + yy_as ** 2)
-    peak_flux = float(np.nansum(
-        np.where(rr_as < beam_min_as / 2.0, fm_data, 0.0)))
+    with profiling.span('rajepy.obs.imfit'):
+        fm_data = sky[0]
+        yy, xx = np.mgrid[0:ny_m, 0:nx_m]
+        xx_as = (xx + 0.5 - nx_m / 2) * abs(float(hdr['CDELT1'])) * 3600.0
+        yy_as = (yy + 0.5 - ny_m / 2) * abs(float(hdr['CDELT2'])) * 3600.0
+        rr_as = np.sqrt(xx_as ** 2 + yy_as ** 2)
+        peak_flux = float(np.nansum(
+            np.where(rr_as < beam_min_as / 2.0, fm_data, 0.0)))
 
-    # expected deconvolved jet dims from the tau = 1 surface
-    # (classes.py:2720-2746): scalar algebra on the host
-    mp = model.params
-    r_0_au = mp['geometry']['r_0']
-    mod_r_0_au = mp['geometry']['mod_r_0']
-    w_0_au = mp['geometry']['w_0']
-    tau_0 = float(mphys.tau_r_from_params(mp, run.freq, r_0_au))
-    q_tau = mp['power_laws']['q_tau']
-    eps = mp['geometry']['epsilon']
-    dist_pc = mp['target']['dist']
-    maj_au = (mod_r_0_au * tau_0 ** (-1.0 / q_tau) + r_0_au -
-              mod_r_0_au) * 2.0
-    maj_as = np.arctan(maj_au * cnsts.AU /
-                       (dist_pc * cnsts.PARSEC)) / cnsts.ARCSEC
-    min_au = float(mgeom.w_r(maj_au / 2.0, w_0_au, mod_r_0_au, r_0_au, eps))
-    min_as = np.arctan(min_au * cnsts.AU /
-                       (dist_pc * cnsts.PARSEC)) / cnsts.ARCSEC
-    conv_maj = float(np.sqrt(maj_as ** 2 + beam_min_as ** 2))
-    conv_min = float(np.sqrt(min_as ** 2 + beam_min_as ** 2))
-    if conv_min > conv_maj:
-        conv_maj, conv_min = conv_min, conv_maj
+        # expected deconvolved jet dims from the tau = 1 surface
+        # (classes.py:2720-2746): scalar algebra on the host
+        mp = model.params
+        r_0_au = mp['geometry']['r_0']
+        mod_r_0_au = mp['geometry']['mod_r_0']
+        w_0_au = mp['geometry']['w_0']
+        tau_0 = float(mphys.tau_r_from_params(mp, run.freq, r_0_au))
+        q_tau = mp['power_laws']['q_tau']
+        eps = mp['geometry']['epsilon']
+        dist_pc = mp['target']['dist']
+        maj_au = (mod_r_0_au * tau_0 ** (-1.0 / q_tau) + r_0_au -
+                  mod_r_0_au) * 2.0
+        maj_as = np.arctan(maj_au * cnsts.AU /
+                           (dist_pc * cnsts.PARSEC)) / cnsts.ARCSEC
+        min_au = float(mgeom.w_r(maj_au / 2.0, w_0_au, mod_r_0_au, r_0_au,
+                                 eps))
+        min_as = np.arctan(min_au * cnsts.AU /
+                           (dist_pc * cnsts.PARSEC)) / cnsts.ARCSEC
+        conv_maj = float(np.sqrt(maj_as ** 2 + beam_min_as ** 2))
+        conv_min = float(np.sqrt(min_as ** 2 + beam_min_as ** 2))
+        if conv_min > conv_maj:
+            conv_maj, conv_min = conv_min, conv_maj
 
-    est_file = _product_path(fitsfile, '.estimates')
-    products['estimates'] = est_file
-    with open(est_file, 'wt') as f:
-        f.write('{:.6f}, {:.1f}, {:.1f}, {:.5f}arcsec, {:.5f}arcsec, '
-                '{:.2f}deg'.format(peak_flux, imsize / 2.0, imsize / 2.0,
-                                   conv_maj, conv_min,
-                                   mp['geometry']['pa']))
+        est_file = _product_path(fitsfile, '.estimates')
+        products['estimates'] = est_file
+        with open(est_file, 'wt') as f:
+            f.write('{:.6f}, {:.1f}, {:.1f}, {:.5f}arcsec, {:.5f}arcsec, '
+                    '{:.2f}deg'.format(peak_flux, imsize / 2.0, imsize / 2.0,
+                                       conv_maj, conv_min,
+                                       mp['geometry']['pa']))
 
-    beam_area_pix = (np.pi / (4 * np.log(2.0)) *
-                     (bmaj_rad / cell_rad) * (bmin_rad / cell_rad))
-    fit_t0 = time.perf_counter()
-    fit = imfit_mod.fit_gaussian(
-        restored_cube[0],
-        estimates={'peak': max(peak_flux, 1e-12), 'x': imsize / 2.0,
-                   'y': imsize / 2.0, 'maj_pix': conv_maj / cell_as,
-                   'min_pix': conv_min / cell_as,
-                   'pa_deg': mp['geometry']['pa']},
-        beam_area_pix=beam_area_pix)
-    profiling.record_stage("host source fit (imfit)",
-                           time.perf_counter() - fit_t0)
-    imfit_file = _product_path(fitsfile, '.imfit')
-    if fit is not None:
-        imfit_mod.write_imfit_summary(imfit_file, fit, cell_as,
-                                      beam_area_pix)
-        products['imfit'] = imfit_file
-        run.results['imfit'] = {
-            h: {'val': v['value'], 'unit': v['units']}
-            for h, v in casa_imfit_file_to_dict(imfit_file).items()
-            if h}
-    else:
-        run.results['imfit'] = None
+        beam_area_pix = (np.pi / (4 * np.log(2.0)) *
+                         (bmaj_rad / cell_rad) * (bmin_rad / cell_rad))
+        fit_t0 = time.perf_counter()
+        fit = imfit_mod.fit_gaussian(
+            restored_cube[0],
+            estimates={'peak': max(peak_flux, 1e-12), 'x': imsize / 2.0,
+                       'y': imsize / 2.0, 'maj_pix': conv_maj / cell_as,
+                       'min_pix': conv_min / cell_as,
+                       'pa_deg': mp['geometry']['pa']},
+            beam_area_pix=beam_area_pix)
+        profiling.record_stage("host source fit (imfit)",
+                               time.perf_counter() - fit_t0)
+        imfit_file = _product_path(fitsfile, '.imfit')
+        if fit is not None:
+            imfit_mod.write_imfit_summary(imfit_file, fit, cell_as,
+                                          beam_area_pix)
+            products['imfit'] = imfit_file
+            run.results['imfit'] = {
+                h: {'val': v['value'], 'unit': v['units']}
+                for h, v in casa_imfit_file_to_dict(imfit_file).items()
+                if h}
+        else:
+            run.results['imfit'] = None
 
     return products

@@ -9,15 +9,23 @@
   shows as ``rajepy.<stage>``;
 * ``rt.runs`` counts every RT products call and ``rt.products_out_bytes``
   the bytes of the numpy products, and nothing with ``as_numpy=False``;
-* the products are bit for bit the same with the profiler on and off.
+* the products are bit for bit the same with the profiler on and off;
+* an observed run (``Pipeline.execute_run``) opens each ``rajepy.obs.*``
+  stage span once inside ``rajepy.obs.run`` (``.write`` twice: the
+  visibility sets before imaging, the images after), covering at least
+  nine tenths of it, and ``obs.runs``,
+  ``obs.visibilities`` and ``obs.clean_iterations`` advance by one run, its
+  visibilities and its Hogbom iterations; with no profiler it enters no
+  ``record_function``.
 """
 import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from rajepy_tpu_torch import JetModel, fit
+from rajepy_tpu_torch import JetModel, Pipeline, fit
 from rajepy_tpu_torch.ops import rrls
+from rajepy_tpu_torch.synthobs import imaging
 from rajepy_tpu_torch.utils import profiling
 
 LINE = 'H58a'
@@ -29,6 +37,9 @@ RUN_CHILDREN = ('rajepy.rt.statics', 'rajepy.rt.epoch_maps',
 STEP_CHILDREN = ('rajepy.fit.forward', 'rajepy.fit.backward',
                  'rajepy.fit.optimizer')
 FILL = 'rajepy.grid fill (fields + fill factors)'
+OBS_STAGES = ('rajepy.obs.plan', 'rajepy.obs.sample', 'rajepy.obs.image',
+              'rajepy.obs.clean', 'rajepy.obs.restore', 'rajepy.obs.imfit')
+OBS_COUNTERS = ('obs.runs', 'obs.visibilities', 'obs.clean_iterations')
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -153,3 +164,71 @@ def test_counters_count_runs_and_bytes_out(model_params):
         assert c['rt.runs'] == runs + 2
         assert c['rt.products_out_bytes'] == out + sum(m.nbytes
                                                        for m in maps)
+
+
+def _observing(params, dcy):
+    """A pipeline of one continuum run (VLA A, 6 GHz, one channel, one
+    scan of 3600 s in 60 s integrations cut to 4 time samples) on the
+    small model."""
+    empty = np.array([])
+    pp = {'min_el': 20., 'dcys': {'model_dcy': str(dcy)},
+          'continuum': {'times': np.array([1.]), 'freqs': np.array([6e9]),
+                        't_obs': np.array([3600]),
+                        'tscps': np.array([('VLA', 'A')]),
+                        't_ints': np.array([60]), 'bws': np.array([1e8]),
+                        'chanws': np.array([1e8])},
+          'rrls': {'times': empty, 'lines': empty, 't_obs': empty,
+                   'tscps': empty, 't_ints': empty, 'bws': empty,
+                   'chanws': empty},
+          'synthobs': {'max_time_samples': 4, 'niter': 20}}
+    return Pipeline(_model(params), pp)
+
+
+def test_observation_spans_nest_and_counters_count(model_params, tmp_path,
+                                                   monkeypatch):
+    pl = _observing(model_params, tmp_path)
+    its = []
+    hogbom = imaging.hogbom_clean
+
+    def spy(*args, **kwargs):
+        out = hogbom(*args, **kwargs)
+        its.append(out[2])
+        return out
+    monkeypatch.setattr(imaging, 'hogbom_clean', spy)
+    before = {k: profiling.COUNTERS.get(k, 0) for k in OBS_COUNTERS}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        pl.execute_run(0, plot=False)
+    spans = _spans(prof)
+    run, = _named(spans, 'rajepy.obs.run')
+    for name in OBS_STAGES:
+        stage, = _named(spans, name)
+        assert _inside(stage, run), name
+    writes = _named(spans, 'rajepy.obs.write')
+    assert len(writes) == 2 and all(_inside(w, run) for w in writes)
+    first = {name: _named(spans, name)[0][1] for name in OBS_STAGES}
+    assert sorted(first, key=first.get) == list(OBS_STAGES)
+    # the stages cover the observation but for a little glue
+    covered = sum(e - b for name in OBS_STAGES + ('rajepy.obs.write',)
+                  for _, b, e in _named(spans, name))
+    assert 0.9 * (run[2] - run[1]) <= covered <= run[2] - run[1]
+    # the RT run comes before the observation, outside it
+    rt, = _named(spans, 'rajepy.rt.run')
+    assert rt[2] <= run[1]
+    with np.load(pl.runs[0].products['ms_noisy']) as f:
+        n_vis = f['vis_re'].size
+    assert n_vis == 4 * 351
+    assert len(its) == 1 and 0 < its[0] <= 20
+    got = {k: profiling.COUNTERS[k] - before[k] for k in OBS_COUNTERS}
+    assert got == {'obs.runs': 1, 'obs.visibilities': n_vis,
+                   'obs.clean_iterations': its[0]}
+
+
+def test_observation_without_profiler_enters_no_span(model_params, tmp_path,
+                                                     monkeypatch):
+    def refuse(name, *args, **kwargs):
+        raise AssertionError(f"record_function({name!r}) entered")
+    monkeypatch.setattr(profiling, 'record_function', refuse)
+    pl = _observing(model_params, tmp_path)
+    assert profiling.span('rajepy.obs.run') is profiling.span('rajepy.x')
+    pl.execute_run(0, plot=False)
+    assert pl.runs[0].completed and pl.runs[0].results['imfit'] is not None
