@@ -31,7 +31,11 @@ Phases (any failure exits non-zero; nothing is caught):
    and emergent) also on a grid with nz % 4 != 0, a wholly jet cube, a cube
    whose only jet cells lie in the last y row and the last z column, an
    all-zero cube with launch times that are not finite (exact zeros),
-   a view that is not 16-byte aligned, and 1, 17 and 64 channels;
+   a view that is not 16-byte aligned, and 1, 17 and 64 channels; the
+   Faddeeva kernel (``ops/voigt.wofz`` on card tensors) in float64 and
+   float32 across the interior, both sides of the wings' cut, y < 3e-5
+   and y = 0, |x| up to 1e4 and on expanded inputs (1e-13 and 1e-5 of
+   |w|, each element);
 2. main paths, each counted: the launch counters are reset just before a
    path and read just after, and each of its kernels must have been
    launched.
@@ -171,8 +175,8 @@ Phases (any failure exits non-zero; nothing is caught):
       truth's combo equal to the forward).  Every loss must fall; the
       steps are timed by CUDA events recorded by the optimizer (median),
       with each fit's own peak memory above what was resident before
-      it.  The fits
-      launch no hand-written kernel (``launches_by_path.fit``): their
+      it.  Of the hand-written kernels the fits launch the Faddeeva
+      one alone, in the RRL fit (``launches_by_path.fit``): their other
       forwards are plain torch, as the JAX package's fit forwards are
       XLA (the Pallas kernels have no VJP).
    j. parallel (``rajepy_tpu_torch.parallel``) on the same model: meshes of
@@ -272,7 +276,12 @@ Phases (any failure exits non-zero; nothing is caught):
    grid (their main path's case), on a wholly jet cube (epoch) and at 64
    channels (emergent), with the epoch kernel's two bounds (both cubes
    whole; launch times only where base != 0) and ptxas's report of both
-   (no spill allowed).
+   (no spill allowed).  The Faddeeva kernel at the RRL fit's shape
+   (1,062,496 float64 elements over that fit's range of x and y): ptxas's
+   report (no spill), against its plain version (1e-13 of |w|), one
+   launch a call, its device time beside the plain version's and their
+   device operations a call, and its bound (the larger of bytes and
+   float64 operations over 34 TFLOP/s).
 
 The line before the last is a JSON object with one entry per kernel, the
 line-cube observation's numbers, phase 2g's times, phase 2h's numbers
@@ -329,6 +338,20 @@ RRL_OPS_COMMON, RRL_OPS_CORE, RRL_OPS_FAR = 10, 98, 33
 # 33.5e12 of them per second (half the FLOP rate)
 RRL_ISSUE_COMMON, RRL_ISSUE_CORE, RRL_ISSUE_FAR = 12, 52, 25
 PEAK_F32_ISSUE_PER_S = PEAK_F32_OPS_PER_S / 2
+# the Faddeeva kernel (csrc/voigt.cu) at the RRL fit cell's shape: the
+# shipped jet's 1,062,496 cells in float64, x and y over what that fit's
+# 17 channels hand it (|x| <= 11.1, 0.0105 <= y <= 72); its tolerance
+# (of |w|, each element) in float64 and float32
+WOFZ_N = 1_062_496
+WOFZ_X, WOFZ_Y = 11.1, (0.0105, 72.0)
+WOFZ_RTOL = {'float64': 1e-13, 'float32': 1e-5}
+# float64 operations per element, counted from csrc/voigt.cu (a division,
+# a negation or an exp counts as one): the interior (127 Horner steps of
+# 7), the 15-level wings, and the y < 3e-5 Taylor terms on top of the
+# interior's; the H100 SXM data sheet's float64 peak outside the tensor
+# cores
+WOFZ_OPS_INTERIOR, WOFZ_OPS_FAR, WOFZ_OPS_TAYLOR = 925, 145, 42
+PEAK_F64_OPS_PER_S = 34e12
 EMERGENT_EPOCH_YR = 2.2
 EMERGENT_F32_RTOL = 3e-3
 # float32 operations of the emergent kernels, counted from
@@ -341,6 +364,7 @@ SCAN_OPS = 9
 EPOCH_SRC = 'rajepy_tpu_torch/csrc/epoch_maps.cu'
 RRL_SRC = 'rajepy_tpu_torch/csrc/rrl_maps.cu'
 EMERGENT_SRC = 'rajepy_tpu_torch/csrc/emergent_maps.cu'
+VOIGT_SRC = 'rajepy_tpu_torch/csrc/voigt.cu'
 KERNELS = {   # name -> (source, TPU kernel replaced)
     'epoch_base_map_tiles': (EPOCH_SRC,
                              'rajepy_tpu/ops/pallas_kernels.py:348'),
@@ -356,6 +380,7 @@ KERNELS = {   # name -> (source, TPU kernel replaced)
                            'rajepy_tpu/ops/pallas_kernels.py:553'),
     'transfer_scan_pallas': (EMERGENT_SRC,
                              'rajepy_tpu/ops/pallas_kernels.py:104'),
+    'wofz': (VOIGT_SRC, None),      # no TPU kernel: XLA fuses voigt.wofz
 }
 CONTINUUM_KERNELS = ('epoch_base_map_tiles', 'epoch_base_maps2_tiles',
                      'epoch_base_map_full')
@@ -1090,7 +1115,108 @@ def phase_kernels(bursts):
     check_rrl_kernels(rng, shape, dev)
     check_emergent_kernels(bursts, dev)
     check_full_grid_kernels(bursts, dev)
+    check_wofz_kernel(dev)
     torch.cuda.synchronize()
+
+
+def wofz_gap(got, want):
+    """max over elements of |w_got - w_want| / |w_want| of two (re, im)
+    pairs, and the share of elements equal bit for bit."""
+    import torch
+    g = torch.complex(got[0].double(), got[1].double())
+    w = torch.complex(want[0].double(), want[1].double())
+    same = (got[0] == want[0]) & (got[1] == want[1])
+    return (float(((g - w).abs() / w.abs()).max()),
+            float(same.double().mean()))
+
+
+def check_wofz_kernel(dev):
+    """The Faddeeva kernel against its plain version (``voigt._wofz_plain``
+    on the same card tensors) in float64 and float32: across the interior,
+    both sides of the wings' cut, y < 3e-5 and y = 0, |x| up to 1e4, and
+    on expanded inputs."""
+    import torch
+    from rajepy_tpu_torch.ops import kernels as kn
+    from rajepy_tpu_torch.ops import voigt
+    for dtype, cut in (('float64', 9.0), ('float32', 8.0)):
+        xs = np.concatenate([[0.0], np.logspace(-3, 4, 97),
+                             cut + np.array([-1e-9, 0.0, 1e-9]),
+                             np.linspace(0.5, cut + 1.0, 31)])
+        ys = np.concatenate([[0.0, 1e-12, 2.9e-5, 3e-5, 3.1e-5, 0.5],
+                             np.logspace(-4, 3, 30)])
+        x, y = np.meshgrid(np.concatenate([xs, -xs]), ys)
+        x, y = (torch.as_tensor(a.ravel(), dtype=getattr(torch, dtype),
+                                device=dev) for a in (x, y))
+        n = kn.LAUNCHES['wofz']
+        got = voigt.wofz(x, y)
+        rel, same = wofz_gap(got, voigt._wofz_plain(x, y))
+        # expanded: a row of x against a column of y
+        got_e = voigt.wofz(x[:200], y[::50, None])
+        xe, ye = torch.broadcast_tensors(x[:200], y[::50, None])
+        rel_e, same_e = wofz_gap(got_e, voigt._wofz_plain(xe, ye))
+        print(f"  wofz ({dtype}, {x.numel()} elements; expanded "
+              f"{tuple(xe.shape)}): max |dw|/|w| {rel:.3e}, "
+              f"{rel_e:.3e} (tolerance {WOFZ_RTOL[dtype]:g}); bit for bit "
+              f"equal {same:.4f}, {same_e:.4f} of the elements")
+        if not max(rel, rel_e) <= WOFZ_RTOL[dtype]:
+            raise AssertionError(f"wofz ({dtype}): {max(rel, rel_e):.3e}")
+        if kn.LAUNCHES['wofz'] != n + 2:
+            raise AssertionError(f"wofz: {kn.LAUNCHES['wofz'] - n} "
+                                 f"launches for two calls")
+
+
+def wofz_numbers(smi):
+    """Phase 3 for the Faddeeva kernel at the RRL fit's shape (WOFZ_N
+    float64 elements, seeded over the fit's range): ptxas's report (no
+    spill), the kernel against its plain version, one launch a call, its
+    device time beside the plain version's (with both calls' device
+    operations) and its bound.  Returns the summary line's row and the
+    (max relative, max absolute) error of w."""
+    import torch
+    from rajepy_tpu_torch.ops import kernels as kn
+    from rajepy_tpu_torch.ops import voigt
+    print_ptxas(kn.build_log(), r'wofz_f(64|32)_kernel',
+                {'wofz_f64_kernel', 'wofz_f32_kernel'})
+    rng = np.random.default_rng(21)
+    x = torch.as_tensor(rng.uniform(-WOFZ_X, WOFZ_X, WOFZ_N), device='cuda')
+    y = torch.as_tensor(np.exp(rng.uniform(*np.log(WOFZ_Y), WOFZ_N)),
+                        device='cuda')
+    n = kn.LAUNCHES['wofz']
+    got = voigt.wofz(x, y)
+    if kn.LAUNCHES['wofz'] != n + 1:
+        raise AssertionError("wofz: not one launch a call")
+    want = voigt._wofz_plain(x, y)
+    rel, same = wofz_gap(got, want)
+    abs_err = float(torch.complex(got[0] - want[0], got[1] - want[1])
+                    .abs().max())
+    print(f"  wofz (float64) at the RRL fit's shape, {WOFZ_N} elements: "
+          f"max |dw|/|w| {rel:.3e} (tolerance {WOFZ_RTOL['float64']:g}), "
+          f"max |dw| {abs_err:.3e}; bit for bit equal {same:.4f} of the "
+          f"elements")
+    if not rel <= WOFZ_RTOL['float64']:
+        raise AssertionError(f"wofz at the fit's shape: {rel:.3e}")
+    far = (x.abs() + y) > 9.0
+    tiny = y < 3e-5
+    n_far = int(far.sum())
+    n_int = WOFZ_N - n_far
+    n_ops = (n_int * WOFZ_OPS_INTERIOR + n_far * WOFZ_OPS_FAR +
+             int((tiny & ~far).sum()) * WOFZ_OPS_TAYLOR)
+    n_b = 4 * WOFZ_N * 8
+    t_ops = n_ops / PEAK_F64_OPS_PER_S * 1e3
+    t_bytes = n_b / PEAK_BYTES_PER_S * 1e3
+    b_ms, b_by = max((t_ops, 'operations'), (t_bytes, 'bytes'))
+    k_ev = cuda_ms(lambda: voigt.wofz(x, y), batch=10)
+    dev = kernel_ms(lambda: kn.wofz_kernel(x, y))
+    p_ms = cuda_ms(lambda: voigt._wofz_plain(x, y), n_rep=5, n_warm=1)
+    print(f"  wofz kernel: device {dev:.4f} ms (profiler, mean of 10), "
+          f"{k_ev:.4f} ms a voigt.wofz call (CUDA events, median of 30 "
+          f"batches of 10); plain {p_ms:.4f} ms (median of 5); bound "
+          f"{b_ms:.4f} ms by {b_by} ({n_ops} float64 ops: {n_int} "
+          f"interior and {n_far} wing elements; {n_b} B), {b_ms / dev:.3f} "
+          f"of it [{smi}]")
+    print_busy('voigt.wofz calls (kernel)', lambda: voigt.wofz(x, y), 10)
+    print_busy('plain calls', lambda: voigt._wofz_plain(x, y), 3)
+    return ('wofz', dev, p_ms, b_ms, b_by), (rel, abs_err)
 
 
 # the epoch tile kernel's random-tile cases: (tile positions' segment ids,
@@ -2830,8 +2956,11 @@ def run_fits(jm, log, smi, uv1):
        tensor on the card (FIT_SAME_RTOL), and a ``sweep`` of 8 combos.
 
     Each fit's steps are timed by CUDA events (median), with its own peak
-    memory above what was resident before it; every loss must fall.  The fits launch no hand-written kernel:
-    their forwards are plain torch (the kernels have no backward)."""
+    memory above what was resident before it; every loss must fall.  Of
+    the hand-written kernels the fits launch the Faddeeva one alone (the
+    RRL fit's Voigt profiles, whose derivative autograd takes from the
+    Faddeeva ODE); their other forwards are plain torch (the other
+    kernels have no backward)."""
     import torch
     from rajepy_tpu_torch import fit
     from rajepy_tpu_torch.ops import kernels as kn
@@ -3055,12 +3184,14 @@ def run_fits(jm, log, smi, uv1):
               f"{k} {v:.6e}" for k, v in sig_g.items()))
     del pair
     launches = read_launches('fit')
-    if any(launches.values()):
-        raise AssertionError(f"the fits launched hand-written kernels: "
+    if {k for k, v in launches.items() if v} != {'wofz'}:
+        raise AssertionError(f"the fits launched hand-written kernels "
+                             f"other than the Faddeeva one, or not it: "
                              f"{launches}")
     out['wall_s'] = time.perf_counter() - t_wall
-    print(f"  the fits launched no hand-written kernel (their forwards "
-          f"are plain torch); phase 2i took {out['wall_s']:.1f} s")
+    print(f"  the fits launched the Faddeeva kernel alone "
+          f"({launches['wofz']} times; their other forwards are plain "
+          f"torch); phase 2i took {out['wall_s']:.1f} s")
     torch.cuda.empty_cache()
     return launches, out
 
@@ -4523,6 +4654,10 @@ def main() -> int:
         del parts_p
 
         rows += emergent_numbers(jm, scan_c)
+        wofz_row, errs['wofz'] = wofz_numbers(smi)
+        rows.append(wofz_row)
+        # the fits are what launch the Faddeeva kernel
+        launches['wofz'] = by_path['fit']['wofz']
         full_rows, full_errs = full_grid_numbers(jm, empty, bursts)
         rows += full_rows
         for name, err in full_errs.items():

@@ -60,6 +60,17 @@ wrapper                     TPU kernel replaced                  route
 ``transfer_scan_maps``      pallas_kernels.transfer_scan_pallas  cuda
 ==========================  ===================================  ========
 
+The Faddeeva function w(x + iy) of ``ops/voigt.wofz`` (see
+``csrc/voigt.cu``) has one more, which replaces no TPU kernel (XLA fuses
+the JAX package's scheme); its wrapper takes CUDA tensors only, and
+``ops/voigt._wofz_eval`` keeps the plain version for CPU tensors:
+
+==========================  ===================================  ========
+wrapper                     TPU kernel replaced                  route
+==========================  ===================================  ========
+``wofz_kernel``             none (voigt.wofz, fused by XLA)      cuda
+==========================  ===================================  ========
+
 Each wrapper takes CUDA tensors to its kernel and CPU tensors to the plain
 PyTorch version beside it (same formula, ``torch.sum`` over y; the ordered
 scans by an exclusive cumsum; the full-grid epoch version, like its
@@ -113,7 +124,8 @@ MAX_BURSTS = 32
 LAUNCHES = {'epoch_base_map_tiles': 0, 'epoch_base_maps2_tiles': 0,
             'epoch_base_map_full': 0, 'rrl_tiles_pallas': 0,
             'rrl_cube_pallas': 0, 'emergent_ff_tiles': 0,
-            'emergent_ff_pallas': 0, 'transfer_scan_pallas': 0}
+            'emergent_ff_pallas': 0, 'transfer_scan_pallas': 0,
+            'wofz': 0}
 
 # Weideman degree of the float32 RRL kernels: its truncation error (1.4e-7
 # on |x| <= 8) already sits at the float32 roundoff floor
@@ -152,10 +164,13 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xptxas', '-v', '-Xcompiler', '-fPIC')
 #: each source's own flags, after NVCC_FLAGS: the epoch and emergent
 #: kernels keep the TPU's float32 operation order (no contracted
-#: multiply-add); the RRL kernels contract (two FMAs per Goertzel step)
+#: multiply-add), and the Faddeeva kernels the eager chain's rounding of
+#: ops/voigt.py's plain version; the RRL kernels contract (two FMAs per
+#: Goertzel step)
 SOURCE_FLAGS = {'epoch_maps.cu': ('-fmad=false',),
                 'emergent_maps.cu': ('-fmad=false',),
-                'rrl_maps.cu': ()}
+                'rrl_maps.cu': (),
+                'voigt.cu': ('-fmad=false',)}
 
 _LIB = None
 
@@ -622,6 +637,33 @@ def _weideman_struct() -> _Weideman:
     return w
 
 
+class _WofzCoeffs64(ctypes.Structure):
+    """The float64 Faddeeva kernel's Weideman-128 scale and coefficients
+    (highest power first); mirrors ``WofzCoeffs64`` in voigt.cu."""
+    _fields_ = [('ell', ctypes.c_double), ('a', ctypes.c_double * 128)]
+
+
+class _WofzCoeffs32(ctypes.Structure):
+    """The float32 Faddeeva kernel's Weideman-32 scale and coefficients;
+    mirrors ``WofzCoeffs32`` in voigt.cu."""
+    _fields_ = [('ell', ctypes.c_float), ('a', ctypes.c_float * 32)]
+
+
+@functools.lru_cache(maxsize=2)
+def _wofz_struct(dtype: torch.dtype):
+    """The Faddeeva kernel's constants for ``dtype``, made once: the
+    coefficients of ``ops/voigt._wofz_core`` at that dtype's degree, each
+    rounded to the dtype as the plain version's scalars are."""
+    cls, n = ((_WofzCoeffs64, 128) if dtype == torch.float64 else
+              (_WofzCoeffs32, 32))
+    ell, coeffs = _weideman_coeffs(n)
+    w = cls()
+    w.ell = float(ell)
+    for i, c in enumerate(coeffs):
+        w.a[i] = float(c)
+    return w
+
+
 def _bursts_struct(bursts: Sequence) -> _Bursts:
     if len(bursts) > MAX_BURSTS:
         raise ValueError(f"the epoch kernels take at most {MAX_BURSTS} "
@@ -743,11 +785,15 @@ def _lib():
         lib.transfer_scan.argtypes = [p] * 4 + [i, i, i, i, p]
         lib.emergent_full.argtypes = [p] * 7 + [i, i, i, i, i, p]
         lib.emergent_tiles.argtypes = [p] * 9 + [i, i, i, f, f, bp, p]
+        lib.wofz_f64.argtypes = [p] * 4 + [ctypes.c_size_t,
+                                           ctypes.POINTER(_WofzCoeffs64), p]
+        lib.wofz_f32.argtypes = [p] * 4 + [ctypes.c_size_t,
+                                           ctypes.POINTER(_WofzCoeffs32), p]
         for fn in (lib.epoch_maps1, lib.epoch_maps2, lib.burst_chi_probe,
                    lib.epoch_full,
                    lib.rrl_tiles, lib.rrl_activity, lib.rrl_cube,
                    lib.transfer_scan, lib.emergent_full,
-                   lib.emergent_tiles):
+                   lib.emergent_tiles, lib.wofz_f64, lib.wofz_f32):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -1304,3 +1350,34 @@ def emergent_ff_tiles(cnu, hnuk, tau_scale, temp_t, a_t, tss_t, seg_start,
     n_xt, n_zt = _tile_grid(nx, bx), _tile_grid(nz, bz)
     return (scatter_tile_maps(inten, it, kt, n_xt, n_zt, nx, nz),
             scatter_tile_maps(tau, it, kt, n_xt, n_zt, nx, nz))
+
+
+def wofz_kernel(x: torch.Tensor, y: torch.Tensor):
+    """``(Re w, Im w)`` of w(x + iy), y >= 0, for CUDA tensors of one shape
+    and dtype (float64 or float32) by the kernel of csrc/voigt.cu: the
+    scheme of ``ops/voigt._wofz_core`` and ``_wofz_eval`` (their plain
+    version) in one launch.  Views, expanded ones included, are made
+    contiguous first; the outputs are new contiguous tensors."""
+    name = 'wofz'
+    if x.device.type != 'cuda' or y.device != x.device:
+        raise ValueError(f"{name}: the kernel takes tensors on one CUDA "
+                         f"device, got {x.device} and {y.device}")
+    if x.dtype not in (torch.float64, torch.float32) or y.dtype != x.dtype:
+        raise TypeError(f"{name}: the CUDA kernel takes float64 or float32, "
+                        f"got {x.dtype} and {y.dtype}")
+    if x.shape != y.shape:
+        raise ValueError(f"{name}: shapes {tuple(x.shape)} and "
+                         f"{tuple(y.shape)} differ")
+    x, y = x.contiguous(), y.contiguous()
+    re, im = torch.empty_like(x), torch.empty_like(x)
+    if x.numel() == 0:
+        return re, im
+    with torch.cuda.device(x.device):
+        lib = _lib()
+        launch = lib.wofz_f64 if x.dtype == torch.float64 else lib.wofz_f32
+        err = launch(x.data_ptr(), y.data_ptr(), re.data_ptr(),
+                     im.data_ptr(), x.numel(), _wofz_struct(x.dtype),
+                     _stream(x.device))
+    _raise_if_error(name, err)
+    LAUNCHES[name] += 1
+    return re, im

@@ -22,6 +22,13 @@ the Faddeeva ODE ``w'(z) = -2 z w + 2i/sqrt(pi)`` on the computed value
 (the JAX package's custom JVP, voigt.py:171-184): differentiating through
 the 128-term Horner recurrence would cost ~100x the forward.  It has a
 ``backward`` (reverse mode) and a ``jvp`` (forward mode).
+
+The value on CUDA tensors comes from one hand-written kernel
+(``csrc/voigt.cu``, :func:`ops.kernels.wofz_kernel`), the same scheme
+with the same rounding; on CPU tensors from the eager scheme below, its
+plain version (:func:`_wofz_plain`).  The counters ``voigt.wofz_evals``
+(every evaluation) and ``voigt.wofz_kernel`` (those through the kernel)
+of ``utils.profiling`` say how often the kernel serves.
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from ..utils import profiling
 
 _SQRT_PI = 1.7724538509055159
 _N_WEIDEMAN = 128          # float64 rational degree (roundoff-floor accurate)
@@ -169,7 +178,20 @@ class _Wofz(torch.autograd.Function):
 
 
 def _wofz_eval(x, y):
-    """The value of :func:`wofz` on broadcast tensors of one dtype."""
+    """The value of :func:`wofz` on broadcast tensors of one dtype: the
+    CUDA kernel for CUDA tensors, the plain version otherwise."""
+    profiling.count('voigt.wofz_evals')
+    if x.is_cuda:
+        from .kernels import wofz_kernel    # kernels imports this module
+        out = wofz_kernel(x, y)
+        profiling.count('voigt.wofz_kernel')
+        return out
+    return _wofz_plain(x, y)
+
+
+def _wofz_plain(x, y):
+    """The plain version of the value of :func:`wofz`: one eager operation
+    per term, on broadcast tensors of one dtype."""
     dtype = x.dtype
     if dtype == torch.float32:
         return _wofz_core(x, y, 32, _CF_LEVELS_F32, 8.0)

@@ -1,5 +1,5 @@
-"""The CUDA kernels (epoch, RRL and emergent) against their plain
-versions, the pipeline's copy-out, and the synthetic observation's device
+"""The CUDA kernels (epoch, RRL, emergent and Faddeeva) against their
+plain versions, the pipeline's copy-out, and the synthetic observation's device
 stages against the CPU, on the card.
 
 Needs an NVIDIA GPU with ``nvcc``; skipped elsewhere.  This file imports
@@ -21,6 +21,8 @@ from rajepy_tpu_torch import constants as cnsts
 from rajepy_tpu_torch.ops import kernels as kn
 from rajepy_tpu_torch.ops import physics
 from rajepy_tpu_torch.ops import radtrans as rt
+from rajepy_tpu_torch.ops import voigt
+from rajepy_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -160,6 +162,69 @@ def test_f32_card_products_match_f64_cpu(card):
                          cpu.continuum_rt_products(freqs)):
         err = np.max(np.abs(got - want)) / np.abs(want).max()
         assert err < 2e-4
+
+
+def _wofz_grid(cut):
+    """(x, y) across the interior, both sides of the wings' cut |x| + y =
+    ``cut``, y < 3e-5 and y = 0, and |x| up to 1e4, both signs of x."""
+    xs = np.concatenate([[0.0], np.logspace(-3, 4, 120),
+                         cut + np.array([-1e-9, -1e-12, 0.0, 1e-12, 1e-9]),
+                         np.linspace(0.5, cut + 1.0, 41)])
+    xs = np.concatenate([xs, -xs])
+    ys = np.concatenate([[0.0, 1e-12, 1e-6, 2.9e-5, 3e-5, 3.1e-5, 0.5,
+                          cut - 1e-9, cut + 1e-9], np.logspace(-4, 3, 40)])
+    x, y = np.meshgrid(xs, ys)
+    # |x| + y just under and just over the cut with y > 0
+    yw = np.repeat([0.3, 2.0, 5.0], 5)
+    xw = cut - yw + np.tile([-1e-9, -1e-13, 0.0, 1e-13, 1e-9], 3)
+    return (np.concatenate([x.ravel(), xw, -xw]),
+            np.concatenate([y.ravel(), yw, yw]))
+
+
+@pytest.mark.parametrize('dtype,cut,rtol', [(torch.float64, 9.0, 1e-13),
+                                            (torch.float32, 8.0, 1e-5)])
+def test_wofz_kernel_matches_plain_version(card, dtype, cut, rtol):
+    x, y = (torch.as_tensor(a, dtype=dtype, device=card)
+            for a in _wofz_grid(cut))
+    launches = kn.LAUNCHES['wofz']
+    n_kernel = profiling.COUNTERS.get('voigt.wofz_kernel', 0)
+    got = voigt.wofz(x, y)
+    assert kn.LAUNCHES['wofz'] == launches + 1
+    assert profiling.COUNTERS['voigt.wofz_kernel'] == n_kernel + 1
+    want = voigt._wofz_plain(x, y)
+    assert all(g.dtype == dtype and g.is_cuda for g in got)
+
+    def gap(g, w):
+        g, w = [(a[0].double() + 1j * a[1].double()).cpu() for a in (g, w)]
+        assert bool(torch.isfinite(w.abs()).all()) and float(w.abs().min()) > 0
+        return float(((g - w).abs() / w.abs()).max())
+
+    assert gap(got, want) <= rtol
+    # expanded inputs: a row of x against a column of y, views of stride 0
+    xr = x[:300].clone()
+    yc = y[::97].clone()[:, None]
+    xe, ye = torch.broadcast_tensors(xr, yc)
+    assert xe.stride()[0] == 0 and ye.stride()[1] == 0
+    got = voigt.wofz(xr, yc)
+    assert got[0].shape == xe.shape and got[0].is_contiguous()
+    assert kn.LAUNCHES['wofz'] == launches + 2
+    assert gap(got, voigt._wofz_plain(xe.contiguous(), ye.contiguous())) \
+        <= rtol
+    with pytest.raises(TypeError, match='float64 or float32'):
+        kn.wofz_kernel(x.half(), y.half())
+
+
+def test_wofz_gradient_on_the_card(card):
+    x = torch.linspace(-12.0, 12.0, 13, dtype=torch.float64, device=card)
+    y = torch.tensor([1e-6, 0.3, 2.0, 8.5, 11.0], dtype=torch.float64,
+                     device=card)
+    xx, yy = (t.contiguous().requires_grad_() for t in
+              torch.broadcast_tensors(x, y[:, None]))
+    launches = kn.LAUNCHES['wofz']
+    assert torch.autograd.gradcheck(voigt.wofz, (xx, yy), eps=1e-6,
+                                    atol=1e-7, rtol=1e-5,
+                                    check_forward_ad=True)
+    assert kn.LAUNCHES['wofz'] > launches
 
 
 def _rrl_band(n):

@@ -1,7 +1,8 @@
 """The port's RRL slice against the JAX package's, on the CPU.
 
 * ``ops/voigt.wofz`` at float64 to 1e-12 of max|w| over x, y in [0, 1e3]
-  (y = 0 and y < 3e-5 included), and at float32 to 1e-6;
+  (y = 0 and y < 3e-5 included), and at float32 to 1e-6, through the
+  plain version on CPU tensors (the kernel's wrapper refuses them);
 * ``ops/rrls``, ``ops/physics`` and the RRL half of ``ops/radtrans`` at
   float64 to 1e-9;
 * the plain versions of the RRL kernels (tile and cube) against
@@ -39,6 +40,7 @@ from rajepy_tpu_torch.ops import physics as tphys
 from rajepy_tpu_torch.ops import radtrans as trt
 from rajepy_tpu_torch.ops import rrls as trrl
 from rajepy_tpu_torch.ops import voigt as tvoigt
+from rajepy_tpu_torch.utils import profiling
 
 YEAR = 31536000.0
 LINE = 'H58a'
@@ -90,11 +92,35 @@ def test_wofz_matches_jax(dtype, tol):
     jre, jim = (np.asarray(a) for a in jvoigt.wofz(jnp.asarray(x),
                                                    jnp.asarray(y)))
     tdt = getattr(torch, dtype)
+    before = {k: profiling.COUNTERS.get(k, 0)
+              for k in ('voigt.wofz_evals', 'voigt.wofz_kernel')}
+    launches = kn.LAUNCHES['wofz']
     tre, tim = (a.numpy() for a in tvoigt.wofz(_t(x, tdt), _t(y, tdt)))
+    # a CPU tensor takes the plain version: one evaluation, no kernel
+    assert profiling.COUNTERS['voigt.wofz_evals'] == \
+        before['voigt.wofz_evals'] + 1
+    assert profiling.COUNTERS.get('voigt.wofz_kernel', 0) == \
+        before['voigt.wofz_kernel']
+    assert kn.LAUNCHES['wofz'] == launches
     assert tre.dtype == np.dtype(dtype)
     scale = np.abs(jre + 1j * jim).max()
     assert np.abs(tre - jre).max() / scale < tol
     assert np.abs(tim - jim).max() / scale < tol
+
+
+def test_wofz_kernel_wrapper_refuses_what_it_cannot_launch():
+    x = torch.zeros(3, dtype=torch.float64)
+    launches = kn.LAUNCHES['wofz']
+    with pytest.raises(ValueError, match='CUDA'):
+        kn.wofz_kernel(x, x)
+    assert kn.LAUNCHES['wofz'] == launches
+    # the constants are the plain version's, rounded to each dtype
+    for dtype, np_dtype, n in ((torch.float64, np.float64, 128),
+                               (torch.float32, np.float32, 32)):
+        ell, a = tvoigt._weideman_coeffs(n)
+        c = kn._wofz_struct(dtype)
+        np.testing.assert_array_equal(np.asarray(c.a[:]), a.astype(np_dtype))
+        assert c.ell == np_dtype(ell)
 
 
 def test_weideman_coeffs_match_jax():
