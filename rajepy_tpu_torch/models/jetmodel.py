@@ -111,30 +111,6 @@ class _OnDevice:
         return self._copies[name]
 
 
-def _products_out(maps, as_numpy: bool, pool: HostPool):
-    """An RT run's (em, tau, flux) maps as the caller asked for them: the
-    device tensors, or numpy arrays on the host (counted by their bytes):
-    views of CPU maps, copies of CUDA maps on blocks of the model's pinned
-    host pool.  Counts the run."""
-    count('rt.runs')
-    if not as_numpy:
-        return maps
-    with span('rajepy.rt.products_out'):
-        out = (_pinned_copies(maps, pool) if maps[0].is_cuda
-               else tuple(m.numpy() for m in maps))
-    count('rt.products_out_bytes', sum(a.nbytes for a in out))
-    return out
-
-
-def _pinned_copies(maps, pool: HostPool):
-    """Numpy copies of ``maps`` on blocks of ``pool``; counts the maps and
-    the blocks the pool had to make for them."""
-    out, made = pool.copy_out(maps)
-    count('rt.products_out_maps', len(out))
-    count('rt.products_out_pinned_new', made)
-    return out
-
-
 def _to_device(v, device):
     if isinstance(v, tuple):
         return tuple(_to_device(x, device) for x in v)
@@ -932,6 +908,29 @@ class JetModel:
         return torch.as_tensor(np.atleast_1d(np.asarray(freq, dtype=float)),
                                device=self._device).to(self._dtype)
 
+    def products_to_host(self, maps) -> Tuple[np.ndarray, ...]:
+        """An RT run's maps, computed on this model's device, as numpy
+        arrays on the host: the one copy-out of every run's products (the
+        model's own runs with ``as_numpy=True``, ``Pipeline.execute_run``
+        and :mod:`..parallel.fanout`).
+
+        On a CUDA model they are copied into blocks of the model's pinned
+        host pool (:mod:`..utils.pinned`, shared by its replicas), with one
+        synchronisation: a block is recycled for a later run once every
+        array that views it has been dropped, and the pool keeps at most
+        twice the bytes of its largest run's maps free.  On the CPU they
+        are views of the maps.  Counts the bytes, and on a CUDA model the
+        maps and the blocks the pool had to make."""
+        with span('rajepy.rt.products_out'):
+            if self._device.type == 'cuda':
+                out, made = self._host_pool.copy_out(maps)
+                count('rt.products_out_maps', len(out))
+                count('rt.products_out_pinned_new', made)
+            else:
+                out = tuple(m.numpy() for m in maps)
+        count('rt.products_out_bytes', sum(a.nbytes for a in out))
+        return out
+
     def continuum_rt_products(self, freq, as_numpy: bool = True):
         """The complete per-run continuum RT stage — EM map, per-channel
         optical-depth maps and flux maps — from ONE epoch pass: the burst
@@ -943,11 +942,9 @@ class JetModel:
         classes.py:2397-2423).  Returns numpy ``(em, taus, fluxes)``, or
         the device tensors with ``as_numpy=False``.
 
-        On a CUDA model the numpy maps are views of pinned host memory
-        (copied at the host link's rate), which the model recycles for a
-        later run once the caller has dropped every array that views it;
-        it keeps at most twice the bytes of its largest run's maps free
-        (:mod:`..utils.pinned`).  On the CPU they are views of the maps.
+        The numpy maps come from :meth:`products_to_host`: on a CUDA
+        model, views of pinned host memory that the model recycles once
+        the caller has dropped them; on the CPU, views of the maps.
         """
         with span('rajepy.rt.run'):
             with span('rajepy.rt.statics'):
@@ -962,8 +959,9 @@ class JetModel:
                 taus = scale[:, None, None] * a_map[None]
                 fluxes = rt.flux_ff_maps(freqs, taus, st.tbar, st.any_in,
                                          csize, dist)
-            return _products_out((em, taus, fluxes), as_numpy,
-                                 self._host_pool)
+            count('rt.runs')
+            maps = (em, taus, fluxes)
+            return self.products_to_host(maps) if as_numpy else maps
 
     def emission_measure(self, savefits: Union[bool, str] = False
                          ) -> np.ndarray:
@@ -1164,10 +1162,8 @@ class JetModel:
         continuum opacity and EM from one dual-base epoch pass
         (jetmodel.py:1289-1359; the reference's per-run sequence at
         classes.py:2437-2450).  Returns numpy ``(em, tau_l, fluxes)``, or
-        the device tensors with ``as_numpy=False``; the numpy maps are
-        held as :meth:`continuum_rt_products` says (pinned host memory on
-        a CUDA model, recycled once dropped, at most twice the largest
-        run's bytes kept free).
+        the device tensors with ``as_numpy=False``; the numpy maps come
+        from :meth:`products_to_host`.
 
         ``lte=False`` swaps in the G&S non-LTE slab composition: tau
         becomes the stimulated-corrected line opacity b_n1 beta tau_L* and
@@ -1206,8 +1202,9 @@ class JetModel:
                 if not contsub:
                     fluxes = fluxes + rt.flux_ff_maps(freqs, tau_c, st.tbar,
                                                       st.any_in, csize, dist)
-            return _products_out((em, tau_out, fluxes), as_numpy,
-                                 self._host_pool)
+            count('rt.runs')
+            maps = (em, tau_out, fluxes)
+            return self.products_to_host(maps) if as_numpy else maps
 
     def characteristic_conditions(self):
         """Emission-measure-weighted (T_e [K], n_e [cm^-3]) over the jet at

@@ -17,9 +17,11 @@ bursts) at each run's epoch, on the model's statics on its device
 a run there reads it, so only the cubes the runs read are copied, and none
 where the device is the model's own).  Every shard's work is issued before
 any product is copied out, so the devices overlap; the fanned products are
-the sequential ones bit for bit on the same device.  The host then writes
-each run's FITS products as the sequential path does
-(``Pipeline.execute`` consults the fanned cache before calling the model).
+the sequential ones bit for bit on the same device, and each run's are
+copied to the host as a sequential run's are (``JetModel.products_to_host``
+of the replica that computed them).  The host then writes each run's FITS
+products as the sequential path does (``Pipeline.execute`` consults the
+fanned cache before calling the model).
 """
 from __future__ import annotations
 
@@ -61,17 +63,20 @@ def _runs(model, years, freqs_mat, mesh):
 
 
 def _to_host(products):
-    """Per run ``(em, tau, flux)`` tensors -> three numpy arrays with a
-    leading run axis, each run's copied out and dropped in turn."""
+    """Per run ``(replica, (em, tau, flux))`` -> three numpy arrays with a
+    leading run axis: each run's maps copied out by the replica that
+    computed them (``JetModel.products_to_host``) and dropped in turn."""
     out = None
     for k in range(len(products)):
-        host = [t.cpu().numpy() for t in products[k]]
+        rep, maps = products[k]
         products[k] = None
+        host = rep.products_to_host(maps)
         if out is None:
             out = [np.empty((len(products),) + h.shape, h.dtype)
                    for h in host]
-        for a, h in zip(out, host):
-            a[k] = h
+        for i in range(len(host)):
+            out[i][k] = host[i]
+        del maps, host       # the run's device maps, its host blocks
     return tuple(out)
 
 
@@ -89,8 +94,8 @@ def continuum_runs_fanout(model, years, freqs_mat,
     for rep, idx in shards:
         for k in idx:
             rep.time = times[k]
-            products[k] = rep.continuum_rt_products(freqs[k],
-                                                    as_numpy=False)
+            products[k] = rep, rep.continuum_rt_products(freqs[k],
+                                                         as_numpy=False)
     return _to_host(products)
 
 
@@ -115,7 +120,7 @@ def rrl_runs_fanout(model, line: str, years, freqs_mat,
     for rep, idx in shards:
         for k in idx:
             rep.time = times[k]
-            products[k] = rep.rrl_rt_products(
+            products[k] = rep, rep.rrl_rt_products(
                 line, freqs[k], contsub=contsub, lte=b_pairs is None,
                 departure_coeffs=None if b_pairs is None else
                 tuple(b_pairs[k]), as_numpy=False)

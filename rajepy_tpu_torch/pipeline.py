@@ -168,8 +168,6 @@ class Pipeline:
         self.model_file = self.dcy + os.sep + "jetmodel.save"
         self.save_file = self.dcy + os.sep + "pipeline.save"
         self.ptgfile = self.dcy + os.sep + 'pointings.ptg'
-        # pinned host buffers of the last run's products, by product name
-        self._host_buffers: Dict[str, torch.Tensor] = {}
 
         log_name = "Pipeline_{}.log".format(
             _time.strftime("%Y%m%d%H-%M-%S", _time.localtime()))
@@ -413,28 +411,6 @@ class Pipeline:
                 f"across {n_dev} devices")
         return fanned
 
-    def _products_to_host(self, products: Dict[str, torch.Tensor]
-                          ) -> Dict[str, np.ndarray]:
-        """One copy-out of a run's products, as numpy arrays.
-
-        CUDA tensors are copied asynchronously into pinned host buffers,
-        followed by one synchronisation; the buffers are kept and reused
-        while a product's shape and dtype stay the same, so the returned
-        arrays are views that the NEXT call overwrites: a run's products
-        must be consumed before the next run's copy.  CPU tensors are
-        viewed in place."""
-        device = products['flux'].device    # the model's: one for all
-        if device.type != 'cuda':
-            return {k: t.numpy() for k, t in products.items()}
-        for name, t in products.items():
-            buf = self._host_buffers.get(name)
-            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
-                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                self._host_buffers[name] = buf
-            buf.copy_(t, non_blocking=True)
-        torch.cuda.synchronize(device)
-        return {name: self._host_buffers[name].numpy() for name in products}
-
     def execute(self, simobserve=True, verbose=True, dryrun=False,
                 resume=True, clobber=False, plot=True, device_fanout=None):
         """Execute all runs: radiative transfer, FITS products, synthetic
@@ -581,22 +557,18 @@ class Pipeline:
                     with profiling.KernelTimer(
                             "rt stage: device compute", self.log) as kt:
                         if run.obs_type == 'continuum':
-                            em_c, tau_c, flux_c = \
-                                self.model.continuum_rt_products(
-                                    run.chan_freqs, as_numpy=False)
+                            maps = self.model.continuum_rt_products(
+                                run.chan_freqs, as_numpy=False)
                         else:
-                            em_c, tau_c, flux_c = \
-                                self.model.rrl_rt_products(
-                                    run.line, run.chan_freqs,
-                                    contsub=False,
-                                    lte=getattr(run, 'lte', True),
-                                    as_numpy=False)
-                        kt.set_result(flux_c)
+                            maps = self.model.rrl_rt_products(
+                                run.line, run.chan_freqs, contsub=False,
+                                lte=getattr(run, 'lte', True),
+                                as_numpy=False)
+                        kt.set_result(maps[2])
                     write_t0 = _time.perf_counter()
-                    # one copy-out for all three products
-                    fan = self._products_to_host(
-                        {'em': em_c, 'tau': tau_c, 'flux': flux_c})
-                    del em_c, tau_c, flux_c
+                    fan = dict(zip(('em', 'tau', 'flux'),
+                                   self.model.products_to_host(maps)))
+                    del maps
                     # a part of the "product transfer + FITS write"
                     # stage below, recorded on its own as well
                     profiling.record_stage(
@@ -650,7 +622,7 @@ class Pipeline:
                     # per-channel summed fluxes (classes.py:2468-2471)
                     flux = np.nansum(np.nansum(fluxes, axis=1), axis=1)
                 self.runs[idx].results['flux'] = flux
-                # the host buffers are free for the next run from here
+                # the model's pinned blocks go back to its pool here
                 del fan, fluxes
                 profiling.record_stage(
                     "rt stage: product transfer + FITS write",

@@ -3,14 +3,17 @@ keeps.
 
 :class:`HostPool` copies device tensors into page-locked (pinned) host
 blocks and hands them back as numpy arrays that view the blocks, so the
-copy runs at the host link's rate and is made once.  A block is leased
-to the arrays of one copy: it goes back to the pool only when every
-numpy array and tensor that views it has been dropped, and the pool
-never writes a block while one is held.  Free blocks are reused for the
-next copy of the same size.  The free blocks kept hold at most
-:data:`FREE_COPIES` times the bytes of the pool's largest copy-out (for
-the 512^3 grid's 1,000-channel RRL run, 2 x 2.1 GB); the pool unpins and
-unmaps the rest as they come back.
+copy runs at the host link's rate and is made once.  Each model holds one
+pool, which its replicas share; its one user is
+``JetModel.products_to_host``, the copy-out of every RT run's products
+(the model's own runs, ``Pipeline.execute_run`` and the run fan-out of
+:mod:`..parallel.fanout`).  A block is leased to the arrays of one copy:
+it goes back to the pool only when every numpy array and tensor that
+views it has been dropped, and the pool never writes a block while one is
+held.  Free blocks are reused for the next copy of the same size.  The
+free blocks kept hold at most :data:`FREE_COPIES` times the bytes of the
+pool's largest copy-out (for the 512^3 grid's 1,000-channel RRL run,
+2 x 2.1 GB); the pool unpins and unmaps the rest as they come back.
 
 A block is an anonymous page-aligned mapping of its own, pinned with
 ``cudaHostRegister`` while the block lives and unpinned and unmapped

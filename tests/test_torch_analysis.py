@@ -27,6 +27,7 @@ from rajepy_tpu.ops import pallas_kernels as pk
 from rajepy_tpu_torch import JetModel
 from rajepy_tpu_torch.models import analysis as tanalysis
 from rajepy_tpu_torch.ops import radtrans as trt
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 YEAR = 31536000.0
 RTOL = {'float64': 1e-9, 'float32': 1e-5}
@@ -43,16 +44,6 @@ def forced_interpret():
         yield
     finally:
         pk.force_interpret(False)
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """Small grids: one thread runs them about as fast as eight, and the
-    other test processes keep their cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pair(params, n, dtype='float64', bursts=True, t_yr=0.6):

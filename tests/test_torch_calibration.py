@@ -33,6 +33,7 @@ from rajepy_tpu.synthobs import calibration as jcal
 from rajepy_tpu.synthobs import simulate_observation as jobserve
 from rajepy_tpu_torch.synthobs import calibration as tcal
 from rajepy_tpu_torch.synthobs import simulate_observation as tobserve
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 RTOL = 1e-12
 OBS_RTOL = 1e-9
@@ -41,17 +42,6 @@ CORRUPTION = {'amp_rms': 0.1, 'phase_rms_deg': 50.0, 'coherence_s': 1e5,
               'seed': 99}
 SYNTHOBS = {'sefd': 0.0, 'corruption': CORRUPTION, 'selfcal': 'amp+phase',
             'selfcal_rounds': 2}
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """The CLEAN loop and the solver are thousands of small operations: one
-    thread runs them as fast as eight and keeps a busy machine's other test
-    processes from waiting on this one's thread pool."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(got, want):

@@ -13,17 +13,7 @@ import torch
 from rajepy_tpu_torch import JetModel, Pipeline, cfg
 from rajepy_tpu_torch.io.fits import read_fits
 from rajepy_tpu_torch.main import build_parser, main
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """The CLEAN loop is thousands of small operations: one thread runs
-    them as fast as eight and keeps a busy machine's other test processes
-    from waiting on this one's thread pool."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 
 def _write_params(obj, path):

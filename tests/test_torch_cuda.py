@@ -401,11 +401,13 @@ def test_f32_card_emergent_matches_f64_cpu(card):
         assert np.max(np.abs(got - want)) / np.abs(want).max() < 3e-3
 
 
-def test_pipeline_on_the_card_reuses_its_pinned_buffers(card, tmp_path):
+def test_pipeline_on_the_card_reuses_its_pinned_buffers(card, tmp_path,
+                                                        monkeypatch):
     """``Pipeline.execute`` on a CUDA model: one launch of the dual-base
-    epoch kernel per run, the products copied out through pinned host
-    buffers that are kept while shape and dtype stay the same, FITS
-    products equal to the direct calls, and a resume that reloads the
+    epoch kernel per run, each run's products copied out once by the
+    model's ``products_to_host`` into blocks of its pinned pool, a run of
+    the same shapes as the last reusing that run's blocks and making none,
+    FITS products equal to the direct calls, and a resume that reloads the
     model on the card at float32."""
     from rajepy_tpu_torch import Pipeline
     from rajepy_tpu_torch.io.fits import read_fits
@@ -421,27 +423,26 @@ def test_pipeline_on_the_card_reuses_its_pinned_buffers(card, tmp_path):
     jm = JetModel(_params((64, 160, 64)), device=card)
     pline = Pipeline(jm, params)
     seen = []
-    to_host = pline._products_to_host
+    to_host = JetModel.products_to_host
 
-    def spy(products):
-        out = to_host(products)
-        seen.append({k: (pline._host_buffers[k].data_ptr(),
-                         pline._host_buffers[k].is_pinned(),
-                         out[k].ctypes.data) for k in out})
+    def spy(model, maps):
+        out = to_host(model, maps)
+        # addresses only: the arrays must go back to the pool
+        seen.append((model, [a.ctypes.data for a in out],
+                     all(torch.from_numpy(a).is_pinned() for a in out),
+                     profiling.COUNTERS['rt.products_out_pinned_new']))
         return out
 
-    pline._products_to_host = spy
+    monkeypatch.setattr(JetModel, 'products_to_host', spy)
     kn.reset_launches()
     pline.execute(simobserve=False, verbose=False, plot=False)
     assert kn.LAUNCHES['epoch_base_maps2_tiles'] == 3
     assert kn.LAUNCHES['rrl_tiles_pallas'] == 1
     assert len(seen) == 3 and all(r.completed for r in pline.runs)
-    for entry in seen:
-        assert all(pinned and view == ptr
-                   for ptr, pinned, view in entry.values())
-    assert seen[0] == seen[1]                    # same shapes: reused
-    assert seen[2]['em'] == seen[1]['em']        # the EM map keeps its shape
-    assert seen[2]['flux'][0] != seen[1]['flux'][0]     # 8 channels, not 2
+    assert all(model is jm and pinned for model, _, pinned, _ in seen)
+    (_, addrs0, _, new0), (_, addrs1, _, new1) = seen[:2]
+    assert set(addrs1) == set(addrs0) and new1 == new0     # recycled
+    monkeypatch.undo()
     for run in pline.runs:
         jm.time = run.year * YEAR
         if run.obs_type == 'continuum':

@@ -44,6 +44,7 @@ from rajepy_tpu_torch.ops import gaunt as tgaunt
 from rajepy_tpu_torch.ops import hyp2f1 as thyp
 from rajepy_tpu_torch.ops import physics as tphys
 from rajepy_tpu_torch.utils import profiling as tprof
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 YEAR = 31536000.0
 RTOL = {'float64': 1e-9, 'float32': 1e-5}
@@ -57,16 +58,6 @@ REDUCTIONS = ('diagnostic_maps', 'occupancy_projections',
 NO_BURSTS = {'t_0': np.array([]), 'hl': np.array([]), 'chi': np.array([]),
              'which': np.array([])}
 _PAIRS = {}
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """Small grids: one thread runs them about as fast as eight, and the
-    other test processes keep their cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pair(params, dtype, bursts):

@@ -35,19 +35,10 @@ from rajepy_tpu_torch import JetModel
 from rajepy_tpu_torch.ops import kernels as kn
 from rajepy_tpu_torch.ops import physics as tphys
 from rajepy_tpu_torch.ops import radtrans as trt
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 YEAR = 31536000.0
 F32 = np.float32
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """Small grids: one thread runs them about as fast as eight, and the
-    other test processes keep their cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture()

@@ -55,6 +55,7 @@ from rajepy_tpu_torch.models import analysis as tana
 from rajepy_tpu_torch.parallel import sharding as tsh
 from rajepy_tpu_torch.synthobs import sampler as tsamp
 from tests.test_torch_fit import jit_forwards
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YEAR = 31536000.0
@@ -64,15 +65,6 @@ F32 = 2e-4                      # float32 against float32 (chip_smoke MAP_RTOL)
 EXAMPLES = ('single_chip_production', 'multi_chip_sharded',
             'nonlte_and_surveys', 'fit_parameters', 'calibration_workflow',
             'uvfits_interchange', 'wide_field_vlbi')
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """Comparisons with JAX at 1e-9: one thread (ROADMAP Queue 3)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(got, want):

@@ -13,20 +13,10 @@ from rajepy_tpu_torch.synthobs import observatories
 from rajepy_tpu_torch.synthobs import sampler as tsampler
 from rajepy_tpu_torch.synthobs import uvfits as tuvfits
 from rajepy_tpu_torch.synthobs.calibration import vis_metadata
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 RTOL = 1e-12
 PACKAGES = {'jax': juvfits, 'port': tuvfits}
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """One intra-op thread: a first multithreaded ``torch.cos`` on the CPU
-    has been seen to return one worker's rows wrong in the ninth digit
-    (ROADMAP.md, Queue 3), which a 1e-12 comparison would catch."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _set(noisy):

@@ -26,6 +26,7 @@ from rajepy_tpu.parallel import fanout as jfan
 from rajepy_tpu_torch import fit, synthobs as tsyn
 from rajepy_tpu_torch.ops import radtrans as trt
 from rajepy_tpu_torch.parallel import fanout as tfan, sharding as tsh
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 CPU, CPU0 = torch.device('cpu'), torch.device('cpu', 0)
 SHARDS = [CPU, CPU0, CPU, CPU0]
@@ -33,15 +34,6 @@ YEAR = 31536000.0
 PRODUCTS = ('fits_em', 'fits_tau', 'fits_flux')
 TOL = (1e-9, 1e-6)          # continuum, RRL
 QUIET = dict(simobserve=False, verbose=False, plot=False)
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """Comparisons with JAX at 1e-9: one thread (ROADMAP Queue 3)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -139,6 +131,58 @@ def test_run_mesh_and_defaults(model_params):
     em, _, _ = tfan.continuum_runs_fanout(tm, [0.5], [[6e9]])
     rep = tm._replicas[CPU]
     assert rep._rt_static().a is tm._rt_static().a
+
+
+@pytest.mark.parametrize('path', ['execute', 'continuum_runs_fanout',
+                                  'rrl_runs_fanout'])
+def test_each_run_is_copied_out_once_by_its_model(model_params, shards,
+                                                 monkeypatch, tmp_path,
+                                                 path):
+    """The sequential ``Pipeline.execute`` and both fan-outs hand each
+    run's maps to ``JetModel.products_to_host`` once, of the model (or of
+    the shard's replica of it) that computed them, and write or return
+    what it hands back: each run's direct products bit for bit."""
+    tm = rajepy_tpu_torch.JetModel(_small(model_params), device='cpu')
+    to_host = rajepy_tpu_torch.JetModel.products_to_host
+    calls = []
+
+    def spy(model, maps):
+        out = to_host(model, maps)
+        calls.append((model, [a.copy() for a in out]))
+        return out
+
+    monkeypatch.setattr(rajepy_tpu_torch.JetModel, 'products_to_host', spy)
+    nu0 = trt.RRLCoeffs('H58a').nu0
+    years = np.array([0.0, 0.5, 1.0])
+    if path == 'execute':
+        pl = rajepy_tpu_torch.Pipeline(tm, _pline(tmp_path / 'out'))
+        pl.execute(device_fanout=False, **QUIET)
+        runs = [(r.year, r.chan_freqs, r.line if r.obs_type != 'continuum'
+                 else None, getattr(r, 'lte', True)) for r in pl.runs]
+        assert all(model is tm for model, _ in calls)
+    else:
+        if path == 'continuum_runs_fanout':
+            freqs_mat = np.stack([np.array([6e9, 1e10])] * 3)
+            got = tfan.continuum_runs_fanout(tm, years, freqs_mat)
+            runs = [(yr, f, None, True) for yr, f in zip(years, freqs_mat)]
+        else:
+            freqs_mat = np.stack(
+                [np.linspace(nu0 * 0.9999, nu0 * 1.0001, 4)] * 3)
+            got = tfan.rrl_runs_fanout(tm, 'H58a', years, freqs_mat)
+            runs = [(yr, f, 'H58a', True) for yr, f in zip(years, freqs_mat)]
+        assert [model for model, _ in calls] == \
+            [tm._replicas[d] for d in SHARDS[:3]]
+        for k, (_, out) in enumerate(calls):
+            for g, a in zip(got, out):
+                np.testing.assert_array_equal(g[k], a)
+    monkeypatch.undo()
+    assert len(calls) == len(runs)
+    for (_, out), (yr, freqs, line, lte) in zip(calls, runs):
+        tm.time = yr * YEAR
+        want = (tm.continuum_rt_products(freqs) if line is None else
+                tm.rrl_rt_products(line, freqs, lte=lte))
+        for a, w in zip(out, want):
+            np.testing.assert_array_equal(a, w)
 
 
 # --------------------------------------------------------------------------- #

@@ -13,16 +13,7 @@ from rajepy_tpu import JetModel as JaxJetModel
 from rajepy_tpu_torch import JetModel
 from rajepy_tpu_torch.models.fields import StaticFields, \
     static_fields_from_numpy
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """Small grids: one thread runs them about as fast as eight, and the
-    other test processes keep their cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("which", ["model_params", "disc_wind_params"])

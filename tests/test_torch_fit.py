@@ -32,6 +32,7 @@ from rajepy_tpu import fit as jfit
 from rajepy_tpu_torch import JetModel
 from rajepy_tpu_torch import fit as tfit
 from rajepy_tpu_torch.ops import voigt as tvoigt
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 YEAR = 31536000.0
 SED_FREQS = np.array([6e9, 4.4e10, 1e11, 3e11])
@@ -99,16 +100,6 @@ def jit_forwards(build):
         fwd, theta0 = build(*args, **kwargs)
         return jax.jit(fwd), theta0
     return wrapped
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """Small grids: one thread runs them about as fast as eight, and the
-    other test processes keep their cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

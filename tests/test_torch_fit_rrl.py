@@ -29,6 +29,7 @@ from rajepy_tpu_torch import fit as tfit
 from tests.test_torch_fit import (SED_FREQS, YEAR, base_params,
                                   jit_forwards, model_pair, np_, port_grad,
                                   rel_err)
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 LINE = 'H58a'
 NU0 = jrrls.rrl_nu_0('H', 58, 1)
@@ -42,14 +43,6 @@ def same_theta0(got, want):
     two packages' departure tables round b_n's last bit apart)."""
     np.testing.assert_allclose(np_(got), np.asarray(want), rtol=1e-15,
                                atol=1e-15)
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

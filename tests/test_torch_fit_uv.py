@@ -17,18 +17,11 @@ from rajepy_tpu_torch import fit as tfit
 from rajepy_tpu_torch.synthobs import uvfits as tuvfits
 from tests.test_torch_fit import (base_params, jit_forwards, model_pair, np_,
                                   port_grad, rel_err)
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 FREQS = np.array([1e11, 3e11])
 FREE = ('properties.mlr_bj', 'properties.T_0')
 N_ANT, N_T = 5, 3
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

@@ -24,6 +24,7 @@ from rajepy_tpu import constants as jcnsts
 from rajepy_tpu.ops import pallas_kernels as pk
 from rajepy_tpu_torch import JetModel
 from rajepy_tpu_torch.ops import kernels as kn
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 YEAR = 31536000.0
 F32 = np.float32
@@ -33,16 +34,6 @@ BURSTS = ((0.5 * YEAR, 1.0 / (2.0 * (0.13 * YEAR) ** 2), 4.0, True),
           (2.0 * YEAR, 1.0 / (2.0 * (0.42 * YEAR) ** 2), 9.0, True),
           (2.0 * YEAR, 1.0 / (2.0 * (0.42 * YEAR) ** 2), 9.0, False))
 RAGGED = (10, 70, 130)              # nz % 4 != 0
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """Small grids: one thread runs them about as fast as eight, and the
-    other test processes keep their cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(got, want):

@@ -12,18 +12,9 @@ import sys
 
 import pytest
 
+from tests.torch_one_thread import one_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """Small grids: one thread runs them about as fast as eight, and the
-    other test processes keep their cores."""
-    import torch
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _run(code, cwd=ROOT, env_extra=None):
@@ -71,80 +62,65 @@ def test_port_imports_without_jax():
     assert res.stdout.strip() == 'ok'
 
 
-# what the package docstring lists as not ported, or listed until it was
-# ported, each with the keyword that asks for it: of Pipeline.execute, or
-# of params['synthobs']; and for a ported one, the products it writes
-_NOT_PORTED = {
-    'device_fanout=True': ({'device_fanout': True}, {}),
-    'corruption': ({}, {'corruption': {'amp_rms': 0.1}}),
-    'selfcal': ({}, {'selfcal': 'phase'}),
-    'applycal_gains': ({}, {'applycal_gains': 'gains.npz'}),
-    'export_uvfits=True': ({}, {'export_uvfits': True}),
-    'shard_imaging=True': ({}, {'shard_imaging': True}),
+# options of Pipeline.execute and of params['synthobs'], each with the
+# keywords that ask for it (of execute, of params['synthobs']) and the
+# products an observed run with it writes
+_OPTIONS = {
+    'device_fanout=True': ({'device_fanout': True}, {}, ('clean_image',)),
+    'corruption': ({}, {'corruption': {'amp_rms': 0.1}}, ('ms_noisy',)),
+    'selfcal': ({}, {'selfcal': 'phase'}, ('ms_selfcal', 'gains')),
+    'applycal_gains': ({}, {'applycal_gains': 'gains.npz'}, ('ms_noisy',)),
+    'export_uvfits=True': ({}, {'export_uvfits': True},
+                           ('uvfits_clean', 'uvfits_noisy')),
+    'shard_imaging=True': ({}, {'shard_imaging': True}, ('clean_image',)),
 }
-NOW_PORTED = {'device_fanout=True': ('clean_image',),
-              'corruption': ('ms_noisy',),
-              'selfcal': ('ms_selfcal', 'gains'),
-              'applycal_gains': ('ms_noisy',),
-              'export_uvfits=True': ('uvfits_clean', 'uvfits_noisy'),
-              'shard_imaging=True': ('clean_image',)}
 
 
-@pytest.mark.parametrize("option", list(_NOT_PORTED))
-def test_what_the_docstring_calls_not_ported_still_raises(option,
-                                                          model_params,
-                                                          tmp_path):
-    """Each option the package docstring lists as not ported is named
-    there and raises ``NotImplementedError`` before any work.  The
-    calibration and export options and the multi-device ones
-    (``device_fanout=True``, ``shard_imaging=True``; on one CPU device they
-    run the sequential paths), listed until they were ported, are named
-    there no more: a run observed with one writes its products."""
+@pytest.mark.parametrize("option", list(_OPTIONS))
+def test_execute_options_are_ported_and_write_their_products(option,
+                                                             model_params,
+                                                             tmp_path):
+    """The package docstring does not list the option as not ported, and
+    a run observed with it (VLA B, 1,200 s, noise-free; the multi-device
+    options on one CPU device run the sequential paths) completes and
+    writes its products; only corruption and gain transfer make the noisy
+    set differ from the clean one."""
     import numpy as np
     import rajepy_tpu_torch
     doc = ' '.join(rajepy_tpu_torch.__doc__.split())
     not_ported = doc[doc.index('Not ported yet:'):doc.index('Package layout')]
-    assert (f'``{option}``' in not_ported) == (option not in NOW_PORTED)
-    kwargs, synthobs = _NOT_PORTED[option]
+    assert f'``{option}``' not in not_ported
+    kwargs, synthobs, products = _OPTIONS[option]
     model_params['grid'].update(n_x=16, n_y=40, n_z=16)
-    none = {'t_obs': None, 'tscps': None, 't_ints': None, 'bws': None,
-            'chanws': None}
     params = {'min_el': 20., 'dcys': {'model_dcy': str(tmp_path / 'out')},
-              'continuum': dict(none, times=np.array([1.0]),
-                                freqs=np.array([6e9])),
-              'rrls': dict(none, times=np.array([]), lines=None)}
-    if option in NOW_PORTED:
-        # an observed run (VLA B, 1,200 s), noise-free, and for gain
-        # transfer a gains product of the array's 27 antennas
-        params['continuum'].update(
-            t_obs=np.array([1200]), tscps=np.array([('VLA', 'B')]),
-            t_ints=np.array([60]), bws=np.array([1e8]),
-            chanws=np.array([1e8]))
-        synthobs = dict(synthobs, sefd=0.0, niter=20)
-        if option == 'applycal_gains':
-            phase = np.linspace(0.0, 1.0, 27)[None]
-            synthobs['applycal_gains'] = str(tmp_path / 'gains.npz')
-            np.savez(synthobs['applycal_gains'], g_re=np.cos(phase),
-                     g_im=np.sin(phase))
-    if synthobs is not None:
-        params['synthobs'] = synthobs
+              'continuum': {'times': np.array([1.0]),
+                            'freqs': np.array([6e9]),
+                            't_obs': np.array([1200]),
+                            'tscps': np.array([('VLA', 'B')]),
+                            't_ints': np.array([60]), 'bws': np.array([1e8]),
+                            'chanws': np.array([1e8])},
+              'rrls': {'t_obs': None, 'tscps': None, 't_ints': None,
+                       'bws': None, 'chanws': None, 'times': np.array([]),
+                       'lines': None}}
+    synthobs = dict(synthobs, sefd=0.0, niter=20)
+    if option == 'applycal_gains':
+        # a gains product of the array's 27 antennas
+        phase = np.linspace(0.0, 1.0, 27)[None]
+        synthobs['applycal_gains'] = str(tmp_path / 'gains.npz')
+        np.savez(synthobs['applycal_gains'], g_re=np.cos(phase),
+                 g_im=np.sin(phase))
+    params['synthobs'] = synthobs
     pl = rajepy_tpu_torch.Pipeline(
         rajepy_tpu_torch.JetModel(model_params, device='cpu'), params)
-    if option in NOW_PORTED:
-        pl.execute(verbose=False, plot=False, **kwargs)
-        run = pl.runs[0]
-        assert run.completed
-        for key in NOW_PORTED[option]:
-            assert os.path.isfile(run.products[key]), key
-        with np.load(run.products['ms_clean']) as fc, \
-                np.load(run.products['ms_noisy']) as fn:
-            changed = not np.array_equal(fc['vis_re'], fn['vis_re'])
-        assert changed == (option in ('corruption', 'applycal_gains'))
-        return
-    with pytest.raises(NotImplementedError, match='not ported'):
-        pl.execute(verbose=False, plot=False, **kwargs)
-    assert pl.model._fields is None
-    assert os.listdir(pl.dcy) == [os.path.basename(pl.log.filename)]
+    pl.execute(verbose=False, plot=False, **kwargs)
+    run = pl.runs[0]
+    assert run.completed
+    for key in products:
+        assert os.path.isfile(run.products[key]), key
+    with np.load(run.products['ms_clean']) as fc, \
+            np.load(run.products['ms_noisy']) as fn:
+        changed = not np.array_equal(fc['vis_re'], fn['vis_re'])
+    assert changed == (option in ('corruption', 'applycal_gains'))
 
 
 FIT_SUBMODULES = ('_params', 'forwards', 'driver', 'uncertainty', 'uv',
@@ -251,12 +227,11 @@ def _fit_entry_calls(tmp_path):
                                    'fit_rrl_spectrum', 'fit_rrl_cube',
                                    'fit_joint', 'sweep'])
 def test_fit_mesh_refused_before_any_work(entry, model_params, tmp_path):
-    """``mesh=`` (the JAX package's device sharding), refused until
-    ``parallel`` was ported, runs: with a mesh of two CPU shards each entry
-    point gives, bit for bit, what it gives with ``mesh=None``, and finite.
-    A mesh that is not one of ``parallel.sharding`` raises ``TypeError``.
-    The package docstring names ``mesh=`` among what is not ported no
-    more."""
+    """``mesh=`` (device sharding of the fits): with a mesh of two CPU
+    shards each entry point gives, bit for bit, what it gives with
+    ``mesh=None``, and finite.  A mesh that is not one of
+    ``parallel.sharding`` raises ``TypeError``.  The package docstring does
+    not list ``mesh=`` or ``fit`` as not ported."""
     import numpy as np
     import torch
     import rajepy_tpu_torch

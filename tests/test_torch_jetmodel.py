@@ -23,19 +23,10 @@ from rajepy_tpu.ops import pallas_kernels as pk
 from rajepy_tpu_torch import JetModel
 from rajepy_tpu_torch.models.fields import static_fields_from_numpy
 from rajepy_tpu_torch.ops import kernels as kn
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 YEAR = 31536000.0
 FREQS = np.array([3e8, 6e9, 2.2e10, 3e11])
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """Small grids: one thread runs them about as fast as eight, and the
-    other test processes keep their cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture()

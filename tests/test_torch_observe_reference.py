@@ -25,6 +25,7 @@ import torch
 
 from rajepy_tpu_torch import JetModel, Pipeline
 from rajepy_tpu_torch.utils import profiling
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CELL = 'example_jet_512.observe_vla_a'

@@ -18,6 +18,7 @@ from rajepy_tpu_torch.ops import gaunt as tgaunt
 from rajepy_tpu_torch.ops import hyp2f1 as thyp
 from rajepy_tpu_torch.ops import kernels as kn
 from rajepy_tpu_torch.models import grid as tgrid
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 YEAR = 31536000.0
 BURSTS = ((0.5 * YEAR, 1.0 / (2.0 * (0.13 * YEAR) ** 2), 4.0, True),
@@ -25,16 +26,6 @@ BURSTS = ((0.5 * YEAR, 1.0 / (2.0 * (0.13 * YEAR) ** 2), 4.0, True),
           (1.0 * YEAR, 1.0 / (2.0 * (0.38 * YEAR) ** 2), 1.5, False),
           (2.0 * YEAR, 1.0 / (2.0 * (0.42 * YEAR) ** 2), 9.0, True),
           (2.0 * YEAR, 1.0 / (2.0 * (0.42 * YEAR) ** 2), 9.0, False))
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """Small grids: one thread runs them about as fast as eight, and the
-    other test processes keep their cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("a,c", [(0.4, 2.3), (-0.3, 1.75), (0.4, 2.942),

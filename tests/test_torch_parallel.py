@@ -32,19 +32,11 @@ from rajepy_tpu_torch.ops import radtrans as trt
 from rajepy_tpu_torch.parallel import sharding as tsh
 from rajepy_tpu_torch.synthobs import imaging as timg, \
     observatories as tobs, uvgen as tuv
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 CPU = torch.device('cpu')
 YEAR = 31536000.0
 SUM_RTOL = 1e-12
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """1e-12 comparisons with JAX: one thread (ROADMAP Queue 3)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

@@ -1,25 +1,29 @@
-"""The RT products' copy-out (``models.jetmodel._products_out``) and the
-pinned host pool it copies CUDA maps into (``utils.pinned.HostPool``), on
-the CPU: the pool's pages are pinned by injected functions that record
-what they lock, so no card is needed.
+"""The RT products' copy-out (``JetModel.products_to_host``) and the
+pinned host pool it copies a CUDA model's maps into
+(``utils.pinned.HostPool``), on the CPU: the pool's pages are pinned by
+injected functions that record what they lock, and the copy-out is called
+on a stand-in for a model on either device, so no card is needed.
 
-* CPU maps come back as views, counted by their bytes as before;
+* a CPU model's maps come back as views, counted by their bytes;
 * a block goes back to the pool only once every numpy array and tensor
   viewing it is gone, and a held array is never written again;
 * the free bytes kept never pass twice the largest copy's, and every
   block dropped is unpinned;
-* the copy-out's counters of maps and new blocks add up over runs;
+* a CUDA model's copy-out goes through its pool, and its counters of
+  bytes, maps and new blocks add up over runs;
 * many threads copying through one pool never overwrite a held array.
 """
 import sys
 import threading
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from rajepy_tpu_torch.models import jetmodel
+from rajepy_tpu_torch import JetModel
 from rajepy_tpu_torch.utils import pinned, profiling
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 PAGE = pinned.PAGE
 
@@ -56,6 +60,13 @@ def _addr(a):
     return a.__array_interface__['data'][0]
 
 
+def _to_host(device, pool, maps):
+    """``JetModel.products_to_host`` of a model on ``device`` whose pool is
+    ``pool`` (the two members the copy-out reads)."""
+    model = SimpleNamespace(_device=torch.device(device), _host_pool=pool)
+    return JetModel.products_to_host(model, maps)
+
+
 def test_cpu_maps_come_back_as_views_counted_by_their_bytes():
     pins = Pins()
     c = profiling.COUNTERS
@@ -63,16 +74,15 @@ def test_cpu_maps_come_back_as_views_counted_by_their_bytes():
                                        'rt.products_out_maps',
                                        'rt.products_out_pinned_new')}
     maps = _maps(1, dtype=torch.float64)
-    out = jetmodel._products_out(maps, True, pins.pool())
+    out = _to_host('cpu', pins.pool(), maps)
     for a, m in zip(out, maps):
         assert isinstance(a, np.ndarray) and np.array_equal(a, m.numpy())
         assert np.shares_memory(a, m.numpy())
-    assert c['rt.runs'] == before['rt.runs'] + 1
     assert c['rt.products_out_bytes'] == before['rt.products_out_bytes'] \
         + 8 * 16 * 16 * (1 + 2 * 3)
-    assert jetmodel._products_out(maps, False, pins.pool()) is maps
-    assert c['rt.runs'] == before['rt.runs'] + 2
-    for k in ('rt.products_out_maps', 'rt.products_out_pinned_new'):
+    # the runs count themselves (rt.runs), with or without a copy-out
+    for k in ('rt.runs', 'rt.products_out_maps',
+              'rt.products_out_pinned_new'):
         assert c.get(k, 0) == before[k]
     assert not pins.made
 
@@ -138,13 +148,16 @@ def test_copy_out_counters_add_up_over_two_runs():
     c = profiling.COUNTERS
     maps0 = c.get('rt.products_out_maps', 0)
     new0 = c.get('rt.products_out_pinned_new', 0)
-    out = jetmodel._pinned_copies(_maps(1), pool)
+    bytes0 = c.get('rt.products_out_bytes', 0)
+    out = _to_host('cuda', pool, _maps(1))
     assert c['rt.products_out_maps'] == maps0 + 3
     assert c['rt.products_out_pinned_new'] == new0 + 3
+    assert len(pins.live) == 3 and all(_addr(a) in pins.live for a in out)
     del out
-    out = jetmodel._pinned_copies(_maps(2), pool)
+    out = _to_host('cuda', pool, _maps(2))
     assert c['rt.products_out_maps'] == maps0 + 6
     assert c['rt.products_out_pinned_new'] == new0 + 3
+    assert c['rt.products_out_bytes'] == bytes0 + 2 * 4 * 16 * 16 * 7
     assert all(np.array_equal(a, m.numpy()) for a, m in zip(out, _maps(2)))
 
 

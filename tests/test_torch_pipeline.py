@@ -19,7 +19,9 @@ both packages:
   ``io/checkpoint`` written by each package load in the other;
 * ``add_ejection_event`` (on a burst-free model it changes the path a
   float32 model takes), ``ss_jml``, ``jml_t``, ``los_axis``,
-  ``EjectionSpec.jml``/``.chi``, and the ``.sig`` sidecar of ``save``.
+  ``EjectionSpec.jml``/``.chi``, and the ``.sig`` sidecar of ``save``;
+* ``execute`` with each of its options and those of ``params['synthobs']``
+  completes and writes the option's products.
 """
 import copy
 import io
@@ -41,6 +43,7 @@ from rajepy_tpu.ops import pallas_kernels as pk
 from rajepy_tpu_torch import pipeline as tpipe
 from rajepy_tpu_torch.io import checkpoint as tckpt
 from rajepy_tpu_torch.ops import kernels as kn
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YEAR = 31536000.0
@@ -321,11 +324,7 @@ def test_cpu_pipeline_resumes_on_the_cpu_at_its_precision(
         rajepy_tpu_torch.Pipeline.load_pipeline(pl.save_file)
 
 
-# simobserve=True (the default) with what synthobs does not port yet: an
-# option of params['synthobs'].  An RRL run configured for a synthetic
-# observation (line-cube imaging), deconvolver='clark', the figures
-# (plot=True, the default) and the calibration and export options were
-# refused until they were ported; they now run
+# an RRL run configured for a synthetic observation (line-cube imaging)
 _OBSERVED_RRL = {'rrls': dict(t_obs=np.array([3600]), t_ints=np.array([60]),
                               tscps=np.array([('VLA', 'A')]))}
 # the calibration and export options, on observed continuum runs (VLA B,
@@ -336,7 +335,7 @@ _CALIBRATION = {'corruption': ('ms_noisy',),
                 'export_uvfits': ('uvfits_clean', 'uvfits_noisy')}
 
 
-@pytest.mark.parametrize('kwargs,match', [
+@pytest.mark.parametrize('kwargs,option', [
     (dict(plot=False, pline=_OBSERVED_RRL), 'line cubes'),
     (dict(plot=False, pline={'synthobs': {'deconvolver': 'clark'}}),
      "deconvolver='clark'"),
@@ -351,41 +350,42 @@ _CALIBRATION = {'corruption': ('ms_noisy',),
     (dict(simobserve=False, plot=False, device_fanout=True), 'fan-out'),
     (dict(simobserve=False, plot=False, device_fanout=2), 'fan-out'),
 ])
-def test_unported_stages_raise_before_any_work(kwargs, match, model_params,
-                                               tmp_path):
-    """What is not ported raises before any work; the observed RRL runs,
-    deconvolver='clark', the figures, the calibration and export options
-    and the device fan-out, refused until they were ported, complete and
-    write their products (the fan-out, on one CPU device, by the
-    sequential loop)."""
+def test_execute_options_complete_and_write_their_products(
+        kwargs, option, model_params, tmp_path):
+    """``Pipeline.execute`` with each option completes every run and
+    writes its products: observed RRL runs (line cubes), observed
+    continuum runs with ``deconvolver='clark'``, with gain corruption,
+    selfcal, gain transfer or UVFITS export (each option's products), the
+    figures, and the device fan-out (on one CPU device, the sequential
+    loop, which logs no fan-out)."""
     kwargs = dict(kwargs)
     pline = kwargs.pop('pline', {})
     params = _pline_params(tmp_path / 'out', rrl='rrls' in pline)
     params['rrls'].update(pline.get('rrls', {}))
     if 'synthobs' in pline:
         params['synthobs'] = dict(pline['synthobs'])
-    if match in _CALIBRATION:
+    if option in _CALIBRATION:
         params['continuum'].update(t_obs=np.array([1200]),
                                    t_ints=np.array([60]),
                                    tscps=np.array([('VLA', 'B')]))
         params['synthobs'].update(sefd=0.0, niter=20)
-        if match == 'applycal_gains':
+        if option == 'applycal_gains':
             # a gains product of the array's 27 antennas, unit modulus
             gains = str(tmp_path / 'g.npz')
             phase = np.linspace(0.0, 1.0, 27)[None]
             np.savez(gains, g_re=np.cos(phase), g_im=np.sin(phase))
             params['synthobs']['applycal_gains'] = gains
     pl = rajepy_tpu_torch.Pipeline(_torch_model(_small(model_params)), params)
-    if match in _CALIBRATION:
+    if option in _CALIBRATION:
         pl.execute(verbose=False, **kwargs)
         assert len(pl.runs) == len(EPOCHS)
         for run in pl.runs:
             assert run.completed and run.simobserve
-            for key in _CALIBRATION[match] + ('clean_image', 'imfit'):
+            for key in _CALIBRATION[option] + ('clean_image', 'imfit'):
                 assert os.path.isfile(run.products[key]), key
-        assert ('selfcal' in pl.runs[0].results) == (match == 'selfcal')
+        assert ('selfcal' in pl.runs[0].results) == (option == 'selfcal')
         return
-    if match == 'plotting':
+    if option == 'plotting':
         pl.execute(verbose=False, **kwargs)
         assert all(r.completed for r in pl.runs)
         figures = ['GridPlot.pdf', 'JMLPlot.pdf'] + [
@@ -398,29 +398,28 @@ def test_unported_stages_raise_before_any_work(kwargs, match, model_params,
         for run in pl.runs:
             assert all(os.path.isfile(getattr(run, p)) for p in PRODUCTS)
         return
-    if match == 'fan-out':
+    if option == 'fan-out':
         pl.execute(verbose=False, **kwargs)
         assert all(r.completed for r in pl.runs)
         for run in pl.runs:
             assert all(os.path.isfile(getattr(run, p)) for p in PRODUCTS)
         assert not any('Fanned' in str(e) for e in pl.log.entries.values())
         return
-    if match in ('line cubes', "deconvolver='clark'"):
-        pl.execute(verbose=False, **kwargs)
-        assert all(r.completed for r in pl.runs)
-        for run in pl.runs:
-            assert all(os.path.isfile(getattr(run, p)) for p in PRODUCTS)
-            if run.simobserve:
-                img, hdr = read_fits(run.products['clean_image'])
-                assert img.shape == (len(run.chan_freqs), 500, 500)
-                assert hdr['CTYPE3'] == 'FREQ'
-        assert sum(r.simobserve for r in pl.runs) == \
-            (2 if match == 'line cubes' else 0)
-        return
-    with pytest.raises(NotImplementedError, match=match):
-        pl.execute(verbose=False, **kwargs)
-    assert pl.model._fields is None
-    assert sorted(os.listdir(pl.dcy)) == [os.path.basename(pl.log.filename)]
+    # the line cubes and deconvolver='clark'
+    pl.execute(verbose=False, **kwargs)
+    assert all(r.completed for r in pl.runs)
+    for run in pl.runs:
+        assert all(os.path.isfile(getattr(run, p)) for p in PRODUCTS)
+        if run.simobserve:
+            img, hdr = read_fits(run.products['clean_image'])
+            assert img.shape == (len(run.chan_freqs), 500, 500)
+            assert hdr['CTYPE3'] == 'FREQ'
+    assert sum(r.simobserve for r in pl.runs) == \
+        (2 if option == 'line cubes' else 0)
+
+
+def test_pipeline_refuses_a_model_of_the_jax_package(model_params,
+                                                      tmp_path):
     with pytest.raises(TypeError, match='JetModel'):
         rajepy_tpu_torch.Pipeline(
             rajepy_tpu.JetModel(_small(model_params)),

@@ -23,7 +23,6 @@ import os
 import matplotlib
 import numpy as np
 import pytest
-import torch
 
 from rajepy_tpu.plotting import functions as jfunc
 from rajepy_tpu_torch import JetModel, Pipeline
@@ -31,6 +30,7 @@ from rajepy_tpu_torch import constants as cnsts
 from rajepy_tpu_torch.io.fits import read_fits
 from rajepy_tpu_torch.plotting import functions as pfunc
 from rajepy_tpu_torch.utils import profiling
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 PLOT_PARAMS = {
     "target": {"name": "plot", "ra": "04:31:34.0", "dec": "+18:08:04.9",
@@ -54,16 +54,6 @@ _PIPELINES = {}
 @pytest.fixture(scope='module')
 def jm():
     return JetModel(copy.deepcopy(PLOT_PARAMS), device='cpu')
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """CLEAN is thousands of small operations: one thread runs them as
-    fast as eight and leaves the other test processes their cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _check(path):

@@ -41,21 +41,12 @@ from rajepy_tpu_torch.ops import radtrans as trt
 from rajepy_tpu_torch.ops import rrls as trrl
 from rajepy_tpu_torch.ops import voigt as tvoigt
 from rajepy_tpu_torch.utils import profiling
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 YEAR = 31536000.0
 LINE = 'H58a'
 NU0 = trt.RRLCoeffs(LINE).nu0
 FREQS = np.linspace(NU0 * 0.99998, NU0 * 1.00002, 5)
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """Small grids: one thread runs them about as fast as eight, and the
-    other test processes keep their cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture()

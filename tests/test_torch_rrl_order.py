@@ -26,20 +26,11 @@ from rajepy_tpu.ops import pallas_kernels as pk
 from rajepy_tpu_torch import JetModel
 from rajepy_tpu_torch.ops import kernels as kn
 from rajepy_tpu_torch.ops import radtrans as trt
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 YEAR = 31536000.0
 LINE = 'H58a'
 NU0 = float(trt.RRLCoeffs(LINE).nu0)
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """Small grids: one thread runs them about as fast as eight, and the
-    other test processes keep their cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _walk_maps(parts, order, seg_start, nx, nz):

@@ -31,21 +31,11 @@ from rajepy_tpu.synthobs import atmosphere as jatm, imaging as jimg, \
 from rajepy_tpu_torch.ops import physics as tphys
 from rajepy_tpu_torch.synthobs import atmosphere as tatm, imaging as timg, \
     imfit as tfit, observatories as tobs, sampler as tsam, uvgen as tuv
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG_DIR = os.path.join(ROOT, 'rajepy_tpu_torch', 'data', 'antenna_configs')
 RTOL = 1e-12
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """The CLEAN loop is thousands of small operations: one thread runs
-    them as fast as eight and keeps a busy machine's other test processes
-    from waiting on this one's thread pool."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(got, want):

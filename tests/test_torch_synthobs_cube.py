@@ -33,19 +33,9 @@ from rajepy_tpu.synthobs import imaging as jimg
 from rajepy_tpu_torch import synthobs as tsyn
 from rajepy_tpu_torch.synthobs import imaging as timg, \
     observatories as tobs, uvgen as tuv
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 RTOL = 1e-9
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """The CLEAN loops are thousands of small operations: one thread runs
-    them as fast as eight and keeps a busy machine's other test processes
-    from waiting on this one's thread pool."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -15,7 +15,7 @@ The conftest jet at 24 x 60 x 24 cells, one continuum run (VLA A, 6 GHz,
   them, and its restored image and imfit then match the port's (1e-9,
   1e-6);
 * ``resume=True`` skips completed runs, ``clobber=True`` recomputes them;
-  what was refused before it was ported (line cubes, the Clark and
+  each option of ``simulate_observation`` (line cubes, the Clark and
   multiscale deconvolvers, gain corruption, selfcal, gain transfer, UVFITS
   export, ``shard_imaging``) runs and writes its products.
 """
@@ -32,6 +32,7 @@ import rajepy_tpu_torch
 from rajepy_tpu import synthobs as jsyn
 from rajepy_tpu.io.fits import read_fits
 from rajepy_tpu_torch import synthobs as tsyn
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 IMG_RTOL = 1e-9
 IMFIT_RTOL = 1e-6
@@ -99,17 +100,6 @@ def _executed(which, model_params, root):
 @pytest.fixture(scope='module')
 def root(tmp_path_factory):
     return tmp_path_factory.mktemp('synthobs_pipeline')
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """The CLEAN loop is thousands of small operations: one thread runs
-    them as fast as eight and keeps a busy machine's other test processes
-    from waiting on this one's thread pool."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(got, want):
@@ -239,12 +229,7 @@ def test_resume_skips_and_clobber_recomputes(model_params, root):
     assert loaded.runs[0].results['imfit'] == pl.runs[0].results['imfit']
 
 
-NOW_PORTED = ('line cubes', "deconvolver='clark'",
-              "deconvolver='multiscale'", 'corruption', 'selfcal',
-              'applycal_gains', 'export_uvfits', 'shard_imaging')
-
-
-@pytest.mark.parametrize('synthobs,rrl,match', [
+@pytest.mark.parametrize('synthobs,rrl,option', [
     (None, True, 'line cubes'),
     ({'deconvolver': 'clark'}, False, "deconvolver='clark'"),
     ({'deconvolver': 'multiscale'}, False, "deconvolver='multiscale'"),
@@ -254,66 +239,58 @@ NOW_PORTED = ('line cubes', "deconvolver='clark'",
     ({'export_uvfits': True}, False, 'export_uvfits'),
     ({'shard_imaging': True}, False, 'shard_imaging'),
 ])
-def test_simulate_observation_refuses_unported_options(
-        synthobs, rrl, match, model_params, tmp_path):
-    """Called directly, simulate_observation refuses what is not ported
-    before it reads or writes anything; the cases that were refused until
-    they were ported (an RRL run's line cube, deconvolver='clark' and
-    'multiscale', gain corruption, selfcal, gain transfer, UVFITS export,
-    and shard_imaging, which on one CPU device images unsharded) now
-    observe the run and write its restored image and the option's
-    products."""
+def test_simulate_observation_options_write_their_products(
+        synthobs, rrl, option, model_params, tmp_path):
+    """Called directly with each option, simulate_observation observes
+    the run and writes its restored image and the option's products: an
+    RRL run's line cube, deconvolver='clark' and 'multiscale', gain
+    corruption, selfcal, gain transfer, UVFITS export, and shard_imaging
+    (on one CPU device, unsharded)."""
     pl = rajepy_tpu_torch.Pipeline(
         rajepy_tpu_torch.JetModel(_small(model_params), device='cpu'),
         _params(tmp_path / 'out', rrl=rrl))
     run = pl.runs[-1]
-    if match in NOW_PORTED:
-        synthobs = dict(synthobs or {})
-        if match == 'applycal_gains':
-            # a gains product of the array's 27 antennas, unit modulus
-            synthobs['applycal_gains'] = str(tmp_path / 'gains.npz')
-            phase = np.linspace(0.0, 2.0, 27)[None]
-            np.savez(synthobs['applycal_gains'], g_re=np.cos(phase),
-                     g_im=np.sin(phase))
-        pl.execute(simobserve=False, **QUIET)
-        prods = tsyn.simulate_observation(pl, run, **synthobs)
-        img, hdr = read_fits(prods['clean_image'])
-        assert img.shape == ((len(run.chan_freqs), 500, 500) if rrl else
-                             (500, 500))
-        assert np.all(np.isfinite(img)) and hdr['BUNIT'] == 'Jy/beam'
-        assert os.path.isfile(prods['ms_noisy'])
-        with np.load(prods['ms_noisy']) as f:
-            noisy = f['vis_re'] + 1j * f['vis_im']
-        if match == 'selfcal':
-            sc = run.results['selfcal']
-            assert sc['mode'] == 'phase' and sc['n_sol'] == 1
-            assert sc['gain_amp_rms'] < 1e-6
-            with np.load(prods['gains']) as f:
-                assert f['g_re'].shape == (1, 27)
-            assert os.path.isfile(prods['ms_selfcal'])
-        elif match == 'export_uvfits':
-            for tag in ('uvfits_clean', 'uvfits_noisy'):
-                back = tsyn.uvfits.read_uvfits(prods[tag])
-                want = prods['ms_clean' if tag == 'uvfits_clean' else
-                             'ms_noisy']
-                with np.load(want) as f:
-                    np.testing.assert_array_equal(
-                        back['vis_re'], f['vis_re'].astype(np.float32))
-        elif match == 'applycal_gains':
-            with open(pl.log.filename) as f:
-                assert 'Applied transferred gain solutions from ' \
-                    'gains.npz' in f.read()
-            assert np.all(np.isfinite(noisy))
-        elif match == 'corruption':
-            with np.load(prods['ms_clean']) as f:
-                clean = f['vis_re'] + 1j * f['vis_im']
-            # amplitude errors: the noisy set is far off the clean one
-            assert _rel(noisy, clean) > 0.05
-        return
-    with pytest.raises(NotImplementedError, match=match):
-        tsyn.simulate_observation(pl, run, **(synthobs or {}))
-    assert not os.path.exists(run.rt_dcy)
-    assert pl.model._fields is None
+    synthobs = dict(synthobs or {})
+    if option == 'applycal_gains':
+        # a gains product of the array's 27 antennas, unit modulus
+        synthobs['applycal_gains'] = str(tmp_path / 'gains.npz')
+        phase = np.linspace(0.0, 2.0, 27)[None]
+        np.savez(synthobs['applycal_gains'], g_re=np.cos(phase),
+                 g_im=np.sin(phase))
+    pl.execute(simobserve=False, **QUIET)
+    prods = tsyn.simulate_observation(pl, run, **synthobs)
+    img, hdr = read_fits(prods['clean_image'])
+    assert img.shape == ((len(run.chan_freqs), 500, 500) if rrl else
+                         (500, 500))
+    assert np.all(np.isfinite(img)) and hdr['BUNIT'] == 'Jy/beam'
+    assert os.path.isfile(prods['ms_noisy'])
+    with np.load(prods['ms_noisy']) as f:
+        noisy = f['vis_re'] + 1j * f['vis_im']
+    if option == 'selfcal':
+        sc = run.results['selfcal']
+        assert sc['mode'] == 'phase' and sc['n_sol'] == 1
+        assert sc['gain_amp_rms'] < 1e-6
+        with np.load(prods['gains']) as f:
+            assert f['g_re'].shape == (1, 27)
+        assert os.path.isfile(prods['ms_selfcal'])
+    elif option == 'export_uvfits':
+        for tag in ('uvfits_clean', 'uvfits_noisy'):
+            back = tsyn.uvfits.read_uvfits(prods[tag])
+            want = prods['ms_clean' if tag == 'uvfits_clean' else
+                         'ms_noisy']
+            with np.load(want) as f:
+                np.testing.assert_array_equal(
+                    back['vis_re'], f['vis_re'].astype(np.float32))
+    elif option == 'applycal_gains':
+        with open(pl.log.filename) as f:
+            assert 'Applied transferred gain solutions from ' \
+                'gains.npz' in f.read()
+        assert np.all(np.isfinite(noisy))
+    elif option == 'corruption':
+        with np.load(prods['ms_clean']) as f:
+            clean = f['vis_re'] + 1j * f['vis_im']
+        # amplitude errors: the noisy set is far off the clean one
+        assert _rel(noisy, clean) > 0.05
 
 
 def test_synthobs_runs_on_the_models_device(model_params, root,

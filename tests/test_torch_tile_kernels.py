@@ -33,6 +33,7 @@ from rajepy_tpu.ops import pallas_kernels as pk
 from rajepy_tpu_torch import JetModel
 from rajepy_tpu_torch import constants as cnsts
 from rajepy_tpu_torch.ops import kernels as kn
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 YEAR = 31536000.0
 MAPS_GROUPS = 4         # y groups of a block (MAPS_GROUPS in epoch_maps.cu)

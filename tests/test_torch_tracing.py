@@ -27,6 +27,7 @@ from rajepy_tpu_torch import JetModel, Pipeline, fit
 from rajepy_tpu_torch.ops import rrls
 from rajepy_tpu_torch.synthobs import imaging
 from rajepy_tpu_torch.utils import profiling
+from tests.torch_one_thread import one_thread  # noqa: F401
 
 LINE = 'H58a'
 FREQS_C = np.array([5e9, 2.2e10, 1e11])
@@ -40,14 +41,6 @@ FILL = 'rajepy.grid fill (fields + fill factors)'
 OBS_STAGES = ('rajepy.obs.plan', 'rajepy.obs.sample', 'rajepy.obs.image',
               'rajepy.obs.clean', 'rajepy.obs.restore', 'rajepy.obs.imfit')
 OBS_COUNTERS = ('obs.runs', 'obs.visibilities', 'obs.clean_iterations')
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _model(params, dtype=torch.float64):
