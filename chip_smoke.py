@@ -4583,7 +4583,7 @@ def main() -> int:
         # path's case, the row of the summary line)
         print_ptxas(kn.build_log(), r'rrl_\w+?_kernel',
                     {'rrl_tiles_kernel', 'rrl_activity_kernel',
-                     'rrl_cube_kernel'})
+                     'rrl_cube_kernel', 'rrl_flux_kernel'})
         k4_in16, _ = rrl_tile_inputs(jm, core16)
         maps4 = lambda *a: kn.rrl_tiles(*a, *walk)
         maps4_plain = lambda *a: kn.rrl_tiles_plain(*a, *walk)

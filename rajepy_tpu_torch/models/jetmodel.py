@@ -1189,19 +1189,24 @@ class JetModel:
                 a_map, em = self._epoch_base_maps_both(f, st, t)
             with span('rajepy.rt.channel_stage'):
                 scale = rt.tau_ff_channel_scale(freqs, t_0, reyn)
-                tau_c = scale[:, None, None] * a_map[None]
                 if lte:
+                    # a float32 model takes the channel-stage kernel's
+                    # wrapper, as it takes the RRL kernels; float64 the
+                    # plain chain
+                    stage = (kn.rrl_flux_maps if fused else
+                             rt.rrl_flux_maps_lte)
                     tau_out = tau_l
-                    ints = rt.intensity_rrl_maps(freqs, st.tbar, tau_c,
-                                                 tau_l, st.any_in)
+                    fluxes = stage(freqs, scale, a_map, st.tbar, st.any_in,
+                                   tau_l, csize, dist, contsub)
                 else:
+                    tau_c = scale[:, None, None] * a_map[None]
                     tau_out = self._nonlte_tau(st, freqs, tau_l, b_n1, b_n2)
                     ints = rt.intensity_rrl_maps_nonlte(
                         freqs, st.tbar, tau_c, tau_l, st.any_in, b_n1, b_n2)
-                fluxes = ints * rt.flux_scale_jy(csize, dist)
-                if not contsub:
-                    fluxes = fluxes + rt.flux_ff_maps(freqs, tau_c, st.tbar,
-                                                      st.any_in, csize, dist)
+                    fluxes = ints * rt.flux_scale_jy(csize, dist)
+                    if not contsub:
+                        fluxes = fluxes + rt.flux_ff_maps(
+                            freqs, tau_c, st.tbar, st.any_in, csize, dist)
             count('rt.runs')
             maps = (em, tau_out, fluxes)
             return self.products_to_host(maps) if as_numpy else maps

@@ -71,6 +71,20 @@ wrapper                     TPU kernel replaced                  route
 ``wofz_kernel``             none (voigt.wofz, fused by XLA)      cuda
 ==========================  ===================================  ========
 
+The LTE channel stage of an RRL run (see ``csrc/rrl_flux.cu``), the line
+and free-free flux maps from the line opacity maps, the 2-D continuum base
+map and the channel scale, has one more, which also replaces no TPU kernel
+(XLA fuses the stage in the JAX package); its plain version is
+``ops/radtrans.rrl_flux_maps_lte``, and it has no backward (the fits keep
+the eager chain):
+
+==========================  ===================================  ========
+wrapper                     TPU kernel replaced                  route
+==========================  ===================================  ========
+``rrl_flux_maps``           none (the channel stage, fused by    cuda
+                            XLA)
+==========================  ===================================  ========
+
 Each wrapper takes CUDA tensors to its kernel and CPU tensors to the plain
 PyTorch version beside it (same formula, ``torch.sum`` over y; the ordered
 scans by an exclusive cumsum; the full-grid epoch version, like its
@@ -114,6 +128,9 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import constants as cnsts
+from ..utils import profiling
+from .physics import _BB_PREFACTOR_CBRT
 from .voigt import _weideman_coeffs
 
 # Compacted-tile dims (block_x, y_chunk, block_z), fixed in the CUDA source
@@ -125,7 +142,7 @@ LAUNCHES = {'epoch_base_map_tiles': 0, 'epoch_base_maps2_tiles': 0,
             'epoch_base_map_full': 0, 'rrl_tiles_pallas': 0,
             'rrl_cube_pallas': 0, 'emergent_ff_tiles': 0,
             'emergent_ff_pallas': 0, 'transfer_scan_pallas': 0,
-            'wofz': 0}
+            'wofz': 0, 'rrl_flux': 0}
 
 # Weideman degree of the float32 RRL kernels: its truncation error (1.4e-7
 # on |x| <= 8) already sits at the float32 roundoff floor
@@ -137,6 +154,8 @@ FAR_CUT = 8.0
 # RRL_MAX_GROUP, whose sums fill 33 KB of its shared memory
 RRL_CPL = 4
 RRL_MAX_GROUP = 64
+# channels a block of the channel-stage kernel (CB in csrc/rrl_flux.cu)
+RRL_FLUX_CB = 64
 # (1, y, z) extent of the full-grid RRL kernel's row blocks (ROW_Y, ROW_Z)
 RRL_ROW = (1, 64, 128)
 # channels per thread of the emergent kernels (CPT_FULL and CPT_TILES in
@@ -164,11 +183,12 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xptxas', '-v', '-Xcompiler', '-fPIC')
 #: each source's own flags, after NVCC_FLAGS: the epoch and emergent
 #: kernels keep the TPU's float32 operation order (no contracted
-#: multiply-add), and the Faddeeva kernels the eager chain's rounding of
-#: ops/voigt.py's plain version; the RRL kernels contract (two FMAs per
-#: Goertzel step)
+#: multiply-add), and the Faddeeva and channel-stage kernels the eager
+#: chain's rounding of their plain versions; the RRL kernels contract (two
+#: FMAs per Goertzel step)
 SOURCE_FLAGS = {'epoch_maps.cu': ('-fmad=false',),
                 'emergent_maps.cu': ('-fmad=false',),
+                'rrl_flux.cu': ('-fmad=false',),
                 'rrl_maps.cu': (),
                 'voigt.cu': ('-fmad=false',)}
 
@@ -664,6 +684,15 @@ def _wofz_struct(dtype: torch.dtype):
     return w
 
 
+class _RrlFluxConsts(ctypes.Structure):
+    """The channel-stage kernel's physical constants, each rounded to
+    float32 as the plain version's scalars are; mirrors ``RrlFluxConsts``
+    in rrl_flux.cu."""
+    _fields_ = [('bb_cbrt', ctypes.c_float), ('h_cgs', ctypes.c_float),
+                ('k_cgs', ctypes.c_float), ('k_b', ctypes.c_float),
+                ('c2', ctypes.c_float), ('fscale', ctypes.c_float)]
+
+
 def _bursts_struct(bursts: Sequence) -> _Bursts:
     if len(bursts) > MAX_BURSTS:
         raise ValueError(f"the epoch kernels take at most {MAX_BURSTS} "
@@ -789,11 +818,14 @@ def _lib():
                                            ctypes.POINTER(_WofzCoeffs64), p]
         lib.wofz_f32.argtypes = [p] * 4 + [ctypes.c_size_t,
                                            ctypes.POINTER(_WofzCoeffs32), p]
+        lib.rrl_flux.argtypes = [p] * 7 + [i] * 4 + [
+            ctypes.POINTER(_RrlFluxConsts), p]
         for fn in (lib.epoch_maps1, lib.epoch_maps2, lib.burst_chi_probe,
                    lib.epoch_full,
                    lib.rrl_tiles, lib.rrl_activity, lib.rrl_cube,
                    lib.transfer_scan, lib.emergent_full,
-                   lib.emergent_tiles, lib.wofz_f64, lib.wofz_f32):
+                   lib.emergent_tiles, lib.wofz_f64, lib.wofz_f32,
+                   lib.rrl_flux):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -1381,3 +1413,64 @@ def wofz_kernel(x: torch.Tensor, y: torch.Tensor):
     _raise_if_error(name, err)
     LAUNCHES[name] += 1
     return re, im
+
+
+def rrl_flux_maps(freqs, scale, a_map, tbar, any_in, tau_l, csize_au,
+                  dist_pc, contsub: bool) -> torch.Tensor:
+    """(n_chan, nx, nz) LTE RRL flux maps [Jy/pixel]: the line, plus the
+    free-free continuum unless ``contsub``, from the channels ``freqs`` and
+    their continuum opacity scale ``scale`` (n_chan,), the 2-D continuum
+    base map ``a_map``, the LOS-mean temperature ``tbar`` and silhouette
+    ``any_in`` (nx, nz), the line opacity maps ``tau_l``, the cell size
+    [au] and the distance [pc].  CUDA float32 tensors go to the kernel of
+    csrc/rrl_flux.cu, CPU tensors to the plain version
+    ``radtrans.rrl_flux_maps_lte``; an input that requires grad raises (the
+    kernel has no backward).  Counts ``rt.rrl_flux_stages`` on every call
+    and ``rt.rrl_flux_kernel`` on each launch."""
+    from . import radtrans as rt     # radtrans imports this module
+    name = 'rrl_flux'
+    if any(isinstance(x, torch.Tensor) and x.requires_grad for x in
+           (freqs, scale, a_map, tbar, any_in, tau_l, csize_au, dist_pc)):
+        raise ValueError(f"{name}: the kernel has no backward; an input "
+                         f"requires grad")
+    kind = _device_kind(tau_l, name)
+    profiling.count('rt.rrl_flux_stages')
+    if kind == 'cpu':
+        return rt.rrl_flux_maps_lte(freqs, scale, a_map, tbar, any_in, tau_l,
+                                    csize_au, dist_pc, contsub)
+    if tau_l.dim() != 3:
+        raise ValueError(f"{name}: tau_l must be (n_chan, nx, nz), got "
+                         f"{tuple(tau_l.shape)}")
+    n_chan, nx, nz = tau_l.shape
+    dev = tau_l.device
+    _check_cuda(name, (tau_l,), (n_chan, nx, nz))
+    _check_cuda(name, (freqs, scale), (n_chan,))
+    _check_cuda(name, (a_map, tbar), (nx, nz))
+    if any(x.device != dev for x in (freqs, a_map, any_in)):
+        raise ValueError(f"{name}: every tensor must be on {dev}")
+    if any_in.dtype != torch.bool or tuple(any_in.shape) != (nx, nz) or \
+            not any_in.is_contiguous():
+        raise ValueError(f"{name}: any_in must be a contiguous bool "
+                         f"({nx}, {nz}) tensor")
+    npix = nx * nz
+    if npix >= 2 ** 31 or n_chan > _MAX_GRID_YZ * RRL_FLUX_CB:
+        raise ValueError(f"{name}: {n_chan} x {nx} x {nz} exceeds the "
+                         f"launch grid")
+    out = torch.empty_like(tau_l)
+    if out.numel() == 0:
+        return out
+    vec = int(npix % 4 == 0 and tau_l.data_ptr() % 16 == 0 and
+              out.data_ptr() % 16 == 0)
+    k = _RrlFluxConsts(_BB_PREFACTOR_CBRT, cnsts.H_CGS, cnsts.K_CGS,
+                       cnsts.K_B, cnsts.C ** 2,
+                       float(rt.flux_scale_jy(csize_au, dist_pc)))
+    with torch.cuda.device(dev):
+        err = _lib().rrl_flux(freqs.data_ptr(), scale.data_ptr(),
+                              a_map.data_ptr(), tbar.data_ptr(),
+                              any_in.data_ptr(), tau_l.data_ptr(),
+                              out.data_ptr(), n_chan, npix, vec,
+                              int(bool(contsub)), k, _stream(dev))
+    _raise_if_error(name, err)
+    LAUNCHES[name] += 1
+    profiling.count('rt.rrl_flux_kernel')
+    return out

@@ -312,6 +312,22 @@ def intensity_rrl_maps(freqs, tbar_map, tau_ff_maps_, tau_rrl_maps_,
     return torch.where(any_inside[None], ints, torch.zeros_like(ints))
 
 
+def rrl_flux_maps_lte(freqs, scale, a_map, tbar_map, any_inside, tau_l,
+                      csize_au, dist_pc, contsub: bool):
+    """LTE RRL flux maps [Jy/pixel], the line plus the free-free continuum
+    unless ``contsub``, with tau_c = ``scale`` x ``a_map`` per channel
+    (``scale`` from :func:`tau_ff_channel_scale`): the plain version of the
+    channel-stage kernel :func:`kernels.rrl_flux_maps`, which routes CPU
+    tensors here."""
+    tau_c = scale[:, None, None] * a_map[None]
+    fluxes = intensity_rrl_maps(freqs, tbar_map, tau_c, tau_l, any_inside) \
+        * flux_scale_jy(csize_au, dist_pc)
+    if not contsub:
+        fluxes = fluxes + flux_ff_maps(freqs, tau_c, tbar_map, any_inside,
+                                       csize_au, dist_pc)
+    return fluxes
+
+
 def tau_rrl_maps_nonlte(freqs, tbar_map, any_inside, tau_rrl_maps_,
                         b_n1, b_n2):
     """Stimulated-corrected non-LTE line opacity b_n1 beta tau_L*

@@ -291,6 +291,94 @@ def test_f32_card_rrl_products_match_f64_cpu(card):
     assert kn.LAUNCHES['rrl_tiles_pallas'] == 2
 
 
+def _flux_stage_inputs(card, n_chan, nx, nz, reynolds, seed=5):
+    """The channel stage's float32 inputs on the card: ~40% of the pixels
+    outside the silhouette (T = 0 there), tau_c = 0 on some inside pixels,
+    optically thin (1e-9), thick (30) and moderate line opacities."""
+    rng = np.random.default_rng(seed)
+    freqs = torch.as_tensor(_rrl_band(n_chan), device=card).float()
+    scale = rt.tau_ff_channel_scale(freqs, 1e4, reynolds)
+    any_in = rng.uniform(size=(nx, nz)) > 0.4
+    tau_c0 = rng.uniform(0.0, 3.0, (nx, nz)) * (rng.uniform(size=(nx, nz))
+                                                > 0.2)
+    tbar = np.where(any_in, rng.uniform(5e3, 1.2e4, (nx, nz)), 0.0)
+    kind = rng.integers(0, 3, (n_chan, nx, nz))
+    tau_l = np.choose(kind, [1e-9, 30.0, rng.uniform(0.0, 2.0, kind.shape)])
+
+    def f32(a):
+        return torch.as_tensor(a, device=card).float().contiguous()
+
+    return (freqs, scale, f32(tau_c0 / float(scale[n_chan // 2])), f32(tbar),
+            torch.as_tensor(any_in, device=card), f32(tau_l))
+
+
+@pytest.mark.parametrize('reynolds', [False, True])
+@pytest.mark.parametrize('contsub', [False, True])
+def test_rrl_flux_kernel_matches_plain_version(card, contsub, reynolds):
+    """The channel-stage kernel against its plain version on the card's
+    tensors: 16-byte accesses over two channel blocks (70 channels), a
+    ragged image (4-byte accesses) and a misaligned tau_L view; exactly 0
+    outside the silhouette; one launch and one count a call."""
+    where = (0.5, 120.0)    # cell size [au], distance [pc]
+    for n_chan, nx, nz in ((70, 36, 52), (3, 5, 7)):
+        args = _flux_stage_inputs(card, n_chan, nx, nz, reynolds)
+        any_in = args[4]
+        launches = kn.LAUNCHES['rrl_flux']
+        n_kernel = profiling.COUNTERS.get('rt.rrl_flux_kernel', 0)
+        got = kn.rrl_flux_maps(*args, *where, contsub)
+        assert kn.LAUNCHES['rrl_flux'] == launches + 1
+        assert profiling.COUNTERS['rt.rrl_flux_kernel'] == n_kernel + 1
+        want = rt.rrl_flux_maps_lte(*args, *where, contsub)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert bool((got[:, ~any_in] == 0).all())
+        inside = want[:, any_in]
+        assert bool((inside > 0).all())
+        assert float(((got[:, any_in] - inside).abs() / inside).max()) < 1e-6
+        tau_l = args[5]
+        buf = torch.empty(tau_l.numel() + 1, device=card)
+        shifted = buf[1:].view(tau_l.shape).copy_(tau_l)
+        assert shifted.data_ptr() % 16 != 0
+        assert torch.equal(kn.rrl_flux_maps(*args[:5], shifted, *where,
+                                            contsub), got)
+    with pytest.raises(ValueError, match='no backward'):
+        kn.rrl_flux_maps(*args[:5], args[5].clone().requires_grad_(),
+                         *where, contsub)
+    with pytest.raises(TypeError, match='float32'):
+        kn.rrl_flux_maps(*args[:5], args[5].double(), *where, contsub)
+
+
+def _map_gap(got, want):
+    """The worst map's largest absolute error over its largest absolute
+    value (the cube's `correct` gap)."""
+    got, want = (np.asarray(a, dtype=float).reshape(-1, *a.shape[-2:])
+                 for a in (got, want))
+    return max(float(np.abs(g - w).max() / np.abs(w).max())
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize('contsub', [False, True])
+def test_card_rrl_run_through_the_flux_kernel_matches_f64_cpu(card, contsub):
+    """A float32 card run launches the channel-stage kernel once and keeps
+    the cube's limits against the float64 CPU run; a float64 card run
+    takes the eager chain (no launch) and is the CPU's to 1e-9."""
+    freqs = _rrl_band(1000)[::25]
+    gpu = JetModel(_params((64, 160, 64)), device=card)
+    gpu64 = JetModel(_params((64, 160, 64)), dtype=torch.float64,
+                     device=card)
+    cpu = JetModel(_params((64, 160, 64)), dtype='parity', device='cpu')
+    gpu.time = gpu64.time = cpu.time = 2.0 * YEAR
+    launches = kn.LAUNCHES['rrl_flux']
+    got = gpu.rrl_rt_products('H58a', freqs, contsub=contsub)
+    assert kn.LAUNCHES['rrl_flux'] == launches + 1
+    got64 = gpu64.rrl_rt_products('H58a', freqs, contsub=contsub)
+    assert kn.LAUNCHES['rrl_flux'] == launches + 1
+    want = cpu.rrl_rt_products('H58a', freqs, contsub=contsub)
+    for name, g, g64, w, limit in zip(('em', 'tau', 'flux'), got, got64,
+                                      want, (1e-3, 5e-2, 1e-2)):
+        assert _map_gap(g, w) < limit, name
+        assert _map_gap(g64, w) < 1e-9, name
+
+
 def test_emergent_kernels_match_plain_versions(card):
     jm = JetModel(_params((64, 160, 64)), device=card)
     jm.time = 2.2 * YEAR

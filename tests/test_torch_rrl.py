@@ -442,6 +442,79 @@ def test_rrl_wrappers_reject_other_devices():
         kn.rrl_row_activity(torch.zeros((2, 3, 4), device='meta'))
 
 
+def _flux_stage_inputs(dtype, reynolds, seed=3, n_chan=7, nx=6, nz=8):
+    """The channel stage's inputs: a silhouette with ~40% of the pixels
+    outside (T = 0 there, as mean_temperature_from_sums gives), tau_c = 0
+    on some inside pixels, and optically thin (1e-9), thick (30) and
+    moderate line opacities."""
+    rng = np.random.default_rng(seed)
+    freqs = _t(np.linspace(NU0 - 5e7, NU0 + 5e7, n_chan), dtype)
+    scale = trt.tau_ff_channel_scale(freqs, 1e4, reynolds)
+    any_in = torch.as_tensor(rng.uniform(size=(nx, nz)) > 0.4)
+    tau_c0 = rng.uniform(0.0, 3.0, (nx, nz)) * (rng.uniform(size=(nx, nz))
+                                                > 0.2)
+    a_map = _t(tau_c0 / float(scale[n_chan // 2]), dtype)
+    tbar = _t(np.where(any_in.numpy(), rng.uniform(5e3, 1.2e4, (nx, nz)),
+                       0.0), dtype)
+    kind = rng.integers(0, 3, (n_chan, nx, nz))
+    tau_l = _t(np.choose(kind, [np.full(kind.shape, 1e-9),
+                                np.full(kind.shape, 30.0),
+                                rng.uniform(0.0, 2.0, kind.shape)]), dtype)
+    return freqs, scale, a_map, tbar, any_in, tau_l
+
+
+@pytest.mark.parametrize("reynolds", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("contsub", [False, True])
+def test_rrl_flux_maps_lte_is_the_chain_it_replaced(contsub, dtype,
+                                                    reynolds):
+    """The plain channel stage, and the wrapper on CPU tensors, equal bit
+    for bit the eager composition rrl_rt_products ran before; the wrapper
+    counts the stage and launches nothing."""
+    freqs, scale, a_map, tbar, any_in, tau_l = _flux_stage_inputs(
+        dtype, reynolds)
+    csize, dist = 0.5, 120.0
+    tau_c = scale[:, None, None] * a_map[None]
+    want = trt.intensity_rrl_maps(freqs, tbar, tau_c, tau_l, any_in) * \
+        trt.flux_scale_jy(csize, dist)
+    if not contsub:
+        want = want + trt.flux_ff_maps(freqs, tau_c, tbar, any_in, csize,
+                                       dist)
+    got = trt.rrl_flux_maps_lte(freqs, scale, a_map, tbar, any_in, tau_l,
+                                csize, dist, contsub)
+    assert got.dtype == dtype and torch.equal(got, want)
+    stages = profiling.COUNTERS.get('rt.rrl_flux_stages', 0)
+    kernel = profiling.COUNTERS.get('rt.rrl_flux_kernel', 0)
+    launches = kn.LAUNCHES['rrl_flux']
+    assert torch.equal(kn.rrl_flux_maps(freqs, scale, a_map, tbar, any_in,
+                                        tau_l, csize, dist, contsub), want)
+    assert profiling.COUNTERS['rt.rrl_flux_stages'] == stages + 1
+    assert profiling.COUNTERS.get('rt.rrl_flux_kernel', 0) == kernel
+    assert kn.LAUNCHES['rrl_flux'] == launches
+    # outside the silhouette exactly 0; the thin lines do not cancel
+    assert bool((want[:, ~any_in] == 0).all())
+    assert bool((want[:, any_in] > 0).all())
+
+
+def test_rrl_flux_maps_refuses_grad_and_other_devices():
+    freqs, scale, a_map, tbar, any_in, tau_l = _flux_stage_inputs(
+        torch.float64, False)
+    stages = profiling.COUNTERS.get('rt.rrl_flux_stages', 0)
+    for i in (1, 2, 5):
+        args = [freqs, scale, a_map, tbar, any_in, tau_l]
+        args[i] = args[i].clone().requires_grad_()
+        with pytest.raises(ValueError, match='no backward'):
+            kn.rrl_flux_maps(*args, 0.5, 120.0, False)
+    with pytest.raises(ValueError, match='no backward'):
+        kn.rrl_flux_maps(freqs, scale, a_map, tbar, any_in, tau_l, 0.5,
+                         torch.full((), 120.0, dtype=torch.float64,
+                                    requires_grad=True), False)
+    with pytest.raises(ValueError, match='unsupported device'):
+        kn.rrl_flux_maps(freqs, scale, a_map, tbar, any_in,
+                         tau_l.to('meta'), 0.5, 120.0, False)
+    assert profiling.COUNTERS.get('rt.rrl_flux_stages', 0) == stages
+
+
 # --------------------------------------------------------------------------- #
 # JetModel
 # --------------------------------------------------------------------------- #
@@ -476,6 +549,25 @@ def test_rrl_rt_products_match_jax_f64(model_params, contsub):
                                rtol=1e-12)
     np.testing.assert_allclose(
         jm_t.flux_rrl(LINE, FREQS, contsub=contsub), got[2], rtol=1e-9)
+
+
+def test_rrl_rt_products_count_the_stage_not_the_kernel_on_the_cpu(
+        model_params):
+    """A float32 LTE run counts one channel stage, through the wrapper's
+    plain version; a non-LTE run and a float64 run keep the eager chain and
+    count none."""
+    jm32 = JetModel(copy.deepcopy(model_params), dtype=torch.float32,
+                    device='cpu')
+    jm32.time = 2.0 * YEAR
+    _, jm64 = _pair(model_params)
+    stages = profiling.COUNTERS.get('rt.rrl_flux_stages', 0)
+    kernel = profiling.COUNTERS.get('rt.rrl_flux_kernel', 0)
+    jm32.rrl_rt_products(LINE, FREQS, contsub=False)
+    assert profiling.COUNTERS['rt.rrl_flux_stages'] == stages + 1
+    jm32.rrl_rt_products(LINE, FREQS, lte=False, departure_coeffs=(0.9, 0.91))
+    jm64.rrl_rt_products(LINE, FREQS, contsub=False)
+    assert profiling.COUNTERS['rt.rrl_flux_stages'] == stages + 1
+    assert profiling.COUNTERS.get('rt.rrl_flux_kernel', 0) == kernel
 
 
 def test_rrl_entry_points_match_jax_f64(tmp_path, model_params):
