@@ -511,22 +511,22 @@ def sharded_clean_cube(mesh: Mesh, uvw_m, freqs, vis, weights, n_pix: int,
     JAX package takes its real and imaginary parts); an ``info`` dict
     receives the shards' counts (blocks and iterations summed, the block
     size and the most iterations the largest).  Returns (restored, dirty),
-    each a channel-split :class:`Sharded` of (n_chan, n_pix, n_pix)."""
+    each a channel-split :class:`Sharded` of (n_chan, n_pix, n_pix); with
+    ``model_residual=True`` also the model and the residual, as
+    ``clean_cube`` does."""
     from ..synthobs import imaging
     info = clean_kwargs.pop('info', None)
     freqs = np.asarray(freqs, dtype=float)
     devs = _axis_devices(mesh, 'chan')
-    restored, dirty, infos = [], [], []
+    cubes, infos = [], []
     for dev, idx in zip(devs, np.array_split(np.arange(len(freqs)),
                                              len(devs))):
         if not idx.size:
             continue
         part = {}
-        r, d = imaging.clean_cube(uvw_m, freqs[idx], vis[idx[0]:idx[-1] + 1]
-                                  .to(dev), weights, n_pix, cell_rad, mask,
-                                  beam_kernel, info=part, **clean_kwargs)
-        restored.append(r)
-        dirty.append(d)
+        cubes.append(imaging.clean_cube(
+            uvw_m, freqs[idx], vis[idx[0]:idx[-1] + 1].to(dev), weights,
+            n_pix, cell_rad, mask, beam_kernel, info=part, **clean_kwargs))
         infos.append(part)
     if info is not None:
         info.update(
@@ -535,4 +535,4 @@ def sharded_clean_cube(mesh: Mesh, uvw_m, freqs, vis, weights, n_pix: int,
             iterations=max(i['iterations'] for i in infos),
             loop_iterations=sum(i['loop_iterations'] for i in infos),
             channel_iterations=sum(i['channel_iterations'] for i in infos))
-    return Sharded(tuple(restored), 0), Sharded(tuple(dirty), 0)
+    return tuple(Sharded(parts, 0) for parts in zip(*cubes))

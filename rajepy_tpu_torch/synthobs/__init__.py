@@ -648,10 +648,14 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
                 lam_c = cnsts.C / run.freq
                 w_vis = uvtaper_weights(uvw[:, 0] / lam_c, uvw[:, 1] / lam_c)
                 info: Dict = {}
+                # the CLEAN model and residual cubes, kept only when asked
+                kept = [k for k in ('model', 'residual')
+                        if k in save_products]
                 clean_args = (uvw, freqs, noisy, w_vis, imsize, cell_rad, mask,
                               beam_kernel)
                 clean_kw = dict(weighting=weighting, robust=robust, gain=0.1,
-                                niter=niter, nsigma=nsigma, info=info)
+                                niter=niter, nsigma=nsigma, info=info,
+                                model_residual=bool(kept))
                 from ..parallel import sharding as psh
                 devs = psh.available_devices(noisy.device)
                 shard = len(devs) > 1 if shard_imaging is None else \
@@ -667,19 +671,21 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
                                     "CLEAN)", timestamp=False)
                     mesh = psh.make_mesh(n_los=1, n_chan=len(devs),
                                          devices=devs)
-                    restored_d, dirty_d = (x.gather() for x in
-                                           psh.sharded_clean_cube(
-                                               mesh, *clean_args, **clean_kw))
+                    cubes = [x.gather() for x in psh.sharded_clean_cube(
+                        mesh, *clean_args, **clean_kw)]
                 else:
-                    restored_d, dirty_d = imaging.clean_cube(
-                        *clean_args, **clean_kw)
+                    cubes = list(imaging.clean_cube(*clean_args, **clean_kw))
+                restored_d, dirty_d = cubes[:2]
                 kt.set_result(restored_d)
                 restored_cube = restored_d.cpu().numpy()
                 if 'dirty' in save_products:
                     extra_maps['dirty'] = dirty_d.cpu().numpy()
+                for name, cube in zip(('model', 'residual'), cubes[2:]):
+                    if name in kept:
+                        extra_maps[name] = cube.cpu().numpy()
                 if save_products:
                     extra_maps['psf'] = psf0
-                del restored_d, dirty_d
+                del restored_d, dirty_d, cubes
         profiling.count('obs.clean_iterations', info['channel_iterations'])
         if log:
             log.add_entry(
@@ -887,87 +893,89 @@ def simulate_observation(pipeline, run, min_el: float = 20.0,
         out_hdr['CDELT2'] = cell_as / 3600.0
         out_hdr['BMAJ'] = np.degrees(bmaj_rad)
         out_hdr['BMIN'] = np.degrees(bmin_rad)
-    out_hdr['BPA'] = bpa_deg
-    if cube_mode:
-        # spectral axis, as CASA exportfits writes for tclean cubes
-        out_hdr['CTYPE3'] = 'FREQ'
-        out_hdr['CRPIX3'] = 1.0
-        out_hdr['CRVAL3'] = float(freqs[0])
-        out_hdr['CDELT3'] = float(freqs[1] - freqs[0]) if len(freqs) > 1 \
-            else float(run.chanwidth)
-        out_hdr['CUNIT3'] = 'Hz'
-    with KernelTimer("synthobs: image FITS write", log):
-        fitsio.write_fits(
-            fitsfile, restored_cube if cube_mode else restored_cube[0],
-            out_hdr)
+        out_hdr['BPA'] = bpa_deg
+        if cube_mode:
+            # spectral axis, as CASA exportfits writes for tclean cubes
+            out_hdr['CTYPE3'] = 'FREQ'
+            out_hdr['CRPIX3'] = 1.0
+            out_hdr['CRVAL3'] = float(freqs[0])
+            out_hdr['CDELT3'] = float(freqs[1] - freqs[0]) if len(freqs) > 1 \
+                else float(run.chanwidth)
+            out_hdr['CUNIT3'] = 'Hz'
+        with KernelTimer("synthobs: image FITS write", log):
+            fitsio.write_fits(
+                fitsfile, restored_cube if cube_mode else restored_cube[0],
+                out_hdr)
 
-    products = {'ms_clean': clean_vis_file, 'ms_noisy': noisy_vis_file,
-                'clean_image': fitsfile}
-    products.update(uvfits_files)
-    if selfcal:
-        products['ms_selfcal'] = selfcal_vis_file
-        products['gains'] = gains_file
+        products = {'ms_clean': clean_vis_file, 'ms_noisy': noisy_vis_file,
+                    'clean_image': fitsfile}
+        products.update(uvfits_files)
+        if selfcal:
+            products['ms_selfcal'] = selfcal_vis_file
+            products['gains'] = gains_file
 
-    if mtmfs_maps:
-        # mtmfs Taylor/spectral-index products (tclean writes .tt0/.tt1/
-        # .alpha image sets; the restored image above is tt0)
-        hdr_a = out_hdr.copy()
-        hdr_a['BUNIT'] = ''     # the spectral index is dimensionless
-        for key, suffix, name, hdr_p in (
-                ('clean_image_tt1', '.tt1.fits', 'tt1', out_hdr),
-                ('alpha', '.alpha.fits', 'alpha', hdr_a),
-                ('alpha_error', '.alpha.error.fits', 'alpha_error', hdr_a)):
-            pfile = _product_path(fitsfile, suffix)
-            with KernelTimer(f"synthobs: {suffix[1:-5]} FITS write", log):
-                fitsio.write_fits(pfile, mtmfs_maps[name], hdr_p)
-            products[key] = pfile
+        if mtmfs_maps:
+            # mtmfs Taylor/spectral-index products (tclean writes .tt0/.tt1/
+            # .alpha image sets; the restored image above is tt0)
+            hdr_a = out_hdr.copy()
+            hdr_a['BUNIT'] = ''     # the spectral index is dimensionless
+            for key, suffix, name, hdr_p in (
+                    ('clean_image_tt1', '.tt1.fits', 'tt1', out_hdr),
+                    ('alpha', '.alpha.fits', 'alpha', hdr_a),
+                    ('alpha_error', '.alpha.error.fits', 'alpha_error',
+                     hdr_a)):
+                pfile = _product_path(fitsfile, suffix)
+                with KernelTimer(f"synthobs: {suffix[1:-5]} FITS write", log):
+                    fitsio.write_fits(pfile, mtmfs_maps[name], hdr_p)
+                products[key] = pfile
 
-    if pbcor:
-        # primary-beam-corrected image (tclean pbcor/pblimit): divide by
-        # the same PB model the sampler applied, NaN below pblimit, one
-        # channel's PB plane at a time
-        pb_freqs = freqs if cube_mode else np.asarray([run.freq])
-        pbc = np.empty_like(restored_cube)
-        for k, f in enumerate(pb_freqs):
-            pb_k = sampler.primary_beam(imsize, imsize, cell_rad, f,
-                                        mean_dish, model=pb_model,
-                                        blockage_m=pb_blockage_m)
-            pbc[k] = np.where(pb_k >= pblimit, restored_cube[k] / pb_k,
-                              np.nan)
-        pbcor_file = _product_path(fitsfile, '.pbcor.fits')
-        with KernelTimer("synthobs: pbcor FITS write", log):
-            fitsio.write_fits(pbcor_file, pbc if cube_mode else pbc[0],
-                              out_hdr)
-        products['clean_image_pbcor'] = pbcor_file
+        if pbcor:
+            # primary-beam-corrected image (tclean pbcor/pblimit): divide by
+            # the same PB model the sampler applied, NaN below pblimit, one
+            # channel's PB plane at a time
+            pb_freqs = freqs if cube_mode else np.asarray([run.freq])
+            pbc = np.empty_like(restored_cube)
+            for k, f in enumerate(pb_freqs):
+                pb_k = sampler.primary_beam(imsize, imsize, cell_rad, f,
+                                            mean_dish, model=pb_model,
+                                            blockage_m=pb_blockage_m)
+                pbc[k] = np.where(pb_k >= pblimit, restored_cube[k] / pb_k,
+                                  np.nan)
+            pbcor_file = _product_path(fitsfile, '.pbcor.fits')
+            with KernelTimer("synthobs: pbcor FITS write", log):
+                fitsio.write_fits(pbcor_file, pbc if cube_mode else pbc[0],
+                                  out_hdr)
+            products['clean_image_pbcor'] = pbcor_file
 
-    if save_products:
-        # tclean's auxiliary images (the reference keeps CASA's .psf/
-        # .residual/.model artefacts, README "Data products"); a cube
-        # keeps its common-beam psf plane and its dirty cube
-        bunits = {'psf': '', 'dirty': 'Jy/beam', 'model': 'Jy/pixel',
-                  'residual': 'Jy/beam'}
-        for name in save_products:
-            arr = extra_maps.get(name)
-            if arr is None:
-                if log:
-                    log.add_entry(
-                        "WARNING",
-                        f"save_products: '{name}' is not available from "
-                        f"{'cube' if cube_mode else 'mfs'} imaging",
-                        timestamp=False)
-                continue
-            hdr_p = out_hdr.copy()
-            if cube_mode and arr.ndim == 2:
-                # the common-beam psf plane is 2-D: strip the cube's
-                # spectral-axis cards or the file advertises a FREQ axis
-                # it does not have
-                hdr_p._cards = [c for c in hdr_p._cards
-                                if not c[0].endswith('3')]
-            hdr_p['BUNIT'] = bunits[name]
-            pfile = _product_path(fitsfile, f'.{name}.fits')
-            with KernelTimer(f"synthobs: {name} FITS write", log):
-                fitsio.write_fits(pfile, arr, hdr_p)
-            products[name] = pfile
+        if save_products:
+            # tclean's auxiliary images (the reference keeps CASA's .psf/
+            # .residual/.model artefacts, README "Data products"); a cube
+            # keeps its common-beam psf plane and its dirty, model and
+            # residual cubes
+            bunits = {'psf': '', 'dirty': 'Jy/beam', 'model': 'Jy/pixel',
+                      'residual': 'Jy/beam'}
+            for name in save_products:
+                arr = extra_maps.get(name)
+                if arr is None:
+                    if log:
+                        log.add_entry(
+                            "WARNING",
+                            f"save_products: '{name}' is not available from "
+                            f"{'cube' if cube_mode else 'mfs'} imaging",
+                            timestamp=False)
+                    continue
+                hdr_p = out_hdr.copy()
+                if cube_mode and arr.ndim == 2:
+                    # the common-beam psf plane is 2-D: strip the cube's
+                    # spectral-axis cards or the file advertises a FREQ axis
+                    # it does not have
+                    hdr_p._cards = [c for c in hdr_p._cards
+                                    if not c[0].endswith('3')]
+                hdr_p['BUNIT'] = bunits[name]
+                pfile = _product_path(fitsfile, f'.{name}.fits')
+                with KernelTimer(f"synthobs: {name} FITS write", log):
+                    fitsio.write_fits(pfile, arr, hdr_p)
+                products[name] = pfile
 
     if cube_mode:
         return products

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from ..utils.profiling import KernelTimer
 
 _GRID_SIGMA = 0.65  # gridding-kernel width in uv cells
@@ -738,7 +739,8 @@ def clean_cube(uvw_m, freqs, vis: torch.Tensor, weights, n_pix: int,
                weighting: str = 'briggs', robust: float = 0.5,
                gain: float = 0.1, niter: int = 500, nsigma: float = 3.0,
                chan_block: Optional[int] = None,
-               info: Optional[dict] = None):
+               info: Optional[dict] = None,
+               model_residual: bool = False):
     """Per-channel imaging of a visibility cube, on the visibilities'
     device.
 
@@ -767,11 +769,19 @@ def clean_cube(uvw_m, freqs, vis: torch.Tensor, weights, n_pix: int,
               iterations (the most of any channel), loop iterations (each
               block's most, summed) and channel-iterations (every
               channel's, summed)
+      model_residual: also keep every block's CLEAN model and residual,
+              copied to the host as each block ends (the device holds no
+              more than without them)
 
     Returns (restored, dirty): both (n_chan, n_pix, n_pix) [Jy/beam] on the
-    visibilities' device.  The preparation, CLEAN and restoration of the
-    blocks are recorded as the stages "synthobs: cube prep", "synthobs:
-    cube CLEAN" and "synthobs: cube restore".
+    visibilities' device; with ``model_residual``, (restored, dirty, model
+    [Jy/pixel], residual [Jy/beam]), the model and residual on the host,
+    the restored cube being the model convolved with the beam plus the
+    residual.  The preparation, CLEAN and
+    restoration of the blocks are recorded as the stages "synthobs: cube
+    prep", "synthobs: cube CLEAN" and "synthobs: cube restore"; the
+    counters ``obs.cube_channels`` and ``obs.cube_loop_iterations`` add
+    the channels and the loop iterations.
     """
     dev, rdt = vis.device, vis.real.dtype
     freqs = np.asarray(freqs, dtype=float)
@@ -787,6 +797,9 @@ def clean_cube(uvw_m, freqs, vis: torch.Tensor, weights, n_pix: int,
         n_chan, CUBE_BLOCK_BYTES // (CUBE_PLANES * 8 * n_pix * n_pix)))
     restored = torch.empty((n_chan, n_pix, n_pix), dtype=rdt, device=dev)
     dirty = torch.empty_like(restored)
+    if model_residual:
+        model_cube, res_cube = (torch.empty((n_chan, n_pix, n_pix),
+                                            dtype=rdt) for _ in range(2))
     n_iter, loop_iters, chan_iters = 0, 0, 0
     for b0 in range(0, n_chan, block):
         b1 = min(b0 + block, n_chan)
@@ -813,9 +826,16 @@ def clean_cube(uvw_m, freqs, vis: torch.Tensor, weights, n_pix: int,
                     torch.fft.rfft2(model[k]) * fkern,
                     s=(n_pix, n_pix)) + res[k]
             kt.set_result(restored)
+        if model_residual:
+            model_cube[b0:b1].copy_(model)
+            res_cube[b0:b1].copy_(res)
         del model, res
+    profiling.count('obs.cube_channels', n_chan)
+    profiling.count('obs.cube_loop_iterations', loop_iters)
     if info is not None:
         info.update(chan_block=block, n_blocks=-(-n_chan // block),
                     iterations=n_iter, loop_iterations=loop_iters,
                     channel_iterations=chan_iters)
+    if model_residual:
+        return restored, dirty, model_cube, res_cube
     return restored, dirty

@@ -368,17 +368,22 @@ FREQ_CARDS = ('CTYPE3', 'CRPIX3', 'CRVAL3', 'CDELT3', 'CUNIT3')
 
 
 def test_pipeline_cube_products_match_jax(model_params, root):
-    """Pipeline.execute with an observed RRL run: completed, the same
-    products under the same names, each within 1e-9, the FREQ axis."""
+    """Pipeline.execute with an observed RRL run: completed, the JAX
+    package's products under the same names, each within 1e-9, the FREQ
+    axis; the port also writes the model cube, which the JAX package's
+    cube imaging does not keep."""
     pl_j = _executed(('jax', 'cube'), model_params, root)
     pl_t = _executed(('port', 'cube'), model_params, root)
     run_j, run_t = pl_j.runs[0], pl_t.runs[0]
     assert run_t.completed and run_j.completed
-    assert sorted(run_t.products) == sorted(run_j.products) == [
+    assert sorted(run_j.products) == [
         'clean_image', 'clean_image_pbcor', 'dirty', 'ms_clean',
         'ms_noisy', 'psf']
+    assert sorted(run_t.products) == sorted(list(run_j.products) +
+                                            ['model'])
     assert 'imfit' not in run_t.results
-    for key, prod in run_t.products.items():
+    for key, prod in run_j.products.items():
+        prod = run_t.products[key]
         assert os.path.relpath(prod, pl_t.dcy) == \
             os.path.relpath(run_j.products[key], pl_j.dcy)
     assert os.path.basename(run_t.products['clean_image']) == \
@@ -405,26 +410,30 @@ def test_pipeline_cube_products_match_jax(model_params, root):
 
 
 def test_cube_save_products_and_pbcor(model_params, root):
-    """psf is the common-beam plane without the axis-3 cards, dirty the
-    cube, model is warned about and skipped; pbcor divides each channel
-    by its own primary beam."""
+    """psf is the common-beam plane without the axis-3 cards, dirty and
+    model the cubes with the restored cube's FREQ cards, with no warning
+    logged; pbcor divides each channel by its own primary beam."""
     pl = _executed(('port', 'cube'), model_params, root)
     run = pl.runs[0]
     psf, hdr_p = read_fits(run.products['psf'])
     assert psf.ndim == 2 and not any(c in hdr_p for c in FREQ_CARDS)
     assert hdr_p['BUNIT'] == ''
-    dirty, hdr_d = read_fits(run.products['dirty'])
-    assert dirty.ndim == 3 and hdr_d['CTYPE3'] == 'FREQ'
-    assert not os.path.exists(run.products['clean_image'][:-5] +
-                              '.model.fits')
+    _, hdr_i = read_fits(run.products['clean_image'])
+    for name, bunit in (('dirty', 'Jy/beam'), ('model', 'Jy/pixel')):
+        cube, hdr_c = read_fits(run.products[name])
+        assert cube.shape == (2, 500, 500) and hdr_c['BUNIT'] == bunit
+        assert run.products[name] == \
+            run.products['clean_image'][:-5] + f'.{name}.fits'
+        for card in FREQ_CARDS:
+            assert hdr_c[card] == hdr_i[card], (name, card)
+    assert 'residual' not in run.products
     with open(pl.log.filename) as f:
-        assert "save_products: 'model' is not available from cube " \
-            "imaging" in f.read()
+        assert "save_products:" not in f.read()
     img, _ = read_fits(run.products['clean_image'])
     pbc, _ = read_fits(run.products['clean_image_pbcor'])
     mean_dish = float(np.mean(tobs.read_antenna_config(
         tobs.cfg_file('VLA', 'D'))['diam']))
-    cell = abs(hdr_d['CDELT2']) * np.pi / 180.0
+    cell = abs(hdr_i['CDELT2']) * np.pi / 180.0
     for k, f in enumerate(run.chan_freqs):
         pb = tsyn.sampler.primary_beam(500, 500, cell, f, mean_dish)
         np.testing.assert_array_equal(
