@@ -281,7 +281,13 @@ Phases (any failure exits non-zero; nothing is caught):
    report (no spill), against its plain version (1e-13 of |w|), one
    launch a call, its device time beside the plain version's and their
    device operations a call, and its bound (the larger of bytes and
-   float64 operations over 34 TFLOP/s).
+   float64 operations over 34 TFLOP/s).  The Hogbom kernels at the
+   observed cube's block (as many 500^2 float64 channels as
+   ``clean_cube`` puts in one, its CLEAN box, 250 iterations on every
+   channel): ptxas's report (no spill), bit for bit their plain version
+   on the same card tensors, two launches an iteration and one to
+   finish, an iteration's device time beside the plain loop's, and its
+   bound by bytes.
 
 The line before the last is a JSON object with one entry per kernel, the
 line-cube observation's numbers, phase 2g's times, phase 2h's numbers
@@ -365,6 +371,7 @@ EPOCH_SRC = 'rajepy_tpu_torch/csrc/epoch_maps.cu'
 RRL_SRC = 'rajepy_tpu_torch/csrc/rrl_maps.cu'
 EMERGENT_SRC = 'rajepy_tpu_torch/csrc/emergent_maps.cu'
 VOIGT_SRC = 'rajepy_tpu_torch/csrc/voigt.cu'
+HOGBOM_SRC = 'rajepy_tpu_torch/csrc/hogbom.cu'
 KERNELS = {   # name -> (source, TPU kernel replaced)
     'epoch_base_map_tiles': (EPOCH_SRC,
                              'rajepy_tpu/ops/pallas_kernels.py:348'),
@@ -381,6 +388,7 @@ KERNELS = {   # name -> (source, TPU kernel replaced)
     'transfer_scan_pallas': (EMERGENT_SRC,
                              'rajepy_tpu/ops/pallas_kernels.py:104'),
     'wofz': (VOIGT_SRC, None),      # no TPU kernel: XLA fuses voigt.wofz
+    'hogbom': (HOGBOM_SRC, None),   # no TPU kernel: a lax.while_loop
 }
 CONTINUUM_KERNELS = ('epoch_base_map_tiles', 'epoch_base_maps2_tiles',
                      'epoch_base_map_full')
@@ -410,6 +418,11 @@ CUBE_STAGES = ('synthobs: uv tracks', 'synthobs: vis sampling (+noise)',
                'synthobs: cube restore', 'synthobs: image FITS write')
 CUBE_CHECK_NCHAN = 8      # channels around nu0 held card against CPU
 CUBE_CHECK_BLOCK = 3      # a second channel block for the same channels
+# phase 3's Hogbom block: the observed cube's CLEAN box (half-size in
+# pixels) on SYNTHOBS_IMSIZE^2 float64 planes, as many channels as
+# clean_cube puts in a block, every channel to HOGBOM_NITER iterations
+HOGBOM_BOX = 85
+HOGBOM_NITER = 250
 
 
 # phase 2g: the light curve's epochs [yr], 0 to 5 yr across the example
@@ -1217,6 +1230,99 @@ def wofz_numbers(smi):
     print_busy('voigt.wofz calls (kernel)', lambda: voigt.wofz(x, y), 10)
     print_busy('plain calls', lambda: voigt._wofz_plain(x, y), 3)
     return ('wofz', dev, p_ms, b_ms, b_by), (rel, abs_err)
+
+
+def hogbom_block(nb, n, box):
+    """(nb, n, n) float64 dirty images and PSFs on the card and an (n, n)
+    mask of half-size ``box`` about the centre: each PSF a Gaussian core
+    of its own width with a negative shelf, each dirty image three
+    PSF-shaped sources of seeded amplitude inside the mask plus noise."""
+    import torch
+    g = torch.Generator(device='cuda').manual_seed(25)
+    dt = dict(dtype=torch.float64, device='cuda')
+    yx = torch.arange(n, **dt)
+    c0 = n // 2
+
+    def shape(py, px, w):
+        r2 = ((yx[None, :, None] - py[:, None, None]) ** 2 +
+              (yx[None, None, :] - px[:, None, None]) ** 2)
+        w2 = (w * w)[:, None, None]
+        return torch.exp(-r2 / (2.0 * w2)) - 0.1 * torch.exp(-r2 / (18.0 *
+                                                                      w2))
+
+    w = 2.0 + 4.0 * torch.rand(nb, generator=g, **dt)
+    centre = torch.full((nb,), float(c0), **dt)
+    psf = shape(centre, centre, w) / 0.9
+    dirty = 0.01 * torch.randn(nb, n, n, generator=g, **dt)
+    for _ in range(3):
+        py, px = (torch.randint(c0 - box, c0 + box, (nb,), generator=g,
+                                device='cuda').double() for _ in range(2))
+        amp = 0.5 + 2.5 * torch.rand(nb, generator=g, **dt)
+        dirty += amp[:, None, None] * shape(py, px, w)
+    mask = torch.zeros(n, n, **dt)
+    mask[c0 - box:c0 + box, c0 - box:c0 + box] = 1.0
+    return dirty, psf, mask
+
+
+def hogbom_numbers(smi):
+    """Phase 3 for the Hogbom kernels (W3) at the observed cube's block
+    (as many 500^2 float64 channels as ``clean_cube`` puts in a block, its
+    CLEAN box, every channel live for HOGBOM_NITER iterations): ptxas's
+    report (no spill); ``imaging._hogbom`` on the card against its plain
+    version ``_hogbom_plain`` on the same card tensors, models, residuals
+    and counts equal under ``torch.equal``, in two launches an iteration
+    and one to finish; both by the host clock; one iteration's device
+    time and its bound (the residual read and written and the PSF read
+    once over every plane).  Returns the summary line's row and the (max
+    relative, max absolute) difference."""
+    import torch
+    from rajepy_tpu_torch.ops import kernels as kn
+    from rajepy_tpu_torch.synthobs import imaging
+    print_ptxas(kn.build_log(), r'hogbom_\w+?_kernel',
+                {'hogbom_update_peak_kernel', 'hogbom_component_kernel'})
+    n = SYNTHOBS_IMSIZE
+    nb = imaging.CUBE_BLOCK_BYTES // (imaging.CUBE_PLANES * 8 * n * n)
+    dirty, psf, mask = hogbom_block(nb, n, HOGBOM_BOX)
+    thr = torch.zeros(nb, dtype=torch.float64)
+    args = (dirty, psf, mask, thr, 0.1, HOGBOM_NITER)
+    n0 = kn.LAUNCHES['hogbom']
+    got, k_ms = timed_once(lambda: imaging._hogbom(*args))
+    n_launch = kn.LAUNCHES['hogbom'] - n0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    want, p_ms = timed_once(lambda: imaging._hogbom_plain(*args))
+    p_peak = torch.cuda.max_memory_allocated() - base
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    abs_err = max(float((a - b).abs().max()) for a, b in
+                  zip(got[:2], want[:2]))
+    rel = abs_err / float(dirty.abs().max())
+    counts = set(got[2].tolist())
+    print(f"  Hogbom, {nb} x {n}^2 float64, box half-size {HOGBOM_BOX}, "
+          f"{HOGBOM_NITER} iterations: kernels {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms (one call each, CUDA events; the plain version "
+          f"{p_peak / 1e9:.3f} GB above its inputs); {n_launch} launches; "
+          f"iterations a channel {sorted(counts)}; equal under torch.equal "
+          f"{same}, max |diff| {abs_err:.3e}")
+    if not same or counts != {HOGBOM_NITER}:
+        raise AssertionError("the Hogbom kernels are not their plain "
+                             "version bit for bit, or a channel stopped")
+    if n_launch != 2 * HOGBOM_NITER + 1:
+        raise AssertionError(f"Hogbom: {n_launch} launches for "
+                             f"{HOGBOM_NITER} iterations")
+    del got, want
+    cycle = kn.HogbomCycle(dirty, psf, mask, thr, 0.1)
+    cycle.step()
+    k_ev = cuda_ms(cycle.step, n_rep=30, batch=8, n_warm=2)
+    dev = kernel_ms(cycle.step)
+    n_b = 3 * nbytes(dirty)
+    b_ms, b_by = bound(n_b, 0)
+    print(f"  Hogbom iteration: device {dev:.4f} ms (profiler, mean of 10), "
+          f"{k_ev:.4f} ms a step (CUDA events, median of 30 batches of 8); "
+          f"plain {p_ms / HOGBOM_NITER:.4f} ms an iteration (the loop's "
+          f"mean); bound {b_ms:.4f} ms by {b_by} ({n_b} B), "
+          f"{b_ms / dev:.3f} of it [{smi}]")
+    print_busy('Hogbom steps (kernels)', cycle.step, 10)
+    return ('hogbom', dev, p_ms / HOGBOM_NITER, b_ms, b_by), (rel, abs_err)
 
 
 # the epoch tile kernel's random-tile cases: (tile positions' segment ids,
@@ -4658,6 +4764,10 @@ def main() -> int:
         rows.append(wofz_row)
         # the fits are what launch the Faddeeva kernel
         launches['wofz'] = by_path['fit']['wofz']
+        hogbom_row, errs['hogbom'] = hogbom_numbers(smi)
+        rows.append(hogbom_row)
+        # the observed cube's CLEAN launches the Hogbom kernels the most
+        launches['hogbom'] = by_path['cube']['hogbom']
         full_rows, full_errs = full_grid_numbers(jm, empty, bursts)
         rows += full_rows
         for name, err in full_errs.items():

@@ -85,6 +85,20 @@ wrapper                     TPU kernel replaced                  route
                             XLA)
 ==========================  ===================================  ========
 
+Hogbom's CLEAN minor cycle (see ``csrc/hogbom.cu``), two launches an
+iteration on a block of channels (the subtraction fused with the next peak
+search, then the component), replaces no TPU kernel either (the JAX
+package's loop is a ``lax.while_loop``); ``synthobs/imaging._hogbom``
+drives it for CUDA tensors and takes its plain version,
+``imaging._hogbom_plain`` (the eager step), for CPU tensors:
+
+==========================  ===================================  ========
+wrapper                     TPU kernel replaced                  route
+==========================  ===================================  ========
+``HogbomCycle``             none (imaging._hogbom, a             cuda
+                            lax.while_loop in the JAX package)
+==========================  ===================================  ========
+
 Each wrapper takes CUDA tensors to its kernel and CPU tensors to the plain
 PyTorch version beside it (same formula, ``torch.sum`` over y; the ordered
 scans by an exclusive cumsum; the full-grid epoch version, like its
@@ -142,7 +156,7 @@ LAUNCHES = {'epoch_base_map_tiles': 0, 'epoch_base_maps2_tiles': 0,
             'epoch_base_map_full': 0, 'rrl_tiles_pallas': 0,
             'rrl_cube_pallas': 0, 'emergent_ff_tiles': 0,
             'emergent_ff_pallas': 0, 'transfer_scan_pallas': 0,
-            'wofz': 0, 'rrl_flux': 0}
+            'wofz': 0, 'rrl_flux': 0, 'hogbom': 0}
 
 # Weideman degree of the float32 RRL kernels: its truncation error (1.4e-7
 # on |x| <= 8) already sits at the float32 roundoff floor
@@ -156,6 +170,9 @@ RRL_CPL = 4
 RRL_MAX_GROUP = 64
 # channels a block of the channel-stage kernel (CB in csrc/rrl_flux.cu)
 RRL_FLUX_CB = 64
+# pixels a block of the Hogbom kernel scans for its peak (TILE in
+# csrc/hogbom.cu)
+HOGBOM_TILE = 2048
 # (1, y, z) extent of the full-grid RRL kernel's row blocks (ROW_Y, ROW_Z)
 RRL_ROW = (1, 64, 128)
 # channels per thread of the emergent kernels (CPT_FULL and CPT_TILES in
@@ -183,11 +200,12 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xptxas', '-v', '-Xcompiler', '-fPIC')
 #: each source's own flags, after NVCC_FLAGS: the epoch and emergent
 #: kernels keep the TPU's float32 operation order (no contracted
-#: multiply-add), and the Faddeeva and channel-stage kernels the eager
-#: chain's rounding of their plain versions; the RRL kernels contract (two
-#: FMAs per Goertzel step)
+#: multiply-add), and the Faddeeva, channel-stage and Hogbom kernels the
+#: eager chain's rounding of their plain versions; the RRL kernels contract
+#: (two FMAs per Goertzel step)
 SOURCE_FLAGS = {'epoch_maps.cu': ('-fmad=false',),
                 'emergent_maps.cu': ('-fmad=false',),
+                'hogbom.cu': ('-fmad=false',),
                 'rrl_flux.cu': ('-fmad=false',),
                 'rrl_maps.cu': (),
                 'voigt.cu': ('-fmad=false',)}
@@ -820,12 +838,16 @@ def _lib():
                                            ctypes.POINTER(_WofzCoeffs32), p]
         lib.rrl_flux.argtypes = [p] * 7 + [i] * 4 + [
             ctypes.POINTER(_RrlFluxConsts), p]
+        lib.hogbom_update_peak.argtypes = [p] * 8 + [i] * 5 + [p]
+        lib.hogbom_component.argtypes = [p] * 9 + [i] * 3 + [
+            ctypes.c_double, p]
         for fn in (lib.epoch_maps1, lib.epoch_maps2, lib.burst_chi_probe,
                    lib.epoch_full,
                    lib.rrl_tiles, lib.rrl_activity, lib.rrl_cube,
                    lib.transfer_scan, lib.emergent_full,
                    lib.emergent_tiles, lib.wofz_f64, lib.wofz_f32,
-                   lib.rrl_flux):
+                   lib.rrl_flux, lib.hogbom_update_peak,
+                   lib.hogbom_component):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -1474,3 +1496,93 @@ def rrl_flux_maps(freqs, scale, a_map, tbar, any_in, tau_l, csize_au,
     LAUNCHES[name] += 1
     profiling.count('rt.rrl_flux_kernel')
     return out
+
+
+class HogbomCycle:
+    """Hogbom's minor cycle on every channel of CUDA (b, n, n) ``dirty``
+    and ``psf`` (one dtype, float64 or float32, any layout) by the
+    kernels of csrc/hogbom.cu, the state on the card: :meth:`step` runs one
+    iteration on every channel still above its threshold in two launches
+    and returns the channels' flags (int32, 1 while a channel goes on);
+    :meth:`finish` applies the last iteration's subtraction and returns
+    (model, residual, per-channel iteration counts).  A channel at or
+    below its threshold is finished: its launches return at once.  The
+    plain version is ``synthobs/imaging._hogbom_plain``; the two give the
+    same bits but for the sign of a residual's zeros (equal under
+    ``torch.equal``).  ``mask`` (n, n) and ``thresholds`` (b,) are cast to
+    the planes' dtype, as the plain version casts them."""
+
+    def __init__(self, dirty: torch.Tensor, psf: torch.Tensor, mask,
+                 thresholds, gain: float):
+        name = 'hogbom'
+        if dirty.device.type != 'cuda' or psf.device != dirty.device:
+            raise ValueError(f"{name}: the kernel takes tensors on one CUDA "
+                             f"device, got {dirty.device} and {psf.device}")
+        if dirty.dtype not in (torch.float64, torch.float32) or \
+                psf.dtype != dirty.dtype:
+            raise TypeError(f"{name}: the CUDA kernel takes float64 or "
+                            f"float32, got {dirty.dtype} and {psf.dtype}")
+        if dirty.dim() != 3 or dirty.shape[1] != dirty.shape[2] or \
+                psf.shape != dirty.shape:
+            raise ValueError(f"{name}: expected (b, n, n) dirty and psf of "
+                             f"one shape, got {tuple(dirty.shape)} and "
+                             f"{tuple(psf.shape)}")
+        nb, n, _ = dirty.shape
+        if n * n >= 2 ** 31 or nb > _MAX_GRID_YZ:
+            raise ValueError(f"{name}: {nb} x {n} x {n} exceeds the launch "
+                             f"grid")
+        dev, dt = dirty.device, dirty.dtype
+        self.device, self.nb, self.n = dev, nb, n
+        self.mask = torch.as_tensor(mask, dtype=dt, device=dev).reshape(
+            n * n).contiguous()
+        self.thr = torch.as_tensor(thresholds, dtype=dt, device=dev).reshape(
+            nb).contiguous()
+        self.psf, self.gain = psf.contiguous(), float(gain)
+        self.res = dirty.reshape(nb, n * n).clone()
+        self.model = torch.zeros_like(self.res)
+        self.count = torch.zeros(nb, dtype=torch.int64, device=dev)
+        self.live = torch.ones(nb, dtype=torch.int32, device=dev)
+        self.peak = torch.zeros(nb, dtype=torch.int32, device=dev)
+        self.val = torch.zeros(nb, dtype=dt, device=dev)
+        n_tiles = -(-n * n // HOGBOM_TILE)
+        self.part_v = torch.empty((nb, n_tiles), dtype=dt, device=dev)
+        self.part_i = torch.empty((nb, n_tiles), dtype=torch.int32,
+                                  device=dev)
+        self.dbl = int(dt == torch.float64)
+        self.steps = 0
+
+    def _update_peak(self, lib, stream, find: bool) -> None:
+        err = lib.hogbom_update_peak(
+            self.res.data_ptr(), self.psf.data_ptr(), self.mask.data_ptr(),
+            self.live.data_ptr(), self.peak.data_ptr(), self.val.data_ptr(),
+            self.part_v.data_ptr(), self.part_i.data_ptr(), self.nb, self.n,
+            self.dbl, int(self.steps > 0), int(find), stream)
+        _raise_if_error('hogbom', err)
+        LAUNCHES['hogbom'] += 1
+
+    def step(self) -> torch.Tensor:
+        """One iteration: the previous one's subtraction and this one's
+        peaks, then the components.  Nothing waits for the card."""
+        if self.nb and self.n:
+            with torch.cuda.device(self.device):
+                lib, stream = _lib(), _stream(self.device)
+                self._update_peak(lib, stream, True)
+                err = lib.hogbom_component(
+                    self.res.data_ptr(), self.model.data_ptr(),
+                    self.thr.data_ptr(), self.live.data_ptr(),
+                    self.peak.data_ptr(), self.val.data_ptr(),
+                    self.count.data_ptr(), self.part_v.data_ptr(),
+                    self.part_i.data_ptr(), self.nb, self.n, self.dbl,
+                    self.gain, stream)
+                _raise_if_error('hogbom', err)
+                LAUNCHES['hogbom'] += 1
+        self.steps += 1
+        return self.live
+
+    def finish(self):
+        """(model, residual, counts): (b, n, n), (b, n, n), int64 (b,)."""
+        if self.steps and self.nb and self.n:
+            with torch.cuda.device(self.device):
+                self._update_peak(_lib(), _stream(self.device), False)
+        shape = (self.nb, self.n, self.n)
+        return self.model.view(shape), self.res.view(shape), self.count

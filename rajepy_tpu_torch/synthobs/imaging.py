@@ -8,7 +8,9 @@ defaults briggs robust=0.5, niter=500, nsigma=3.0 set at
 classes.py:2771-2782).  Everything but the beam fit and the beam image runs
 on the device of the visibilities.  The CLEAN minor cycles gate each
 iteration on the device and let the host read the stop condition every
-:data:`HOGBOM_CHECK_EVERY` iterations (:func:`_gated`).
+:data:`HOGBOM_CHECK_EVERY` iterations (:func:`_gated`); on CUDA tensors
+Hogbom's iteration is two launches of the kernels of ``csrc/hogbom.cu``
+(:func:`_hogbom`).
 
 Gridding is deterministic: the weight density and the convolutional grid
 are sums of matrix products over fixed chunks of visibilities (the
@@ -24,6 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops import kernels
 from ..utils import profiling
 from ..utils.profiling import KernelTimer
 
@@ -253,9 +256,30 @@ def _hogbom(dirty: torch.Tensor, psf: torch.Tensor, mask, thresholds,
     its threshold; a channel at or below it takes no update, so each
     channel's result is what :func:`hogbom_clean` gives it alone.  Each
     iteration is gated on the device; every :data:`HOGBOM_CHECK_EVERY`
-    iterations the host reads which channels are still active and drops
-    the finished ones from the working set (a finished channel's state is
-    final: its residual no longer changes, so it stays at or below its
+    iterations the host reads which channels are still active.
+
+    CUDA tensors (float64 or float32; another dtype raises) take the
+    kernels of ``csrc/hogbom.cu`` (:class:`kernels.HogbomCycle`: two
+    launches an iteration, finished channels left in place), any other
+    device :func:`_hogbom_plain`, their plain version; the two give equal
+    results.  Counts ``obs.hogbom_calls`` on every call and
+    ``obs.hogbom_kernel`` on each that ran the kernels."""
+    profiling.count('obs.hogbom_calls')
+    if dirty.device.type != 'cuda':
+        return _hogbom_plain(dirty, psf, mask, thresholds, gain, niter)
+    cycle = kernels.HogbomCycle(dirty, psf, mask, thresholds, gain)
+    _gated(cycle.step, niter)
+    out = cycle.finish()
+    profiling.count('obs.hogbom_kernel')
+    return out
+
+
+def _hogbom_plain(dirty: torch.Tensor, psf: torch.Tensor, mask, thresholds,
+                  gain: float, niter: int):
+    """:func:`_hogbom` in eager PyTorch, on any device: the plain version
+    of the Hogbom kernels.  At each check the host drops the finished
+    channels from the working set (a finished channel's state is final:
+    its residual no longer changes, so it stays at or below its
     threshold)."""
     nb, n, _ = dirty.shape
     dev, dt = dirty.device, dirty.dtype
@@ -345,8 +369,8 @@ def hogbom_clean_batched(dirty: torch.Tensor, psf: torch.Tensor, mask,
     at once.  A channel whose masked peak is at or below its threshold
     adds exact zeros while the others go on, so each channel's model,
     residual and count are :func:`hogbom_clean`'s on that channel alone,
-    bit for bit.  The host drops finished channels from the loop at its
-    checks.
+    bit for bit.  On the CPU the host drops finished channels from the
+    loop at its checks; on the card they stay in place (:func:`_hogbom`).
 
     Args:
       dirty: (n_chan, n, n); psf: (n_chan, n, n) centre-peaked;

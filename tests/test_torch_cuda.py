@@ -620,3 +620,106 @@ def test_synthobs_on_the_card_is_the_cpus_and_deterministic(card):
     assert res[card][2] == res['cpu'][2] > 0
     assert torch.equal(res[card][0].cpu(), res['cpu'][0])
     assert torch.equal(res[card][1].cpu(), res['cpu'][1])
+
+
+def _hogbom_cube(nc, n, box, seed):
+    """(nc, n, n) dirty images and PSFs and an (n, n) mask of half-size
+    ``box`` about the centre: each PSF a Gaussian core of its own width
+    with a negative shelf, each dirty image three PSF-shaped sources of
+    their own amplitude inside the mask plus noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:n, 0:n]
+    c0 = n // 2
+    psf, dirty = [], rng.normal(0.0, 0.01, (nc, n, n))
+    for c in range(nc):
+        w = 2.0 + 0.3 * c
+
+        def shape(py, px):
+            r2 = (yy - py) ** 2 + (xx - px) ** 2
+            return np.exp(-r2 / (2.0 * w * w)) - 0.1 * np.exp(
+                -r2 / (18.0 * w * w))
+
+        psf.append(shape(c0, c0) / 0.9)
+        for _ in range(3):
+            py, px = rng.integers(c0 - box, c0 + box, 2)
+            dirty[c] += rng.uniform(0.5, 3.0) * shape(py, px)
+    mask = np.zeros((n, n))
+    mask[c0 - box:c0 + box, c0 - box:c0 + box] = 1.0
+    return dirty, np.stack(psf), mask
+
+
+def _gated_steps(counts, niter):
+    """The steps ``imaging._gated`` runs for channels that took ``counts``
+    iterations: to the first host check after the last active one."""
+    from rajepy_tpu_torch.synthobs.imaging import HOGBOM_CHECK_EVERY as k
+    top = max(counts)
+    return niter if top >= niter else min(niter, k * (top // k + 1))
+
+
+@pytest.mark.parametrize('dtype,nc,n,box,niter,thr', [
+    # 12 channels, their own thresholds: one above its peak from the start,
+    # some to niter, the rest stopping on their way
+    (torch.float64, 12, 128, 40, 200,
+     (9.0, 0.0, 0.5, 0.2, 0.05, 1.0, 0.0, 0.3, 0.1, 0.02, 0.7, 0.15)),
+    # float32, none to niter: the host's check ends the loop (192 steps)
+    (torch.float32, 12, 128, 40, 200,
+     (9.0, 0.03, 0.5, 0.2, 0.05, 1.0, 0.04, 0.3, 0.1, 0.06, 0.7, 0.15)),
+    # the observed cube's image and CLEAN box (500^2, half-size 85)
+    (torch.float64, 4, 500, 85, 300, (0.3, 0.1, 0.05, 0.0)),
+    # odd planes, each with a partial last tile: 499^2 with the cube's box,
+    # and 47^2 (two tiles) with its box 3 pixels from the edges
+    (torch.float64, 4, 499, 85, 300, (0.3, 0.1, 0.05, 0.0)),
+    (torch.float32, 6, 47, 20, 70, (9.0, 0.6, 0.4, 0.25, 0.15, 0.0)),
+])
+def test_hogbom_kernel_is_the_plain_loop_bit_for_bit(card, dtype, nc, n,
+                                                      box, niter, thr):
+    """``hogbom_clean_batched`` on the card (the kernels of
+    csrc/hogbom.cu) against the CPU's eager loop: models and residuals
+    equal under ``torch.equal``, the same counts; two launches a step and
+    one more to finish; ``obs.hogbom_calls`` and ``obs.hogbom_kernel``
+    counted once each."""
+    from rajepy_tpu_torch.synthobs import imaging
+    dirty, psf, mask = (torch.as_tensor(a, dtype=dtype) for a in
+                        _hogbom_cube(nc, n, box, seed=nc + n))
+    want = imaging._hogbom(dirty, psf, mask, thr, 0.1, niter)
+    counts = want[2].tolist()
+    assert len(set(counts)) >= min(nc, 10)
+    assert (counts[0] == 0) == (thr[0] > 5.0)
+    launches = kn.LAUNCHES['hogbom']
+    calls = profiling.COUNTERS.get('obs.hogbom_calls', 0)
+    n_kernel = profiling.COUNTERS.get('obs.hogbom_kernel', 0)
+    got = imaging.hogbom_clean_batched(dirty.to(card), psf.to(card), mask,
+                                       thr, gain=0.1, niter=niter)
+    assert got[2] == max(counts)
+    assert kn.LAUNCHES['hogbom'] == launches + 2 * _gated_steps(
+        counts, niter) + 1
+    assert profiling.COUNTERS['obs.hogbom_calls'] == calls + 1
+    assert profiling.COUNTERS['obs.hogbom_kernel'] == n_kernel + 1
+    assert got[0].dtype == dtype and got[0].is_cuda
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    cycle = kn.HogbomCycle(dirty.to(card), psf.to(card), mask, thr, 0.1)
+    imaging._gated(cycle.step, niter)
+    assert cycle.finish()[2].cpu().tolist() == counts
+
+
+def test_hogbom_kernel_refuses_what_it_does_not_take(card):
+    """Another dtype than float64 or float32, or PSFs of another shape,
+    raise; transposed views are taken as their contiguous copies."""
+    dirty, psf, mask = (torch.as_tensor(a, device=card) for a in
+                        _hogbom_cube(2, 64, 20, seed=5))
+    from rajepy_tpu_torch.synthobs import imaging
+    with pytest.raises(TypeError, match='float64 or float32'):
+        imaging.hogbom_clean_batched(dirty.half(), psf.half(), mask,
+                                     (0.1, 0.1))
+    views = imaging.hogbom_clean_batched(
+        dirty.transpose(1, 2), psf.transpose(1, 2), mask, (0.1, 0.1))
+    copies = imaging.hogbom_clean_batched(
+        dirty.transpose(1, 2).contiguous(), psf.transpose(1, 2).contiguous(),
+        mask, (0.1, 0.1))
+    assert views[2] == copies[2] > 0
+    assert torch.equal(views[0], copies[0])
+    assert torch.equal(views[1], copies[1])
+    with pytest.raises(ValueError, match='one shape'):
+        imaging.hogbom_clean_batched(dirty, psf[:, :32, :32], mask,
+                                     (0.1, 0.1))

@@ -102,6 +102,29 @@ def test_hogbom_clean_batched_exact(thr, check_every, monkeypatch):
         assert counts[1] == 0 and torch.equal(r_t[1], _t(dirty[1]))
 
 
+def test_hogbom_on_the_cpu_counts_calls_but_no_kernel():
+    """``_hogbom`` on CPU tensors counts ``obs.hogbom_calls`` and not
+    ``obs.hogbom_kernel``, launches nothing, and gives the serial loop's
+    results, whichever entry point calls it."""
+    from rajepy_tpu_torch.ops import kernels
+    from rajepy_tpu_torch.utils import profiling
+    dirty, psf, mask = _batched_inputs()
+    thr = np.array([0.05, 0.5, 0.02])
+    counters = profiling.COUNTERS
+    calls = counters.get('obs.hogbom_calls', 0)
+    kernel = counters.get('obs.hogbom_kernel', 0)
+    launches = kernels.LAUNCHES['hogbom']
+    m_b, r_b, n_b = timg.hogbom_clean_batched(_t(dirty), _t(psf), mask, thr,
+                                              gain=0.2, niter=100)
+    m_s, r_s, n_s = timg.hogbom_clean(_t(dirty[2]), _t(psf[2]), mask,
+                                      gain=0.2, niter=100, threshold=0.02)
+    assert counters['obs.hogbom_calls'] == calls + 2
+    assert counters.get('obs.hogbom_kernel', 0) == kernel
+    assert kernels.LAUNCHES['hogbom'] == launches
+    assert torch.equal(m_s, m_b[2]) and torch.equal(r_s, r_b[2])
+    assert 0 < n_s <= n_b
+
+
 # --------------------------------------------------------------------------- #
 # clean_cube
 # --------------------------------------------------------------------------- #
